@@ -1,0 +1,50 @@
+"""Loss assembly for the cavity PINN (port of nsfnet_tpu/ops/losses.py).
+
+  * BC loss: mean((u_b - u_pred)^2) + mean((v_b - v_pred)^2)
+    (ev-NSFnet/pinn_solver.py:378-379).
+  * Equation loss: per-equation weighted MSE, weight applied as
+    res*sqrt(w) before squaring (ev-NSFnet/pinn_solver.py:387-397);
+    loss_e = eq1 + eq2 + eq3 + 0.1*eq4 in the EVM variant, eq1+eq2+eq3 in
+    the vanilla one (NSFnet/pinn_solver.py:218-221).
+
+Every mean is sum(w * r^2) / count over the padded array, with pad rows at
+weight 0 and `count` the number of REAL points, so padding never biases it.
+The supervised loss and the L2 loss mode come in a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def masked_sum_sq(residual: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum(w * r^2)."""
+    r = residual.reshape(-1)
+    w = weights.reshape(-1)
+    return torch.sum(w * r * r)
+
+
+def masked_mean_sq(residual: torch.Tensor, weights: torch.Tensor, count) -> torch.Tensor:
+    """sum(w * r^2) / count. `weights` is 0 on pad rows; for the unweighted
+    case it is the 0/1 validity mask. `count` = number of real points."""
+    return masked_sum_sq(residual, weights) / count
+
+
+def boundary_loss(u_pred, v_pred, u_b, v_b, mask, count) -> torch.Tensor:
+    return (masked_mean_sq(u_pred - u_b, mask, count)
+            + masked_mean_sq(v_pred - v_b, mask, count))
+
+
+def equation_loss(res, eq_weights, count, evm_entropy_weight: float = 0.1):
+    """Per-equation weighted MSEs. `eq_weights` already folds together the
+    SDF weights (mean-normalized) and the pad mask."""
+    l1 = masked_mean_sq(res.eq1, eq_weights, count)
+    l2 = masked_mean_sq(res.eq2, eq_weights, count)
+    l3 = masked_mean_sq(res.eq3, eq_weights, count)
+    if res.eq4 is not None:
+        l4 = masked_mean_sq(res.eq4, eq_weights, count)
+        total = l1 + l2 + l3 + evm_entropy_weight * l4
+    else:
+        l4 = torch.zeros((), dtype=res.eq1.dtype, device=res.eq1.device)
+        total = l1 + l2 + l3
+    return total, (l1, l2, l3, l4)

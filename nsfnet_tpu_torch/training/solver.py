@@ -1,0 +1,478 @@
+"""The PINN solver: the user-facing orchestrator (port of
+nsfnet_tpu/training/solver.py, main path).
+
+API parity with the reference `PysicsInformedNeuralNetwork`
+(ev-NSFnet/pinn_solver.py:27-765): set_boundary_data, set_eq_training_data,
+set_coordinate_transform, set_alpha_evm, train, evaluate, predict, save,
+load. What differs from the reference, as in the JAX package:
+  * point batches are padded with zero-weight rows; losses are exact means
+    over the real points;
+  * the EVM lag field vis_t is a device carry (no per-step host sync);
+  * the EVM freeze schedule is a gated update (no optimizer rebuild, Adam
+    moments kept);
+  * checkpoints hold the FULL train state for an exact resume.
+
+The solver runs on `cuda` unless the caller asks for the CPU; with no card
+and no such request it raises. The equation loss goes through the fused
+residual-loss engine: its CUDA kernel pair for CUDA tensors, its plain
+PyTorch version for CPU tensors.
+
+Left for later slices: L-BFGS / LM polish, microbatching, multi-GPU,
+supervised data, KAN / Fourier features, the streamfunction formulation,
+RAR and resampling, adaptive bc weight, stall-advance, .pth import/export.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nsfnet_tpu_torch.logger import get_logger
+from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
+from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, fused_residual_loss
+from nsfnet_tpu_torch.parallel import mesh as pmesh
+from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
+from nsfnet_tpu_torch.training.step import (
+    StageScalars,
+    make_chunk_runner,
+    make_loss_fn,
+    make_train_step,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless asked otherwise; a CUDA request without a card raises
+    (never a silent fall back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(or --cpu) to run on the CPU")
+    return dev
+
+
+@contextlib.contextmanager
+def _exact_fp32():
+    """Full-fp32 matmuls for evaluation, whatever the process has set
+    (the reference evaluates in full fp32)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+class PINNSolver:
+    """2-D steady cavity PINN solver (vanilla NSFnet or ev-NSFnet), MLP
+    backbone, velocity formulation. Constructor knobs follow
+    ev-NSFnet/pinn_solver.py:32-54 and the JAX package's flagship set."""
+
+    def __init__(
+        self,
+        Re: float = 1000,
+        layers: int = 6,
+        layers_1: Optional[int] = 4,
+        hidden_size: int = 80,
+        hidden_size_1: int = 40,
+        N_f: int = 100000,
+        alpha_evm: float = 0.03,
+        learning_rate: float = 0.001,
+        bc_weight: float = 10.0,
+        eq_weight: float = 1.0,
+        entropy_residual_weight: float = 0.1,
+        num_ins: int = 2,
+        num_outs: int = 3,
+        num_outs_1: int = 1,
+        checkpoint_freq: int = 10000,
+        checkpoint_path: str = "./results",
+        evm: bool = True,
+        seed: int = 42,
+        matmul_precision: str = "high",
+        evm_update_freq: int = 10000,
+        log_interval: int = 1000,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.Re = float(Re)
+        self.vis_t0 = 20.0 / self.Re  # ev-NSFnet/pinn_solver.py:67
+        self.N_f = N_f
+        self.alpha_evm = float(alpha_evm)
+        self.alpha_b = float(bc_weight)
+        self.alpha_e = float(eq_weight)
+        self.entropy_residual_weight = float(entropy_residual_weight)
+        self.evm = bool(evm) and layers_1 is not None
+        self.checkpoint_freq = checkpoint_freq
+        self.checkpoint_path = checkpoint_path
+        self.evm_update_freq = evm_update_freq
+        self.log_interval = log_interval
+        self.matmul_precision = matmul_precision
+        self.current_stage = " "
+        self.current_lr = learning_rate
+        self.current_re = self.Re
+        self.current_alpha_b = self.alpha_b
+        self.coord_scale = 1.0
+        self.layers = layers
+        self.hidden_size = hidden_size
+        self.layers_1 = layers_1
+        self.hidden_size_1 = hidden_size_1
+        self.logger = get_logger()
+
+        gen = torch.Generator().manual_seed(seed)
+        self.net = MLP(num_ins, num_outs, layers, hidden_size, gen, self.device)
+        self.net_1 = (MLP(num_ins, num_outs_1, layers_1, hidden_size_1, gen, self.device)
+                      if self.evm else None)
+        self.state = TrainState(
+            params=self.net.flat,
+            params_evm=self.net_1.flat if self.evm else None,
+            opt_main=AdamState.zeros_like(self.net.flat),
+            opt_evm=AdamState.zeros_like(self.net_1.flat) if self.evm else None,
+            vis_t_minus=None,
+        )
+        self.global_step = 0
+        self.loss_history = []  # (global_step, StepMetrics of floats) per log
+
+        self._bc = None
+        self._eq = None
+        self._eq_weights = None
+        self._batch: Optional[Batch] = None
+        self._runner = None
+        self._dirty = True
+        self._vis_stale = True
+
+        self.logger.info(
+            f"PINNSolver: variant={'ev-nsfnet' if self.evm else 'nsfnet'} "
+            f"net={layers}x{hidden_size} device={self.device}"
+            + (f" ({torch.cuda.get_device_name(self.device)})"
+               if self.device.type == "cuda" else ""))
+
+    # ------------------------------------------------------------ weights
+
+    def params(self) -> Params:
+        return self.net.params()
+
+    def params_evm(self) -> Optional[Params]:
+        return self.net_1.params() if self.evm else None
+
+    def set_params(self, params: Params, params_evm: Optional[Params] = None):
+        """Install network weights ((W, b), ... in the models/mlp.py layout),
+        with fresh optimizer moments and a vis_t carry recomputed from the
+        installed EVM net — a restart like the reference's weight import."""
+        with torch.no_grad():
+            self.net.flat.copy_(flatten_params(params))
+            if self.evm and params_evm is not None:
+                self.net_1.flat.copy_(flatten_params(params_evm))
+        self.state.opt_main = AdamState.zeros_like(self.net.flat)
+        if self.evm:
+            self.state.opt_evm = AdamState.zeros_like(self.net_1.flat)
+            if self._eq is not None:
+                self._init_vis_t()
+                self._vis_stale = True
+        self._dirty = True
+
+    # ---------------------------------------------------------------- data
+
+    def set_boundary_data(self, X=None):
+        """X = (x_b, y_b, u_b, v_b) host arrays [N,1]
+        (parity: ev-NSFnet/pinn_solver.py:142-158)."""
+        self._bc = tuple(np.asarray(a, np.float32).reshape(-1, 1) for a in X[:4])
+        self._dirty = True
+
+    def set_eq_training_data(self, X=None, weights=None):
+        """X = (x_f, y_f); optional per-point SDF weights
+        (parity: ev-NSFnet/pinn_solver.py:160-184)."""
+        self._eq = tuple(np.asarray(a, np.float32).reshape(-1, 1) for a in X[:2])
+        self._eq_weights = (np.asarray(weights, np.float32).reshape(-1, 1)
+                            if weights is not None else None)
+        self._dirty = True
+        if self.evm:
+            self._init_vis_t()
+            self._vis_stale = True  # the carried vis_t belongs to the old points
+
+    def _init_vis_t(self):
+        """vis_t_minus := alpha_evm*|e(x_f)| with the current EVM net
+        (parity: init_vis_t, ev-NSFnet/pinn_solver.py:138-140)."""
+        x = torch.from_numpy(np.concatenate(self._eq, axis=1)).to(self.device)
+        with torch.no_grad(), _exact_fp32():
+            e = self.net_1(x)[:, 0:1]
+        self._vis_t_init = self.alpha_evm * np.abs(e.cpu().numpy()).astype(np.float32)
+
+    def set_coordinate_transform(self, scale: Optional[float]):
+        """Chain-rule scale for [0,1]->[-1,1] domains
+        (parity: ev-NSFnet/pinn_solver.py:186-192)."""
+        self.coord_scale = 1.0 if (scale is None or scale <= 0) else float(scale)
+        self._dirty = True
+
+    def set_alpha_evm(self, alpha: float):
+        self.alpha_evm = float(alpha)
+
+    # ------------------------------------------------------------ assembly
+
+    def _eq_pad_size(self, n_f: int) -> int:
+        return pmesh.padded_size(n_f, 1, lane=ROW_ALIGN)
+
+    def _build_batch(self) -> Batch:
+        if self._bc is None or self._eq is None:
+            raise RuntimeError("set_boundary_data and set_eq_training_data first")
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        x_f, y_f = self._eq
+        n_f = x_f.shape[0]
+        nf_pad = self._eq_pad_size(n_f)
+        w = self._eq_weights if self._eq_weights is not None else np.ones((n_f, 1), np.float32)
+
+        x_b, y_b, u_b, v_b = self._bc
+        n_b = x_b.shape[0]  # no kernel reads the boundary set: no padding
+
+        batch = Batch(
+            x_f=dev(pmesh.pad_rows(x_f, nf_pad)),
+            y_f=dev(pmesh.pad_rows(y_f, nf_pad)),
+            eq_w=dev(pmesh.pad_rows(w, nf_pad, 0.0)), n_f=float(n_f),
+            x_b=dev(x_b), y_b=dev(y_b), u_b=dev(u_b), v_b=dev(v_b),
+            b_mask=dev(np.ones((n_b, 1), np.float32)), n_b=float(n_b),
+        )
+        if self.evm:
+            vtm = pmesh.pad_rows(self._vis_t_init, nf_pad, self.vis_t0)
+            cur = self.state.vis_t_minus
+            if self._vis_stale or cur is None or tuple(cur.shape) != vtm.shape:
+                self.state.vis_t_minus = dev(vtm)
+                self._vis_stale = False
+        return batch
+
+    def _make_loss(self):
+        sizes, sizes_1 = self.net.sizes, (self.net_1.sizes if self.evm else None)
+        scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
+        if evm:
+            def fused(flat, x, e, vis_t, eq_w, re):
+                return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
+                                           coord_scale=scale, evm=True, precision=prec)
+        else:
+            def fused(flat, x, eq_w, re):
+                return fused_residual_loss(flat, sizes, x, None, None, eq_w, re,
+                                           coord_scale=scale, evm=False, precision=prec)
+        return make_loss_fn(
+            engine=None,
+            apply_main=lambda flat, x: mlp_apply(unflatten_params(flat, sizes), x),
+            apply_evm=((lambda flat, x: mlp_apply(unflatten_params(flat, sizes_1), x))
+                       if evm else None),
+            coord_scale=scale,
+            alpha_e=self.alpha_e,
+            entropy_weight=self.entropy_residual_weight,
+            evm=evm,
+            fused_eq_loss=fused,
+        )
+
+    def _ensure_ready(self):
+        if not self._dirty and self._runner is not None:
+            return
+        self._batch = self._build_batch()
+        train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm)
+        self._runner = make_chunk_runner(train_step)
+        self._dirty = False
+
+    # ------------------------------------------------------------- training
+
+    def _stage_scalars(self, lr: float) -> StageScalars:
+        return StageScalars(lr=float(lr), alpha_evm=self.alpha_evm,
+                            re=self.current_re, alpha_b=self.current_alpha_b)
+
+    def run_steps(self, n_steps: int, lr: Optional[float] = None) -> StepMetrics:
+        """n_steps Adam steps at the current stage settings with no host
+        sync; returns the last step's metrics on the device."""
+        self._ensure_ready()
+        sc = self._stage_scalars(self.current_lr if lr is None else lr)
+        metrics = self._runner(self.state, self._batch, sc, n_steps)
+        self.global_step += n_steps
+        return metrics
+
+    def train(self, num_epoch: int = 1, lr: float = 1e-4,
+              Re: Optional[float] = None, bc_weight: Optional[float] = None):
+        """One Adam stage: num_epoch full-batch steps at fixed lr
+        (parity: ev-NSFnet/pinn_solver.py:430-487); Re / bc_weight override
+        the physics for this stage. Syncs with the device only at log and
+        checkpoint boundaries."""
+        self.current_re = float(Re) if Re is not None else self.Re
+        self.current_alpha_b = (float(bc_weight) if bc_weight is not None
+                                else self.alpha_b)
+        self.current_lr = lr
+        self._ensure_ready()
+        self.state.epoch_in_stage = 0
+
+        if not hasattr(self, "cumulative_start_time"):
+            self.cumulative_start_time = time.time()
+        stage_start = time.time()
+        done = 0
+        last_log_t, last_log_e = stage_start, 0
+        pts_per_step = int(self._batch.x_f.shape[0] + self._batch.x_b.shape[0])
+        while done < num_epoch:
+            # first step alone (log parity with the reference's epoch 0),
+            # then to the next log / checkpoint boundary
+            if done == 0:
+                n = 1
+            else:
+                n = min(((done // self.log_interval) + 1) * self.log_interval,
+                        ((done // self.checkpoint_freq) + 1) * self.checkpoint_freq,
+                        num_epoch) - done
+            metrics = self.run_steps(n, lr)
+            done += n
+            if done == 1 or done % self.log_interval == 0 or done == num_epoch:
+                m = metrics.to_host()
+                now = time.time()
+                interval_it_s = (done - last_log_e) / max(now - last_log_t, 1e-9)
+                avg_it_s = done / max(now - stage_start, 1e-9)
+                self._print_log(m, done, num_epoch, avg_it_s, interval_it_s,
+                                pts_per_step, now - stage_start,
+                                now - self.cumulative_start_time, lr)
+                last_log_t, last_log_e = now, done
+            if (done == 1 and num_epoch >= self.checkpoint_freq) \
+                    or done % self.checkpoint_freq == 0:
+                self.save(f"model_cavity_loop{done}.ckpt")
+        return self.state
+
+    # ------------------------------------------------------------ inference
+
+    def neural_net_u(self, x, y):
+        """(u, v, p, e) tensors at host points, in full fp32
+        (parity: ev-NSFnet/pinn_solver.py:280-288)."""
+        pts = torch.cat([torch.as_tensor(np.asarray(x, np.float32).reshape(-1, 1)),
+                         torch.as_tensor(np.asarray(y, np.float32).reshape(-1, 1))],
+                        dim=1).to(self.device)
+        with torch.no_grad(), _exact_fp32():
+            uvp = self.net(pts)
+            e = self.net_1(pts)[:, 0:1] if self.evm else torch.zeros_like(pts[:, 0:1])
+        return uvp[:, 0:1], uvp[:, 1:2], uvp[:, 2:3], e
+
+    def predict(self, X):
+        x, y = X
+        return self.neural_net_u(x, y)
+
+    def evaluate(self, x, y, u, v, p, log: bool = True):
+        """Relative L2 % errors vs DNS (parity: ev-NSFnet/pinn_solver.py:669-693)."""
+        u_pred, v_pred, p_pred, _ = (a.cpu().numpy().astype(np.float64)
+                                     for a in self.neural_net_u(x, y))
+        u_t, v_t, p_t = (np.asarray(a, np.float64).reshape(-1, 1) for a in (u, v, p))
+        mask = ~np.isnan(p_t)
+        err = lambda t, q: 100.0 * np.linalg.norm(t - q) / np.linalg.norm(t)
+        # p is defined up to a constant: report the raw error and the one
+        # with the best-fit constant removed
+        shift = float(np.mean(p_t[mask] - p_pred[mask]))
+        errors = {
+            "u": err(u_t, u_pred),
+            "v": err(v_t, v_pred),
+            "p": err(p_t[mask], p_pred[mask]),
+            "p_gauge": err(p_t[mask], p_pred[mask] + shift),
+            "p_shift": shift,
+        }
+        if log:
+            self.logger.info(
+                "Error u: %.3f %%  v: %.3f %%  p: %.3f %% (gauge-corrected %.3f %%, "
+                "shift %.4f)" % (errors["u"], errors["v"], errors["p"],
+                                 errors["p_gauge"], shift))
+        return errors
+
+    # ---------------------------------------------------------- persistence
+
+    def _ckpt_dir(self) -> str:
+        """Directory-name parity with ev-NSFnet/pinn_solver.py:742-747."""
+        nn = f"{self.layers}x{self.hidden_size}_Nf{int(self.N_f / 1000)}k"
+        lam = f"lamB{self.alpha_b:g}_alpha{self.alpha_evm:g}{self.current_stage}"
+        return os.path.join(self.checkpoint_path, f"Re{self.Re:g}", f"{nn}_{lam}")
+
+    def _arch(self) -> dict:
+        return {"layers": self.layers, "hidden_size": self.hidden_size,
+                "layers_1": self.layers_1 if self.evm else None,
+                "hidden_size_1": self.hidden_size_1 if self.evm else None}
+
+    def save(self, filename: str, directory: Optional[str] = None) -> str:
+        """Write the full train state with torch.save (atomic: tmp + rename)."""
+        path = os.path.join(directory or self._ckpt_dir(), filename)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        s = self.state
+        adam = lambda o: None if o is None else {"mu": o.mu, "nu": o.nu, "count": o.count}
+        blob = {
+            "params": s.params.detach(),
+            "params_evm": None if s.params_evm is None else s.params_evm.detach(),
+            "opt_main": adam(s.opt_main),
+            "opt_evm": adam(s.opt_evm),
+            "vis_t_minus": s.vis_t_minus,
+            "step": s.step,
+            "epoch_in_stage": s.epoch_in_stage,
+            "meta": {"global_step": self.global_step, "Re": self.Re,
+                     "alpha_evm": self.alpha_evm, "alpha_b": self.current_alpha_b,
+                     "stage": self.current_stage, **self._arch()},
+        }
+        tmp = path + ".tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load(self, path: str):
+        """Restore a checkpoint written by `save` (exact resume)."""
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        meta = blob["meta"]
+        bad = {k: (meta.get(k), v) for k, v in self._arch().items() if meta.get(k) != v}
+        if bad:
+            raise ValueError(f"checkpoint {path} architecture does not match this "
+                             f"solver: {bad} (checkpoint, solver)")
+        with torch.no_grad():
+            self.state.params.copy_(blob["params"])
+            if self.evm:
+                self.state.params_evm.copy_(blob["params_evm"])
+        restore = lambda o: AdamState(o["mu"].clone(), o["nu"].clone(), int(o["count"]))
+        self.state.opt_main = restore(blob["opt_main"])
+        if self.evm:
+            self.state.opt_evm = restore(blob["opt_evm"])
+        self.state.step = int(blob["step"])
+        self.state.epoch_in_stage = int(blob["epoch_in_stage"])
+        self.global_step = int(meta["global_step"])
+        self.current_stage = meta["stage"]
+        self.current_alpha_b = float(meta["alpha_b"])
+        vtm = blob["vis_t_minus"]
+        if vtm is not None and self._eq is not None:
+            # re-pad the writer's carry to this solver's padding
+            n_f = self._eq[0].shape[0]
+            if vtm.shape[0] < n_f:
+                self._init_vis_t()
+                rows = torch.from_numpy(self._vis_t_init).to(self.device)
+            else:
+                rows = vtm[:n_f]
+            pad = self._eq_pad_size(n_f) - n_f
+            vtm = torch.cat([rows, rows.new_full((pad, 1), self.vis_t0)])
+            self._vis_stale = False
+            self._dirty = True
+        self.state.vis_t_minus = vtm
+
+    # --------------------------------------------------------------- logging
+
+    def _print_log(self, m: StepMetrics, done, num_epoch, avg_it_s, interval_it_s,
+                   pts_per_step, stage_elapsed, total_elapsed, lr):
+        self.loss_history.append((self.global_step, m))
+        re_now = self.current_re
+        re_eff = 1.0 / (1.0 / re_now + m.vis_t_mean) if self.evm else re_now
+        throughput = interval_it_s * pts_per_step
+        eta = (num_epoch - done) / max(interval_it_s, 1e-9)
+        width = 30
+        filled = int(done / num_epoch * width)
+        bar = "#" * filled + " " * (width - filled)
+        self.logger.info(
+            f"[{self.current_stage}] {done:>7d}/{num_epoch:<7d} "
+            f"{done / num_epoch * 100:6.2f}% |{bar}|")
+        self.logger.info(
+            f"  loss: total={m.total:.3e} eq={m.equation:.3e} "
+            f"bc={m.boundary:.3e} sup={m.supervised:.3e}")
+        self.logger.info(
+            f"        eq1={m.eq1:.2e} eq2={m.eq2:.2e} eq3={m.eq3:.2e} eq4={m.eq4:.2e}")
+        self.logger.info(
+            f"  time: stage={stage_elapsed:.1f}s total={total_elapsed:.1f}s "
+            f"it/s={avg_it_s:.2f} (interval {interval_it_s:.2f}) eta={eta:.0f}s")
+        mem = ""
+        if self.device.type == "cuda":
+            mem = f" mem={torch.cuda.memory_allocated(self.device) / 1024**2:.0f}MB"
+        self.logger.info(
+            f"  perf: throughput={throughput:,.0f} pts/s lr={lr:.2e} "
+            f"Re_eff={re_eff:.1f} alpha_evm={self.alpha_evm}{mem}")
+

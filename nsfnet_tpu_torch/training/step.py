@@ -1,0 +1,170 @@
+"""The training step and the multi-step chunk runner
+(port of nsfnet_tpu/training/step.py:53-190, 271-331, 432-455).
+
+One step = the reference's full-batch epoch (solve_Adam body,
+ev-NSFnet/pinn_solver.py:456-480), on the device:
+
+  * NS residuals on the collocation batch — the fused residual-loss kernel
+    pair (ops/fused_residual.py) or the closed-form engine chain,
+  * boundary / equation losses with exact means over real points,
+  * Adam on the main net every step,
+  * Adam on the EVM net only on stage-epochs k*evm_update_freq, k >= 1
+    (pinn_solver.py:452-462); frozen steps leave its params AND moments
+    untouched, and its gradient is not computed,
+  * the vis_t carry update.
+
+Nothing in a step reads a value back from the device: lr, Re and alpha_evm
+are Python floats and the EVM gate counts on the host, so a chunk of steps
+queues up without a host sync. The caller syncs at log boundaries.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from nsfnet_tpu_torch.ops import losses as L
+from nsfnet_tpu_torch.ops import residuals as R
+from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
+
+Engine = Callable[..., tuple]  # (flat params, X[N,2]) -> Derivs
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam defaults
+
+
+class StageScalars(NamedTuple):
+    """Per-stage scalars; host floats, so changing them costs nothing."""
+
+    lr: float
+    alpha_evm: float
+    re: float
+    alpha_b: float
+
+
+def make_loss_fn(
+    engine: Optional[Engine],
+    apply_main: Callable,
+    apply_evm: Optional[Callable],
+    coord_scale: float,
+    alpha_e: float,
+    entropy_weight: float = 0.1,
+    evm: bool = True,
+    fused_eq_loss: Optional[Callable] = None,
+):
+    """Build the loss function (MSE mode). `fused_eq_loss(params, x, e,
+    vis_t, eq_w, re)` (EVM) / `(params, x, eq_w, re)` (vanilla) returns the
+    per-equation weighted sums of squares; without it the equation loss
+    runs `engine` -> residuals -> masked means. The supervised loss is not
+    part of this slice: its component is reported as 0."""
+
+    def eq_loss_fn(params_all, x_f, y_f, eq_w, n_f, vis_t_minus, sc: StageScalars):
+        params, params_evm = params_all
+        re = sc.re
+        vis_t0 = 20.0 / re  # ev-NSFnet/pinn_solver.py:67
+        x_eq = torch.cat([x_f, y_f], dim=1)
+        zero = x_f.new_zeros(())
+
+        if fused_eq_loss is not None:
+            if evm:
+                e = apply_evm(params_evm, x_eq)[:, 0:1]
+                vis_t = R.next_vis_t(vis_t_minus, vis_t0)
+                sums = fused_eq_loss(params, x_eq, e, vis_t, eq_w, re)
+                l1, l2, l3, l4 = sums[0] / n_f, sums[1] / n_f, sums[2] / n_f, sums[3] / n_f
+                new_vis_t_minus = R.update_vis_t_minus(e, sc.alpha_evm)
+                vis_t_mean = torch.sum(vis_t * eq_w) / n_f
+                loss_e = l1 + l2 + l3 + entropy_weight * l4
+            else:
+                sums = fused_eq_loss(params, x_eq, eq_w, re)
+                l1, l2, l3 = sums[0] / n_f, sums[1] / n_f, sums[2] / n_f
+                l4 = zero
+                new_vis_t_minus = vis_t_minus
+                vis_t_mean = zero
+                loss_e = l1 + l2 + l3
+            return alpha_e * loss_e, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus)
+
+        derivs = engine(params, x_eq)
+        if evm:
+            e = apply_evm(params_evm, x_eq)[:, 0:1]
+            vis_t = R.next_vis_t(vis_t_minus, vis_t0)
+            res = R.ev_ns_residuals(derivs, e, vis_t, re, coord_scale)
+            new_vis_t_minus = R.update_vis_t_minus(e, sc.alpha_evm)
+            vis_t_mean = torch.sum(vis_t * eq_w) / n_f
+        else:
+            res = R.ns_residuals(derivs, re, coord_scale)
+            new_vis_t_minus = vis_t_minus
+            vis_t_mean = zero
+        loss_e, (l1, l2, l3, l4) = L.equation_loss(res, eq_w, n_f, entropy_weight)
+        return alpha_e * loss_e, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus)
+
+    def aux_loss_fn(params_all, batch: Batch, sc: StageScalars):
+        """Boundary part, weighted, plus the raw component."""
+        params, _ = params_all
+        x_bc = torch.cat([batch.x_b, batch.y_b], dim=1)
+        uvp_b = apply_main(params, x_bc)
+        loss_b = L.boundary_loss(uvp_b[:, 0:1], uvp_b[:, 1:2],
+                                 batch.u_b, batch.v_b, batch.b_mask, batch.n_b)
+        return sc.alpha_b * loss_b, loss_b
+
+    def assemble(loss_b, l1, l2, l3, l4, vis_t_mean, sc: StageScalars):
+        loss_e = l1 + l2 + l3 + (entropy_weight * l4 if evm else 0.0)
+        total = sc.alpha_b * loss_b + alpha_e * loss_e
+        return StepMetrics(total, loss_b, loss_e, torch.zeros_like(total),
+                           l1, l2, l3, l4, vis_t_mean)
+
+    def loss_fn(params_all, batch: Batch, vis_t_minus, sc: StageScalars):
+        _, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus) = eq_loss_fn(
+            params_all, batch.x_f, batch.y_f, batch.eq_w, batch.n_f, vis_t_minus, sc)
+        _, loss_b = aux_loss_fn(params_all, batch, sc)
+        metrics = assemble(loss_b, l1, l2, l3, l4, vis_t_mean, sc)
+        return metrics.total, (metrics, new_vis_t_minus)
+
+    return loss_fn
+
+
+@torch.no_grad()
+def adam_update_(p: torch.Tensor, g: torch.Tensor, opt: AdamState, lr: float) -> None:
+    """optax.scale_by_adam() (b1 .9, b2 .999, eps 1e-8, eps_root 0) applied
+    as p -= lr * u, in place on p and the moments."""
+    opt.count += 1
+    opt.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+    opt.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+    mu_hat = opt.mu / (1.0 - ADAM_B1 ** opt.count)
+    nu_hat = opt.nu / (1.0 - ADAM_B2 ** opt.count)
+    p.sub_(lr * (mu_hat / (nu_hat.sqrt() + ADAM_EPS)))
+
+
+def make_train_step(loss_fn, evm_update_freq: int = 10000, evm: bool = True):
+    """Adam with a runtime learning rate; the EVM update is gated on the
+    stage-epoch counter (ev-NSFnet/pinn_solver.py:456-462)."""
+
+    def train_step(state: TrainState, batch: Batch, sc: StageScalars) -> StepMetrics:
+        do_evm = (evm and state.epoch_in_stage % evm_update_freq == 0
+                  and state.epoch_in_stage > 0)
+        total, (metrics, new_vtm) = loss_fn(
+            (state.params, state.params_evm), batch, state.vis_t_minus, sc)
+        targets = [state.params] + ([state.params_evm] if do_evm else [])
+        grads = torch.autograd.grad(total, targets)
+        adam_update_(state.params, grads[0], state.opt_main, sc.lr)
+        if do_evm:
+            adam_update_(state.params_evm, grads[1], state.opt_evm, sc.lr)
+        state.vis_t_minus = new_vtm
+        state.step += 1
+        state.epoch_in_stage += 1
+        return StepMetrics(*(m.detach() for m in metrics))
+
+    return train_step
+
+
+def make_chunk_runner(train_step):
+    """Run n_steps training steps back to back with no host sync; returns
+    the LAST step's metrics, still on the device (what the reference logs,
+    pinn_solver.py:478-480)."""
+
+    def run_chunk(state: TrainState, batch: Batch, sc: StageScalars, n_steps: int):
+        metrics = None
+        for _ in range(n_steps):
+            metrics = train_step(state, batch, sc)
+        return metrics
+
+    return run_chunk

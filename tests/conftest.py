@@ -26,3 +26,8 @@ def x64():
     jax.config.update("jax_enable_x64", True)
     yield
     jax.config.update("jax_enable_x64", old)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips from its fixture where there is none")

@@ -1,0 +1,117 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version at small sizes, bitwise determinism, and the autograd wiring.
+
+Marked `gpu`; every test skips (from its fixture) where no CUDA card is
+present. On the card: `python -m pytest tests/test_torch_gpu.py -m gpu`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, unflatten_params
+from nsfnet_tpu_torch.ops import fused_residual as fr
+from nsfnet_tpu_torch.training.solver import PINNSolver
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # exact fp32 plain version
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _inputs(sizes, n, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    flat = flatten_params(init_mlp(sizes, torch.Generator().manual_seed(seed)))
+    x = rng.uniform(-1, 1, (n, 2))
+    e = 0.1 * rng.standard_normal((n, 1))
+    vis_t = np.abs(0.01 * rng.standard_normal((n, 1)))
+    w = rng.uniform(0.2, 1.8, (n, 1))
+    w[-37:] = 0.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    return flat.to(dev), t(x), t(e), t(vis_t), t(w)
+
+
+CASES = [((2, 32, 32, 32, 3), 512, 2.0, 100.0, True),
+         ((2, 80, 80, 80, 3), 1024, 1.0, 2000.0, True),
+         ((2, 24, 24, 3), 512, 1.0, 400.0, False)]
+
+
+@pytest.mark.parametrize("sizes,n,scale,re,evm", CASES)
+def test_kernels_match_plain_version(cuda, sizes, n, scale, re, evm):
+    flat, x, e, vis_t, w = _inputs(sizes, n, cuda)
+    if not evm:
+        e = vis_t = None
+    sums = fr.fused_fwd(flat, sizes, x, e, vis_t, w, re, scale, evm)
+    ref = fr.plain_residual_sums(unflatten_params(flat, sizes), x, e, vis_t, w, re, scale, evm)
+    # fp32 sums over n points in another order
+    torch.testing.assert_close(sums, ref, rtol=2e-5, atol=1e-7)
+    ct = torch.tensor([0.7, 1.3, 0.9, 0.4][: 4 if evm else 3], device=cuda)
+    dflat, g_e = fr.fused_bwd(flat, sizes, x, e, vis_t, w, re, ct, scale, evm)
+    fr_ = flat.clone().requires_grad_(True)
+    targets = [fr_]
+    if evm:
+        e = e.clone().requires_grad_(True)
+        targets.append(e)
+    s = fr.plain_residual_sums(unflatten_params(fr_, sizes), x, e, vis_t, w, re, scale, evm)
+    grads = torch.autograd.grad(s, targets, ct)
+    torch.testing.assert_close(dflat, grads[0], rtol=5e-4, atol=5e-6)
+    if evm:
+        torch.testing.assert_close(g_e, grads[1], rtol=5e-4, atol=5e-6)
+
+
+@pytest.mark.parametrize("h", [16, 40, 80, 128])
+def test_tile_choice_agrees_with_the_library(cuda, h):
+    # pick_tile sizes the block without the library; the source owns the layout
+    lib = fr._lib()
+    for t in fr._TILES:
+        assert lib.nsf_fused_loss_smem_bytes(t, h, 3) == fr.smem_bytes(t, h)
+    assert fr.smem_bytes(fr.pick_tile(h), h) <= fr._MAX_SMEM
+
+
+def test_kernels_are_bitwise_deterministic(cuda):
+    sizes = (2, 80, 80, 80, 3)
+    flat, x, e, vis_t, w = _inputs(sizes, 4096, cuda, seed=1)
+    ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=cuda)
+    a = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True)
+    b = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True)
+    assert torch.equal(a, b)
+    (d1, g1), (d2, g2) = (fr.fused_bwd(flat, sizes, x, e, vis_t, w, 2000.0, ct, 1.0, True)
+                          for _ in range(2))
+    assert torch.equal(d1, d2) and torch.equal(g1, g2)
+
+
+def test_autograd_function_launches_both_kernels(cuda):
+    sizes = (2, 16, 16, 3)
+    flat, x, e, vis_t, w = _inputs(sizes, 256, cuda, seed=2)
+    flat.requires_grad_(True)
+    e.requires_grad_(True)
+    fr.reset_launch_counts()
+    s = fr.fused_residual_loss(flat, sizes, x, e, vis_t, w, 100.0)
+    gflat, ge = torch.autograd.grad(s.sum(), [flat, e])
+    assert fr.launch_counts == {"fused_residual_fwd": 1, "fused_residual_bwd": 1}
+    assert gflat.shape == flat.shape and ge.shape == e.shape
+    with pytest.raises(ValueError):  # unpadded batch: refused, no plain fallback
+        fr.fused_residual_loss(flat, sizes, x[:250], e[:250], vis_t[:250], w[:250], 100.0)
+
+
+def test_solver_on_the_card_matches_the_cpu(cuda):
+    from nsfnet_tpu_torch.data.cavity import CavityData
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        s = PINNSolver(Re=400, layers=3, layers_1=2, hidden_size=32, hidden_size_1=16,
+                       N_f=500, evm_update_freq=2, log_interval=1, checkpoint_freq=10**9,
+                       seed=3, device=dev)
+        d = CavityData(N_f=500, sdf_enabled=True, sort_training_points=False, seed=1)
+        s.set_boundary_data(X=d.boundary_data())
+        s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
+        s.train(num_epoch=4, lr=1e-3)
+        runs.append(np.asarray([tuple(m) for _, m in s.loss_history]))
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4, atol=1e-9)

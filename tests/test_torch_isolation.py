@@ -1,0 +1,109 @@
+"""PyTorch port: it stands alone (no JAX, nothing of nsfnet_tpu), its entry
+points refuse to run on the CPU unless asked, and the CLI runs on the CPU
+when asked."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from nsfnet_tpu_torch import train as port_train
+from nsfnet_tpu_torch.training.solver import PINNSolver
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "nsfnet_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nsfnet_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "nsfnet_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(os.sep, ".")
+        for p in _port_sources() if p.startswith(PKG) and not p.endswith("__init__.py"))
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "nsfnet_tpu_torch.training.solver" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PINNSolver()
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(TINY.format(out=tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train.main(["--config", str(cfg)])
+
+
+TINY = """\
+experiment_name: tiny
+model_variant: ev-nsfnet
+physics: {{Re: 100, alpha_evm: 0.05, bc_weight: 10, eq_weight: 1}}
+network: {{layers: 2, layers_1: 2, hidden_size: 16, hidden_size_1: 8}}
+training:
+  N_f: 300
+  log_interval: 2
+  checkpoint_freq: 1000000
+  checkpoint_dir: {out}
+  evm_update_freq: 2
+  sort_training_points: false
+  enable_tensorboard: false
+  sdf_weighting: {{enabled: true}}
+  training_stages:
+    - {{alpha: 0.05, epochs: 3, lr: 1.0e-3, name: S1}}
+    - {{alpha: 0.03, epochs: 2, lr: 2.0e-4, name: S2, Re: 150}}
+"""
+
+
+def test_cli_runs_on_the_cpu_when_asked(tmp_path):
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(TINY.format(out=tmp_path))
+    assert port_train.main(["--config", str(cfg), "--dry-run"]) == 0
+    assert port_train.main(["--config", str(cfg), "--cpu"]) == 0
+    final = list(tmp_path.glob("Re100/*/model_final.ckpt"))
+    assert len(final) == 1
+    blob = torch.load(final[0], weights_only=True)
+    assert blob["meta"]["global_step"] == 5 and blob["meta"]["stage"] == "S2"
+
+
+def test_cli_refuses_what_the_port_does_not_run(tmp_path):
+    cfg = tmp_path / "lbfgs.yaml"
+    cfg.write_text(TINY.format(out=tmp_path).replace("name: S2,", "name: S2, optimizer: lbfgs,"))
+    assert port_train.main(["--config", str(cfg), "--cpu"]) == 2
