@@ -5,23 +5,38 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card: torch's name and nvidia-smi's name / power limit;
-  2. build every CUDA kernel from nsfnet_tpu_torch/csrc with nvcc, and show
-     ptxas's registers / shared memory / spills;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     flagship width (6x80 MLP, N_f = 120,000 SDF-weighted points, EVM on,
-     Re = 2000), and check that two runs are bitwise equal;
-  4. the slice: the flagship ev-NSFnet config through ConfigManager.from_dict
-     -> PINNSolver on cuda -> 30 Adam steps with the EVM gate firing; the
-     metrics must be finite and the loss must fall, and every kernel must
-     have been launched by that run; then the same solver code on cuda and
-     on the CPU from the same seed must agree on a small input;
+  2. build every CUDA kernel from nsfnet_tpu_torch/csrc with nvcc (one
+     process per source, all at once), and show ptxas's registers / shared
+     memory / spills;
+  3. hold each kernel against its plain PyTorch version on the card at full
+     width, and check that two runs are bitwise equal: the fused
+     residual-loss pair (kernels 1+2) at the flagship width (6x80 MLP,
+     N_f = 120,000 SDF-weighted points, EVM on, Re = 2000); the five-stream
+     engine (kernels 3+4) at that width and at the vanilla NSFnet width
+     (4x120 MLP, N_f = 40,000), with random cotangents from a seeded
+     generator;
+  4. the paths, each through ConfigManager.from_dict -> build_solver on cuda
+     -> train(), with the launch counts set to 0 just before and read just
+     after:
+       4a. the flagship ev-NSFnet config, 30 Adam steps with the EVM gate
+           firing, through kernels 1+2; then (4b) cuda against the CPU from
+           one seed on a small input;
+       4c. the reference v1 config (vanilla NSFnet, loss_mode L2), 30 Adam
+           steps through kernels 3+4; then cuda against the CPU on a small
+           input;
+       4d. the flagship batch and weights with the fused loss off (kernels
+           3+4 -> residuals -> masked sums) against the fused loss (kernels
+           1+2): the step's metrics and the main-net gradient;
+     metrics must be finite, the loss must fall, and each path must have
+     launched its kernels once per step and the other pair not at all;
   5. times: each kernel, its plain version and its bound, and the step time
-     and collocation points/s of the slice, beside the card's name and
-     power limit.
+     and collocation points/s of both paths, beside the card's name and
+     power limit; the profiler's table for each path's step.
 Prints a `kernels` JSON line, then, last, the device JSON line. Also writes
 everything to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -36,10 +51,14 @@ HBM_RATE = 3.35e12     # bytes/s
 
 RE = 2000.0
 N_F = 120_000
+N_F_V1 = 40_000
+N_B = 4 * 513          # boundary points of the cavity data
 SLICE_STEPS = 30
-FWD_TOL = 1e-4   # max relative difference of each loss sum
+TIMED_STEPS = 50
+FWD_TOL = 1e-4   # max relative difference of each loss sum / max|diff|/max|plain| per stream
 BWD_TOL = 1e-4   # max |diff| / max |plain| of each gradient tensor and of g_e
 SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
+UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -52,6 +71,21 @@ FLAGSHIP = {
         "matmul_precision": "high", "evm_update_freq": 10, "seed": 0,
         "checkpoint_freq": 10**9, "enable_tensorboard": False,
         "training_stages": [{"alpha": 0.05, "epochs": SLICE_STEPS, "lr": 1e-3,
+                             "name": "smoke"}],
+    },
+}
+
+# The reference v1's own setting (configs/re2000_nsfnet.yaml, NSFnet/train.py:23-77)
+# with its un-normalised L2-norm loss.
+V1 = {
+    "experiment_name": "chip_smoke_re2000_nsfnet_l2",
+    "model_variant": "nsfnet",
+    "physics": {"Re": RE, "bc_weight": 10, "eq_weight": 1},
+    "network": {"layers": 4, "hidden_size": 120},
+    "training": {
+        "N_f": N_F_V1, "log_interval": 10, "loss_mode": "L2", "seed": 0,
+        "checkpoint_freq": 10**9, "enable_tensorboard": False,
+        "training_stages": [{"alpha": 0.0, "epochs": SLICE_STEPS, "lr": 1e-3,
                              "name": "smoke"}],
     },
 }
@@ -71,8 +105,8 @@ def cuda_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def profile_steps(torch, solver, card, n_steps=5):
-    """Device time by kernel over a few slice steps (torch.profiler), and the
+def profile_steps(torch, solver, card, what, n_steps=5):
+    """Device time by kernel over a few steps (torch.profiler), and the
     share of the window's wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,11 +125,11 @@ def profile_steps(torch, solver, card, n_steps=5):
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
     if not rows:
-        print("profile: no device time in the trace (not measured)")
+        print(f"profile {what}: no device time in the trace (not measured)")
         return None
-    print(f"profile ({n_steps} steps, under the profiler): {wall_ms / n_steps:.3f} ms/step "
-          f"wall, device busy {busy:.3f} ms/step ({100 * busy * n_steps / wall_ms:.1f}%) "
-          f"— {card}")
+    print(f"profile {what} ({n_steps} steps, under the profiler): "
+          f"{wall_ms / n_steps:.3f} ms/step wall, device busy {busy:.3f} ms/step "
+          f"({100 * busy * n_steps / wall_ms:.1f}%) — {card}")
     for name, ms in rows[:10]:
         print(f"  {ms:9.4f} ms/step  {name[:90]}")
     return {"wall_ms_per_step": wall_ms / n_steps, "busy_ms_per_step": busy,
@@ -104,6 +138,32 @@ def profile_steps(torch, solver, card, n_steps=5):
 
 def rel_sums(a, b):
     return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def rel_max(a, b):
+    """max|a - b| / max|b| of two tensors."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def rel_per_param(unflatten, got, ref, sizes):
+    """The worst rel_max over the (W, b) tensors of two flat gradients."""
+    return max(rel_max(a, r) for pa, pr in zip(unflatten(got, sizes), unflatten(ref, sizes))
+               for a, r in zip(pa, pr))
+
+
+@contextlib.contextmanager
+def fused_loss_env(value):
+    """NSFNET_FUSED_LOSS set to `value` (None: unset) while a solver builds
+    its loss; restored afterwards."""
+    old = os.environ.pop("NSFNET_FUSED_LOSS", None)
+    if value is not None:
+        os.environ["NSFNET_FUSED_LOSS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("NSFNET_FUSED_LOSS", None)
+        if old is not None:
+            os.environ["NSFNET_FUSED_LOSS"] = old
 
 
 def main() -> int:
@@ -118,10 +178,27 @@ def main() -> int:
                                              unflatten_params)
     from nsfnet_tpu_torch.ops import _build
     from nsfnet_tpu_torch.ops import fused_residual as fr
+    from nsfnet_tpu_torch.ops import mlp_streams as ms
     from nsfnet_tpu_torch.train import build_data, build_solver
 
+    os.environ.pop("NSFNET_FUSED_LOSS", None)  # the paths below choose it themselves
     record = {}
     dev = torch.device("cuda", 0)
+
+    def reset_counts():
+        fr.reset_launch_counts()
+        ms.reset_launch_counts()
+
+    def read_counts():
+        return {**fr.launch_counts, **ms.launch_counts}
+
+    def ready_solver(cfg, where="cuda"):
+        s = build_solver(cfg, device=where)
+        d = build_data(cfg)
+        s.set_boundary_data(X=d.boundary_data())
+        s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
+        s.set_coordinate_transform(d.coord_scale)
+        return s, d
 
     # ---- 1. the card
     kind = torch.cuda.get_device_name(0)
@@ -145,22 +222,31 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
     record["build_s"] = build_s
     sizes = layer_sizes(2, 3, 6, 80)
-    tile = fr.pick_tile(80)
-    c_smem = fr._lib().nsf_fused_loss_smem_bytes(tile, 80, 3)
-    assert c_smem == fr.smem_bytes(tile, 80), (c_smem, fr.smem_bytes(tile, 80))
-    print(f"tile {tile} points, {c_smem} B shared memory per block, "
-          f"{fr.PARTIAL_BLOCKS} blocks")
+    sizes_v1 = layer_sizes(2, 3, 4, 120)
+    for h in (80, 120):
+        tile = fr.pick_tile(h)
+        smem = fr.smem_bytes(tile, h)
+        assert fr._lib().nsf_fused_loss_smem_bytes(tile, h, 3) == smem
+        assert ms._lib().nsf_mlp_streams_smem_bytes(tile, h, 3) == smem
+        print(f"width {h}: tile {tile} points, {smem} B shared memory per block, "
+              f"{fr.PARTIAL_BLOCKS} blocks")
 
-    # ---- 3. kernel check at full width
+    # ---- 3. kernel checks at full width
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    data = build_data(ConfigManager.from_dict(FLAGSHIP).config)
-    data.boundary_data()
-    xf, yf = data.training_data()
-    n = -(-N_F // fr.ROW_ALIGN) * fr.ROW_ALIGN
+
+    def padded_points(cfg, n_f):
+        """The config's collocation draw, padded like the solver's batch."""
+        data = build_data(cfg)
+        data.boundary_data()
+        xf, yf = data.training_data()
+        n = -(-n_f // fr.ROW_ALIGN) * fr.ROW_ALIGN
+        x = torch.zeros((n, 2))
+        x[:n_f, 0], x[:n_f, 1] = torch.from_numpy(xf[:, 0]), torch.from_numpy(yf[:, 0])
+        return data, n, x
+
+    data, n, x = padded_points(ConfigManager.from_dict(FLAGSHIP).config, N_F)
     pad = n - N_F
-    x = torch.zeros((n, 2))
-    x[:N_F, 0], x[:N_F, 1] = torch.from_numpy(xf[:, 0]), torch.from_numpy(yf[:, 0])
     eq_w = torch.zeros((n, 1))
     eq_w[:N_F] = torch.from_numpy(data.sdf_weights.reshape(-1, 1))
     gen = torch.Generator().manual_seed(0)
@@ -171,6 +257,7 @@ def main() -> int:
     ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev) / N_F
     args = (flat, sizes, x, e, vis_t, eq_w, RE)
 
+    # 3a. kernels 1+2
     sums_k = fr.fused_fwd(*args, 1.0, True)
     sums_k2 = fr.fused_fwd(*args, 1.0, True)
     params = unflatten_params(flat, sizes)
@@ -192,13 +279,8 @@ def main() -> int:
                                     RE, 1.0, True)
     dflat_p, ge_p = torch.autograd.grad(sums_r, [flat_r, e_r], ct, retain_graph=True)
     torch.cuda.synchronize()
-    bwd_rel, off = 0.0, 0
-    for w, b in params:
-        for t in (w, b):
-            a, r = dflat_k[off:off + t.numel()], dflat_p[off:off + t.numel()]
-            bwd_rel = max(bwd_rel, ((a - r).abs().max() / r.abs().max()).item())
-            off += t.numel()
-    ge_rel = ((ge_k - ge_p).abs().max() / ge_p.abs().max()).item()
+    bwd_rel = rel_per_param(unflatten_params, dflat_k, dflat_p, sizes)
+    ge_rel = rel_max(ge_k, ge_p)
     bwd_abs = max((dflat_k - dflat_p).abs().max().item(), (ge_k - ge_p).abs().max().item())
     bwd_det = torch.equal(dflat_k, dflat_k2) and torch.equal(ge_k, ge_k2)
     print(f"kernel fused_residual_bwd: max rel diff dW/db {bwd_rel:.3e}, g_e {ge_rel:.3e} "
@@ -210,59 +292,148 @@ def main() -> int:
     ok_check = (fwd_rel <= FWD_TOL and bwd_rel <= BWD_TOL and ge_rel <= BWD_TOL
                 and fwd_det and bwd_det)
 
-    # ---- 4. the slice, through the port's entry points
-    cfg = ConfigManager.from_dict(FLAGSHIP).config
-    solver = build_solver(cfg, device="cuda")
-    sdata = build_data(cfg)
-    solver.set_boundary_data(X=sdata.boundary_data())
-    solver.set_eq_training_data(X=sdata.training_data(), weights=sdata.sdf_weights)
-    solver.set_coordinate_transform(sdata.coord_scale)
-    st = cfg.training.training_stages[0]
-    solver.set_alpha_evm(st.alpha)
-    fr.reset_launch_counts()
-    t0 = time.time()
-    solver.train(num_epoch=st.epochs, lr=st.lr)
-    torch.cuda.synchronize()
-    slice_s = time.time() - t0
-    launches = dict(fr.launch_counts)
-    hist = [(s, m._asdict()) for s, m in solver.loss_history]
-    finite = all(math.isfinite(v) for _, m in hist for v in m.values())
-    first, last = hist[0][1]["total"], hist[-1][1]["total"]
-    u, v, p_, e_pred = solver.predict((sdata.boundary_data()[0][:1000],
-                                       sdata.boundary_data()[1][:1000]))
-    pred_ok = all(t.shape == (1000, 1) and torch.isfinite(t).all().item()
-                  for t in (u, v, p_, e_pred))
-    print(f"slice: {st.epochs} Adam steps in {slice_s:.2f} s (first step builds), "
-          f"launches {launches}")
-    for s, m in hist:
-        print(f"  step {s}: " + " ".join(f"{k}={val:.4e}" for k, val in m.items()))
-    print(f"  finite {finite}, total loss {first:.4e} -> {last:.4e}, predict ok {pred_ok}")
-    record["slice"] = {"history": hist, "launches": launches, "seconds": slice_s}
-    ok_slice = (finite and last < first and pred_ok
-                and all(launches[k] > 0 for k in launches))
+    # 3b. kernels 3+4 at both widths
+    _, n_v1, x_v1 = padded_points(ConfigManager.from_dict(V1).config, N_F_V1)
+    flat_v1 = flatten_params(init_mlp(sizes_v1, torch.Generator().manual_seed(1)))
+    x_v1, flat_v1 = x_v1.to(dev).contiguous(), flat_v1.to(dev)
+    stream_cases = {"4x120": (flat_v1, sizes_v1, x_v1), "6x80": (flat, sizes, x)}
+    stream_cts, stream_chk = {}, {}
+    for name, (fl, sz, xx) in stream_cases.items():
+        g = torch.Generator().manual_seed(2)
+        cts = [torch.randn((xx.shape[0], 3), generator=g).to(dev) for _ in range(5)]
+        stream_cts[name] = cts
+        out_k, out_k2 = ms.streams_fwd(fl, sz, xx), ms.streams_fwd(fl, sz, xx)
+        with torch.no_grad():
+            out_p = ms.plain_mlp_streams(fl, sz, xx)
+        d_k, d_k2 = ms.streams_bwd(fl, sz, xx, cts), ms.streams_bwd(fl, sz, xx, cts)
+        d_p = ms.plain_mlp_streams_bwd(fl, sz, xx, cts)
+        torch.cuda.synchronize()
+        c = {"n": xx.shape[0],
+             "fwd_rel": max(rel_max(a, b) for a, b in zip(out_k, out_p)),
+             "fwd_abs": max((a - b).abs().max().item() for a, b in zip(out_k, out_p)),
+             "fwd_det": all(torch.equal(a, b) for a, b in zip(out_k, out_k2)),
+             "bwd_rel": rel_per_param(unflatten_params, d_k, d_p, sz),
+             "bwd_abs": (d_k - d_p).abs().max().item(),
+             "bwd_det": torch.equal(d_k, d_k2)}
+        stream_chk[name] = c
+        print(f"kernel mlp_streams_fwd {name} N={c['n']}: max rel diff {c['fwd_rel']:.3e} "
+              f"(tolerance {FWD_TOL:g}, per stream max|diff|/max|plain|), max abs "
+              f"{c['fwd_abs']:.3e}, bitwise equal across runs: {c['fwd_det']}")
+        print(f"kernel mlp_streams_bwd {name} N={c['n']}: max rel diff dW/db {c['bwd_rel']:.3e} "
+              f"(tolerance {BWD_TOL:g}, per tensor max|diff|/max|plain|), max abs "
+              f"{c['bwd_abs']:.3e}, bitwise equal across runs: {c['bwd_det']}")
+        ok_check = (ok_check and c["fwd_rel"] <= FWD_TOL and c["bwd_rel"] <= BWD_TOL
+                    and c["fwd_det"] and c["bwd_det"])
+    record["check_streams"] = stream_chk
 
-    # ---- 4b. the same solver code on cuda and on the CPU, small input
-    small = json.loads(json.dumps(FLAGSHIP))
-    small["training"].update(N_f=512, log_interval=1, evm_update_freq=2)
-    scfg = ConfigManager.from_dict(small).config
-    runs = {}
-    for where in ("cuda", "cpu"):
-        s = build_solver(scfg, device=where)
-        d = build_data(scfg)
-        s.set_boundary_data(X=d.boundary_data())
-        s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
-        s.set_alpha_evm(0.05)
-        s.train(num_epoch=3, lr=1e-3)
-        runs[where] = [m for _, m in s.loss_history]
-    small_rel = max(abs(a - b) / max(abs(b), 1e-30)
-                    for ma, mb in zip(runs["cuda"], runs["cpu"])
-                    for a, b in zip(ma, mb) if b != 0.0)
-    print(f"small input (6x80, N_f=512, 3 steps): cuda vs CPU max rel diff of the "
-          f"metrics {small_rel:.3e} (tolerance {SMALL_TOL:g})")
-    record["small_rel"] = small_rel
+    # ---- 4. the paths, through the port's entry points
+    def drive(cfg, name, expect):
+        """train() for the config's stage with the counts reset just before
+        and read just after; returns the solver and whether the path held."""
+        solver, sdata = ready_solver(cfg)
+        st = cfg.training.training_stages[0]
+        solver.set_alpha_evm(st.alpha)
+        reset_counts()
+        t0 = time.time()
+        solver.train(num_epoch=st.epochs, lr=st.lr)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = read_counts()
+        hist = [(s, m._asdict()) for s, m in solver.loss_history]
+        finite = all(math.isfinite(v) for _, m in hist for v in m.values())
+        first, last = hist[0][1]["total"], hist[-1][1]["total"]
+        bx, by = sdata.boundary_data()[:2]
+        preds = solver.predict((bx[:1000], by[:1000]))
+        pred_ok = all(t.shape == (1000, 1) and torch.isfinite(t).all().item() for t in preds)
+        print(f"{name}: {st.epochs} Adam steps in {seconds:.2f} s (first step builds), "
+              f"launches {launches}")
+        for s, m in hist:
+            print(f"  step {s}: " + " ".join(f"{k}={val:.4e}" for k, val in m.items()))
+        print(f"  finite {finite}, total loss {first:.4e} -> {last:.4e}, predict ok {pred_ok}")
+        record[name] = {"history": hist, "launches": launches, "seconds": seconds}
+        ok = (finite and last < first and pred_ok
+              and all(launches[k] == (st.epochs if k in expect else 0) for k in launches))
+        return solver, launches, ok
+
+    def cuda_vs_cpu(base, what, **training):
+        small = json.loads(json.dumps(base))
+        small["training"].update(N_f=512, log_interval=1, **training)
+        scfg = ConfigManager.from_dict(small).config
+        runs = {}
+        for where in ("cuda", "cpu"):
+            s, _ = ready_solver(scfg, where)
+            s.set_alpha_evm(scfg.training.training_stages[0].alpha)
+            s.train(num_epoch=3, lr=1e-3)
+            runs[where] = [m for _, m in s.loss_history]
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for ma, mb in zip(runs["cuda"], runs["cpu"])
+                  for a, b in zip(ma, mb) if b != 0.0)
+        print(f"small input ({what}, N_f=512, 3 steps): cuda vs CPU max rel diff of the "
+              f"metrics {rel:.3e} (tolerance {SMALL_TOL:g})")
+        return rel
+
+    # 4a/4b. the flagship slice: kernels 1+2
+    fcfg = ConfigManager.from_dict(FLAGSHIP).config
+    solver, launches, ok_slice = drive(fcfg, "slice", ("fused_residual_fwd",
+                                                       "fused_residual_bwd"))
+    record["small_rel"] = small_rel = cuda_vs_cpu(FLAGSHIP, "6x80 ev-nsfnet",
+                                                  evm_update_freq=2)
     ok_small = small_rel <= SMALL_TOL
 
+    # 4c. the v1 L2 slice: kernels 3+4
+    vcfg = ConfigManager.from_dict(V1).config
+    solver_v1, launches_v1, ok_v1 = drive(vcfg, "slice_v1_l2", ("mlp_streams_fwd",
+                                                               "mlp_streams_bwd"))
+    record["small_rel_v1"] = small_rel_v1 = cuda_vs_cpu(V1, "4x120 nsfnet L2")
+    ok_small = ok_small and small_rel_v1 <= SMALL_TOL
+
+    # 4d. unfused against fused on the flagship batch and the trained weights
+    sides = {}
+    for side, env in (("fused", None), ("unfused", "0")):
+        with fused_loss_env(env):
+            s, _ = ready_solver(fcfg)
+            s.set_params(solver.params(), solver.params_evm())
+            s._ensure_ready()
+            reset_counts()
+            total, (metrics, _) = s._make_loss()(
+                (s.state.params, s.state.params_evm), s._batch, s.state.vis_t_minus,
+                s._stage_scalars(1e-3))
+            (grad,) = torch.autograd.grad(total, [s.state.params])
+            torch.cuda.synchronize()
+            sides[side] = (metrics.to_host(), grad, read_counts())
+    m_rel = rel_sums(list(sides["unfused"][0]), list(sides["fused"][0]))
+    g_rel = rel_per_param(unflatten_params, sides["unfused"][1], sides["fused"][1], sizes)
+    routed = (sides["fused"][2] == {"fused_residual_fwd": 1, "fused_residual_bwd": 1,
+                                    "mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
+              and sides["unfused"][2] == {"fused_residual_fwd": 0, "fused_residual_bwd": 0,
+                                          "mlp_streams_fwd": 1, "mlp_streams_bwd": 1})
+    print(f"unfused (kernels 3+4 -> residuals -> masked sums) vs fused (kernels 1+2), "
+          f"flagship batch: metrics max rel diff {m_rel:.3e}, main-net gradient "
+          f"{g_rel:.3e} (tolerance {UNFUSED_TOL:g}), each side through its own kernels: "
+          f"{routed}")
+    record["unfused_vs_fused"] = {"metrics_rel": m_rel, "grad_rel": g_rel, "routed": routed}
+    ok_unfused = m_rel <= UNFUSED_TOL and g_rel <= UNFUSED_TOL and routed
+    del sides, s
+
     # ---- 5. times
+    kernels, work = [], {}
+
+    def add_kernel(name, source, line, launched, ms_, plain_ms, err, rel, flops, nbytes, shape):
+        t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": line,
+            "launches": launched, "max_abs_err": err, "max_rel_err": rel, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "shape": shape})
+        print(f"time {name} [{shape}]: {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{1e3 * max(t_ops, t_bytes):.4f} ms (fp32 {FP32_PEAK / 1e12:g} TFLOP/s; TF32 "
+              f"{1e3 * flops / TF32_PEAK:.4f} ms, bf16 {1e3 * flops / BF16_PEAK:.4f} ms; "
+              f"bytes {1e3 * t_bytes:.4f} ms), {flops / ms_ / 1e9:.1f} TFLOP/s achieved — {card}")
+        # worked out from the shapes, not measured: kept out of the kernels line
+        return {"flops": flops, "bytes": nbytes, "bound_tf32_ms": 1e3 * flops / TF32_PEAK,
+                "bound_bf16_ms": 1e3 * flops / BF16_PEAK}
+
     k1_ms = cuda_ms(torch, lambda: fr.fused_fwd(*args, 1.0, True), 20)
     k2_ms = cuda_ms(torch, lambda: fr.fused_bwd(*args, ct, 1.0, True), 10)
     with torch.no_grad():
@@ -270,54 +441,77 @@ def main() -> int:
             params, x, e, vis_t, eq_w, RE, 1.0, True), 10)
     p2_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         sums_r, [flat_r, e_r], ct, retain_graph=True), 10)
-    flops = fr.flop_counts(sizes, n)
-    nbytes = fr.byte_counts(sizes, n, True)
-    kernels, work = [], {}
-    for i, (name, line, ms, plain_ms, err, rel) in enumerate([
-            ("fused_residual_fwd", "nsfnet_tpu/ops/pallas_residual.py:100", k1_ms, p1_ms,
-             fwd_abs, fwd_rel),
-            ("fused_residual_bwd", "nsfnet_tpu/ops/pallas_residual.py:128", k2_ms, p2_ms,
-             bwd_abs, max(bwd_rel, ge_rel))]):
-        t_ops, t_bytes = flops[i] / FP32_PEAK, nbytes[i] / HBM_RATE
-        kernels.append({
-            "name": name, "route": "cuda", "source": "nsfnet_tpu_torch/csrc/fused_residual.cu",
-            "replaces": line, "launches": launches[name], "max_abs_err": err,
-            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
-        # worked out from the shapes, not measured: kept out of the kernels line
-        work[name] = {"flops": flops[i], "bytes": nbytes[i],
-                      "bound_tf32_ms": 1e3 * flops[i] / TF32_PEAK,
-                      "bound_bf16_ms": 1e3 * flops[i] / BF16_PEAK}
-        print(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * t_ops:.4f} ms "
-              f"(fp32 {FP32_PEAK / 1e12:g} TFLOP/s; TF32 {1e3 * flops[i] / TF32_PEAK:.4f} ms, "
-              f"bf16 {1e3 * flops[i] / BF16_PEAK:.4f} ms), {flops[i] / ms / 1e9:.1f} "
-              f"TFLOP/s achieved — {card}")
+    del sums_r
+    flops, nbytes = fr.flop_counts(sizes, n), fr.byte_counts(sizes, n, True)
+    src = "nsfnet_tpu_torch/csrc/fused_residual.cu"
+    shape = f"6x80, N={n}, EVM"
+    work["fused_residual_fwd"] = add_kernel(
+        "fused_residual_fwd", src, "nsfnet_tpu/ops/pallas_residual.py:100",
+        launches["fused_residual_fwd"], k1_ms, p1_ms, fwd_abs, fwd_rel, flops[0], nbytes[0],
+        shape)
+    work["fused_residual_bwd"] = add_kernel(
+        "fused_residual_bwd", src, "nsfnet_tpu/ops/pallas_residual.py:128",
+        launches["fused_residual_bwd"], k2_ms, p2_ms, bwd_abs, max(bwd_rel, ge_rel), flops[1],
+        nbytes[1], shape)
 
-    solver.run_steps(5)
-    torch.cuda.synchronize()
-    n_steps = 50
-    t0 = time.perf_counter()
-    solver.run_steps(n_steps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    step_ms = 1e3 * dt / n_steps
-    pts_s = n_steps * (N_F + 4 * 513) / dt
-    print(f"time slice step: {step_ms:.3f} ms/step, {pts_s:,.0f} collocation points/s "
-          f"(N_f {N_F:,} + 2,052 boundary, {n_steps} steps) — {card}")
-    record["times"] = {"kernels": kernels, "work": work, "step_ms": step_ms,
-                       "points_per_s": pts_s,
+    # kernels 3+4: the `kernels` line carries the v1 path's shape; the
+    # flagship width is timed beside it
+    src = "nsfnet_tpu_torch/csrc/mlp_streams.cu"
+    stream_times = {}
+    for name, (fl, sz, xx) in stream_cases.items():
+        cts, c = stream_cts[name], stream_chk[name]
+        k3_ms = cuda_ms(torch, lambda: ms.streams_fwd(fl, sz, xx), 20)
+        k4_ms = cuda_ms(torch, lambda: ms.streams_bwd(fl, sz, xx, cts), 10)
+        with torch.no_grad():
+            p3_ms = cuda_ms(torch, lambda: ms.plain_mlp_streams(fl, sz, xx), 10)
+        # the plain backward is the whole function: forward graph + autograd
+        p4_ms = cuda_ms(torch, lambda: ms.plain_mlp_streams_bwd(fl, sz, xx, cts), 10)
+        flops, nbytes = ms.flop_counts(sz, xx.shape[0]), ms.byte_counts(sz, xx.shape[0])
+        shape = f"{name}, N={xx.shape[0]}"
+        main = name == "4x120"
+        rows = len(kernels)
+        w3 = add_kernel("mlp_streams_fwd", src, "nsfnet_tpu/ops/pallas_mlp.py:183",
+                        launches_v1["mlp_streams_fwd"], k3_ms, p3_ms, c["fwd_abs"],
+                        c["fwd_rel"], flops[0], nbytes[0], shape)
+        w4 = add_kernel("mlp_streams_bwd", src, "nsfnet_tpu/ops/pallas_mlp.py:313",
+                        launches_v1["mlp_streams_bwd"], k4_ms, p4_ms, c["bwd_abs"],
+                        c["bwd_rel"], flops[1], nbytes[1], shape)
+        stream_times[name] = kernels[rows:]
+        if main:
+            work["mlp_streams_fwd"], work["mlp_streams_bwd"] = w3, w4
+        else:
+            del kernels[rows:]
+            work["mlp_streams_fwd@6x80"], work["mlp_streams_bwd@6x80"] = w3, w4
+
+    def time_steps(s, what, n_f):
+        s.run_steps(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_steps(TIMED_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step_ms, pts_s = 1e3 * dt / TIMED_STEPS, TIMED_STEPS * (n_f + N_B) / dt
+        print(f"time {what} step: {step_ms:.3f} ms/step, {pts_s:,.0f} collocation points/s "
+              f"(N_f {n_f:,} + {N_B:,} boundary, {TIMED_STEPS} steps) — {card}")
+        return step_ms, pts_s
+
+    step_ms, pts_s = time_steps(solver, "slice (flagship ev-NSFnet, kernels 1+2)", N_F)
+    v1_ms, v1_pts = time_steps(solver_v1, "slice (v1 NSFnet L2, kernels 3+4)", N_F_V1)
+    record["times"] = {"kernels": kernels, "streams_by_width": stream_times, "work": work,
+                       "step_ms": step_ms, "points_per_s": pts_s,
+                       "v1_step_ms": v1_ms, "v1_points_per_s": v1_pts,
                        "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
-    record["profile"] = profile_steps(torch, solver, card)
+    record["profile"] = profile_steps(torch, solver, card, "flagship step")
+    record["profile_v1"] = profile_steps(torch, solver_v1, card, "v1 L2 step")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
-    if not (ok_check and ok_slice and ok_small):
-        print(f"chip_smoke: FAILED (kernel check {ok_check}, slice {ok_slice}, "
-              f"small-input reference {ok_small})", file=sys.stderr)
+    if not (ok_check and ok_slice and ok_v1 and ok_small and ok_unfused):
+        print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
+              f"v1 L2 slice {ok_v1}, small-input reference {ok_small}, "
+              f"unfused vs fused {ok_unfused})", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

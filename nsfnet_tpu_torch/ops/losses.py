@@ -6,10 +6,12 @@
     res*sqrt(w) before squaring (ev-NSFnet/pinn_solver.py:387-397);
     loss_e = eq1 + eq2 + eq3 + 0.1*eq4 in the EVM variant, eq1+eq2+eq3 in
     the vanilla one (NSFnet/pinn_solver.py:218-221).
+  * L2 mode (the reference v1's): un-normalised norms sqrt(sum(w * r^2)) in
+    place of the means (NSFnet/pinn_solver.py:201-218).
 
 Every mean is sum(w * r^2) / count over the padded array, with pad rows at
 weight 0 and `count` the number of REAL points, so padding never biases it.
-The supervised loss and the L2 loss mode come in a later slice.
+The supervised loss comes in a later slice.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ def masked_mean_sq(residual: torch.Tensor, weights: torch.Tensor, count) -> torc
     """sum(w * r^2) / count. `weights` is 0 on pad rows; for the unweighted
     case it is the 0/1 validity mask. `count` = number of real points."""
     return masked_sum_sq(residual, weights) / count
+
+
+def masked_l2_norm(residual: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum(w * r^2)) — the reference's 'L2' loss mode
+    (NSFnet/pinn_solver.py:201-204, 215-218: torch.norm(res, p=2)). The
+    1e-30 under the root keeps the gradient finite at a zero residual."""
+    return torch.sqrt(masked_sum_sq(residual, weights) + 1e-30)
 
 
 def boundary_loss(u_pred, v_pred, u_b, v_b, mask, count) -> torch.Tensor:

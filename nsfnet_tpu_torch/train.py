@@ -41,8 +41,6 @@ def unsupported(cfg) -> list:
         out.append(f"model_variant {cfg.model_variant!r}")
     if n.backbone != "mlp" or n.formulation != "velocity" or n.fourier_features:
         out.append("only the plain MLP backbone in the velocity formulation")
-    if t.loss_mode != "MSE":
-        out.append(f"loss_mode {t.loss_mode!r}")
     if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
         out.append("microbatches / mesh_devices > 1")
     if t.resample_each_stage or t.rar_pool_mult or t.adaptive_bc_weight:
@@ -75,6 +73,7 @@ def build_solver(cfg, device=None) -> PINNSolver:
         log_interval=cfg.training.log_interval,
         checkpoint_freq=cfg.training.checkpoint_freq,
         checkpoint_path=cfg.training.checkpoint_dir,
+        loss_mode=cfg.training.loss_mode,
         device=device,
     )
 

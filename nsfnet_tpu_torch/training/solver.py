@@ -13,9 +13,14 @@ load. What differs from the reference, as in the JAX package:
   * checkpoints hold the FULL train state for an exact resume.
 
 The solver runs on `cuda` unless the caller asks for the CPU; with no card
-and no such request it raises. The equation loss goes through the fused
-residual-loss engine: its CUDA kernel pair for CUDA tensors, its plain
-PyTorch version for CPU tensors.
+and no such request it raises. `engine` names the residual-engine backend
+with the JAX package's words: `pallas` is the hand-written CUDA engine,
+`xla` the plain PyTorch one, `auto` picks `pallas` on a card and `xla` on
+the CPU. On `pallas` an MSE run takes the fused residual-loss kernel pair
+(ops/fused_residual.py) unless NSFNET_FUSED_LOSS=0; an L2 run, or an MSE
+run with the fused loss off, takes the five-stream kernel pair
+(ops/mlp_streams.py) -> residuals -> masked sums. A kernel wrapper given
+CPU tensors runs its plain version.
 
 Left for later slices: L-BFGS / LM polish, microbatching, multi-GPU,
 supervised data, KAN / Fourier features, the streamfunction formulation,
@@ -34,7 +39,9 @@ import torch
 
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
+from nsfnet_tpu_torch.ops.derivatives import mlp_derivatives_2d
 from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, fused_residual_loss
+from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
 from nsfnet_tpu_torch.parallel import mesh as pmesh
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
 from nsfnet_tpu_torch.training.step import (
@@ -95,9 +102,19 @@ class PINNSolver:
         matmul_precision: str = "high",
         evm_update_freq: int = 10000,
         log_interval: int = 1000,
+        engine: str = "auto",  # auto | pallas | xla — residual-engine backend
+        loss_mode: str = "MSE",  # MSE | L2 (reference v1's un-normalized norms)
         device=None,
     ):
         self.device = resolve_device(device)
+        if engine not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown engine {engine!r}; auto, pallas or xla")
+        if loss_mode not in ("MSE", "L2"):
+            raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
+        if engine == "auto":
+            engine = "pallas" if self.device.type == "cuda" else "xla"
+        self.engine = engine
+        self.loss_mode = loss_mode
         self.Re = float(Re)
         self.vis_t0 = 20.0 / self.Re  # ev-NSFnet/pinn_solver.py:67
         self.N_f = N_f
@@ -146,7 +163,8 @@ class PINNSolver:
 
         self.logger.info(
             f"PINNSolver: variant={'ev-nsfnet' if self.evm else 'nsfnet'} "
-            f"net={layers}x{hidden_size} device={self.device}"
+            f"net={layers}x{hidden_size} engine={self.engine} loss={loss_mode} "
+            f"device={self.device}"
             + (f" ({torch.cuda.get_device_name(self.device)})"
                if self.device.type == "cuda" else ""))
 
@@ -243,19 +261,33 @@ class PINNSolver:
                 self._vis_stale = False
         return batch
 
+    def _engine(self):
+        """(flat params, X[N,2]) -> the five derivative streams."""
+        sizes, prec = self.net.sizes, self.matmul_precision
+        if self.engine == "pallas":
+            return lambda flat, x: mlp_streams(flat, sizes, x, precision=prec)
+        return lambda flat, x: mlp_derivatives_2d(unflatten_params(flat, sizes), x)
+
+    def _fused_loss_enabled(self) -> bool:
+        """NSFNET_FUSED_LOSS=0/1 forces the fused residual loss off/on;
+        it is on by default."""
+        return os.environ.get("NSFNET_FUSED_LOSS", "1") != "0"
+
     def _make_loss(self):
         sizes, sizes_1 = self.net.sizes, (self.net_1.sizes if self.evm else None)
         scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
-        if evm:
-            def fused(flat, x, e, vis_t, eq_w, re):
-                return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
-                                           coord_scale=scale, evm=True, precision=prec)
-        else:
-            def fused(flat, x, eq_w, re):
-                return fused_residual_loss(flat, sizes, x, None, None, eq_w, re,
-                                           coord_scale=scale, evm=False, precision=prec)
+        fused = None
+        if self.engine == "pallas" and self.loss_mode == "MSE" and self._fused_loss_enabled():
+            if evm:
+                def fused(flat, x, e, vis_t, eq_w, re):
+                    return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
+                                               coord_scale=scale, evm=True, precision=prec)
+            else:
+                def fused(flat, x, eq_w, re):
+                    return fused_residual_loss(flat, sizes, x, None, None, eq_w, re,
+                                               coord_scale=scale, evm=False, precision=prec)
         return make_loss_fn(
-            engine=None,
+            engine=self._engine(),
             apply_main=lambda flat, x: mlp_apply(unflatten_params(flat, sizes), x),
             apply_evm=((lambda flat, x: mlp_apply(unflatten_params(flat, sizes_1), x))
                        if evm else None),
@@ -264,6 +296,7 @@ class PINNSolver:
             entropy_weight=self.entropy_residual_weight,
             evm=evm,
             fused_eq_loss=fused,
+            loss_mode=self.loss_mode,
         )
 
     def _ensure_ready(self):

@@ -5,8 +5,11 @@ One step = the reference's full-batch epoch (solve_Adam body,
 ev-NSFnet/pinn_solver.py:456-480), on the device:
 
   * NS residuals on the collocation batch — the fused residual-loss kernel
-    pair (ops/fused_residual.py) or the closed-form engine chain,
-  * boundary / equation losses with exact means over real points,
+    pair (ops/fused_residual.py), or a derivative engine (the five-stream
+    kernel pair of ops/mlp_streams.py, or the plain closed-form engine)
+    followed by residuals and masked sums,
+  * boundary / equation losses with exact means over real points (MSE), or
+    the reference v1's un-normalised norms (L2),
   * Adam on the main net every step,
   * Adam on the EVM net only on stage-epochs k*evm_update_freq, k >= 1
     (pinn_solver.py:452-462); frozen steps leave its params AND moments
@@ -51,12 +54,19 @@ def make_loss_fn(
     entropy_weight: float = 0.1,
     evm: bool = True,
     fused_eq_loss: Optional[Callable] = None,
+    loss_mode: str = "MSE",
 ):
-    """Build the loss function (MSE mode). `fused_eq_loss(params, x, e,
-    vis_t, eq_w, re)` (EVM) / `(params, x, eq_w, re)` (vanilla) returns the
-    per-equation weighted sums of squares; without it the equation loss
-    runs `engine` -> residuals -> masked means. The supervised loss is not
-    part of this slice: its component is reported as 0."""
+    """Build the loss function. `fused_eq_loss(params, x, e, vis_t, eq_w,
+    re)` (EVM) / `(params, x, eq_w, re)` (vanilla) returns the per-equation
+    weighted sums of squares (MSE mode only); without it the equation loss
+    runs `engine` -> residuals -> masked means. loss_mode 'L2' is the
+    reference v1's un-normalised L2-norm loss (NSFnet/pinn_solver.py:201-218):
+    norms of the residuals and of the boundary mismatch, no 1/n. The
+    supervised loss is not ported yet: its component is reported as 0."""
+    if loss_mode not in ("MSE", "L2"):
+        raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
+    if loss_mode == "L2" and fused_eq_loss is not None:
+        raise ValueError("fused_eq_loss is MSE-mode only")
 
     def eq_loss_fn(params_all, x_f, y_f, eq_w, n_f, vis_t_minus, sc: StageScalars):
         params, params_evm = params_all
@@ -94,7 +104,14 @@ def make_loss_fn(
             res = R.ns_residuals(derivs, re, coord_scale)
             new_vis_t_minus = vis_t_minus
             vis_t_mean = zero
-        loss_e, (l1, l2, l3, l4) = L.equation_loss(res, eq_w, n_f, entropy_weight)
+        if loss_mode == "L2":
+            l1 = L.masked_l2_norm(res.eq1, eq_w)
+            l2 = L.masked_l2_norm(res.eq2, eq_w)
+            l3 = L.masked_l2_norm(res.eq3, eq_w)
+            l4 = L.masked_l2_norm(res.eq4, eq_w) if res.eq4 is not None else zero
+            loss_e = l1 + l2 + l3 + (entropy_weight * l4 if evm else 0.0)
+        else:
+            loss_e, (l1, l2, l3, l4) = L.equation_loss(res, eq_w, n_f, entropy_weight)
         return alpha_e * loss_e, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus)
 
     def aux_loss_fn(params_all, batch: Batch, sc: StageScalars):
@@ -102,8 +119,13 @@ def make_loss_fn(
         params, _ = params_all
         x_bc = torch.cat([batch.x_b, batch.y_b], dim=1)
         uvp_b = apply_main(params, x_bc)
-        loss_b = L.boundary_loss(uvp_b[:, 0:1], uvp_b[:, 1:2],
-                                 batch.u_b, batch.v_b, batch.b_mask, batch.n_b)
+        if loss_mode == "L2":
+            # norm(u_b - u_pred) + norm(v_b - v_pred), NSFnet/pinn_solver.py:201-203
+            loss_b = (L.masked_l2_norm(uvp_b[:, 0:1] - batch.u_b, batch.b_mask)
+                      + L.masked_l2_norm(uvp_b[:, 1:2] - batch.v_b, batch.b_mask))
+        else:
+            loss_b = L.boundary_loss(uvp_b[:, 0:1], uvp_b[:, 1:2],
+                                     batch.u_b, batch.v_b, batch.b_mask, batch.n_b)
         return sc.alpha_b * loss_b, loss_b
 
     def assemble(loss_b, l1, l2, l3, l4, vis_t_mean, sc: StageScalars):

@@ -11,6 +11,7 @@ import torch
 
 from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, unflatten_params
 from nsfnet_tpu_torch.ops import fused_residual as fr
+from nsfnet_tpu_torch.ops import mlp_streams as ms
 from nsfnet_tpu_torch.training.solver import PINNSolver
 
 pytestmark = pytest.mark.gpu
@@ -66,12 +67,13 @@ def test_kernels_match_plain_version(cuda, sizes, n, scale, re, evm):
         torch.testing.assert_close(g_e, grads[1], rtol=5e-4, atol=5e-6)
 
 
-@pytest.mark.parametrize("h", [16, 40, 80, 128])
+@pytest.mark.parametrize("h", [16, 40, 80, 120, 128])
 def test_tile_choice_agrees_with_the_library(cuda, h):
-    # pick_tile sizes the block without the library; the source owns the layout
-    lib = fr._lib()
+    # pick_tile sizes the block without the library; the sources own the layout
     for t in fr._TILES:
-        assert lib.nsf_fused_loss_smem_bytes(t, h, 3) == fr.smem_bytes(t, h)
+        assert fr._lib().nsf_fused_loss_smem_bytes(t, h, 3) == fr.smem_bytes(t, h)
+        for k in (1, 3):
+            assert ms._lib().nsf_mlp_streams_smem_bytes(t, h, k) == fr.smem_bytes(t, h, k)
     assert fr.smem_bytes(fr.pick_tile(h), h) <= fr._MAX_SMEM
 
 
@@ -115,3 +117,96 @@ def test_solver_on_the_card_matches_the_cpu(cuda):
         s.train(num_epoch=4, lr=1e-3)
         runs.append(np.asarray([tuple(m) for _, m in s.loss_history]))
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4, atol=1e-9)
+
+
+# --------------------------------------------------------- stream engine
+
+STREAM_CASES = [((2, 32, 32, 32, 3), 512), ((2, 120, 120, 120, 3), 1040), ((2, 40, 40, 1), 272)]
+
+
+def _stream_inputs(sizes, n, dev, seed=0):
+    flat, x, *_ = _inputs(sizes, n, dev, seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    cts = [torch.randn((n, sizes[-1]), generator=gen).to(dev) for _ in range(5)]
+    return flat, x, cts
+
+
+@pytest.mark.parametrize("sizes,n", STREAM_CASES)
+def test_stream_kernels_match_plain_version(cuda, sizes, n):
+    flat, x, cts = _stream_inputs(sizes, n, cuda)
+    got = ms.streams_fwd(flat, sizes, x)
+    with torch.no_grad():
+        ref = ms.plain_mlp_streams(flat, sizes, x)
+    for g, r in zip(got, ref):
+        # fp32 products summed in another order (the CPU bar against JAX)
+        torch.testing.assert_close(g, r, rtol=2e-5, atol=1e-6)
+    dflat = ms.streams_bwd(flat, sizes, x, cts)
+    ref = ms.plain_mlp_streams_bwd(flat, sizes, x, cts)
+    for (gw, gb), (rw, rb) in zip(unflatten_params(dflat, sizes), unflatten_params(ref, sizes)):
+        # n-point sums of O(1) terms: the floor is relative to each tensor's size
+        tol = 1e-5 * max(rw.abs().max().item(), 1.0)
+        torch.testing.assert_close(gw, rw, rtol=5e-4, atol=tol)
+        torch.testing.assert_close(gb, rb, rtol=5e-4, atol=tol)
+
+
+def test_stream_kernels_are_bitwise_deterministic(cuda):
+    sizes = (2, 120, 120, 120, 3)
+    flat, x, cts = _stream_inputs(sizes, 8192, cuda, seed=1)
+    a, b = ms.streams_fwd(flat, sizes, x), ms.streams_fwd(flat, sizes, x)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    assert torch.equal(ms.streams_bwd(flat, sizes, x, cts), ms.streams_bwd(flat, sizes, x, cts))
+
+
+def test_stream_autograd_takes_partial_and_strided_cotangents(cuda):
+    """A loss on some streams and some columns: autograd hands the backward
+    zeros for the unused streams and slice-scattered cotangents."""
+    sizes = (2, 16, 16, 3)
+    flat, x, _ = _stream_inputs(sizes, 256, cuda, seed=2)
+    loss = lambda st: (st[1][:, 0:1] ** 2).mean() + (st[0][:, 2:3] * st[4][:, 0:1]).mean()
+    flat.requires_grad_(True)
+    ms.reset_launch_counts()
+    (g,) = torch.autograd.grad(loss(ms.mlp_streams(flat, sizes, x)), [flat])
+    assert ms.launch_counts == {"mlp_streams_fwd": 1, "mlp_streams_bwd": 1}
+    (ref,) = torch.autograd.grad(loss(ms.plain_mlp_streams(flat, sizes, x)), [flat])
+    torch.testing.assert_close(g, ref, rtol=5e-4, atol=2e-6)
+    with pytest.raises(ValueError):  # unpadded batch: refused, no plain fallback
+        ms.mlp_streams(flat, sizes, x[:250])
+
+
+def _cavity_run(dev, **kw):
+    from nsfnet_tpu_torch.data.cavity import CavityData
+
+    s = PINNSolver(**{**dict(Re=400, layers=3, layers_1=2, hidden_size=32, hidden_size_1=16,
+                             N_f=500, evm_update_freq=2, log_interval=1,
+                             checkpoint_freq=10**9, seed=3, device=dev), **kw})
+    d = CavityData(N_f=500, sdf_enabled=True, sort_training_points=False, seed=1)
+    s.set_boundary_data(X=d.boundary_data())
+    s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
+    s.train(num_epoch=4, lr=1e-3)
+    return np.asarray([tuple(m) for _, m in s.loss_history]), s.state.params.detach().cpu()
+
+
+def test_unfused_engine_matches_fused_loss_on_the_card(cuda, monkeypatch):
+    """N_f = 500 pads to 512: kernels 3+4 -> residuals -> masked sums
+    against kernels 1+2, the same four Adam steps."""
+    monkeypatch.delenv("NSFNET_FUSED_LOSS", raising=False)
+    fr.reset_launch_counts()
+    fused, p_fused = _cavity_run("cuda", engine="pallas")
+    assert fr.launch_counts == {"fused_residual_fwd": 4, "fused_residual_bwd": 4}
+    monkeypatch.setenv("NSFNET_FUSED_LOSS", "0")
+    fr.reset_launch_counts()
+    ms.reset_launch_counts()
+    unfused, p_unfused = _cavity_run("cuda", engine="pallas")
+    assert ms.launch_counts == {"mlp_streams_fwd": 4, "mlp_streams_bwd": 4}
+    assert not any(fr.launch_counts.values())
+    np.testing.assert_allclose(unfused, fused, rtol=1e-4, atol=1e-9)
+    torch.testing.assert_close(p_unfused, p_fused, rtol=0, atol=5e-6)
+
+
+def test_l2_solver_on_the_card_matches_the_cpu(cuda):
+    kw = dict(loss_mode="L2", evm=False, layers_1=None)
+    ms.reset_launch_counts()
+    on_card, _ = _cavity_run("cuda", **kw)
+    assert ms.launch_counts == {"mlp_streams_fwd": 4, "mlp_streams_bwd": 4}
+    on_cpu, _ = _cavity_run("cpu", **kw)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-9)

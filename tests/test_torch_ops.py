@@ -110,6 +110,18 @@ def test_losses_match_jax():
                                    [float(p) for p in jparts], rtol=1e-6)
 
 
+def test_masked_l2_norm_matches_jax():
+    x, _, _, w = _inputs(64, seed=7)
+    r = x[:, :1]
+    np.testing.assert_allclose(L.masked_l2_norm(_t(r), _t(w)).item(),
+                               float(JL.masked_l2_norm(jnp.asarray(r), jnp.asarray(w))),
+                               rtol=1e-6)  # fp32 sum of 64 terms, then a root
+    # the 1e-30 under the root: a zero residual has a finite (zero) gradient
+    z = torch.zeros(8, 1, requires_grad=True)
+    (g,) = torch.autograd.grad(L.masked_l2_norm(z, torch.ones(8, 1)), [z])
+    assert torch.isfinite(g).all() and torch.count_nonzero(g) == 0
+
+
 # ------------------------------------------------------------ fused loss
 
 FUSED_CASES = {
@@ -236,3 +248,61 @@ def test_loss_fn_engine_and_fused_branches_match_jax():
         # alpha*|e|: an fp32 network output, so near-zero entries carry
         # relative error; compare them to an absolute floor
         np.testing.assert_allclose(vtm.numpy(), np.asarray(jvtm), rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("evm", [True, False], ids=["evm", "vanilla"])
+def test_l2_loss_fn_matches_jax(evm):
+    """loss_mode L2, the reference v1's un-normalised norms: metrics and
+    the main-net gradient against the JAX loss function."""
+    sizes, sizes_1 = (2, 16, 16, 3), (2, 8, 1)
+    jp = jax_init_mlp(jax.random.PRNGKey(8), sizes)
+    jpe = jax_init_mlp(jax.random.PRNGKey(9), sizes_1) if evm else None
+    x, _, vis_t, w = _inputs(256, seed=12, tail=16)
+    rng = np.random.default_rng(13)
+    xb = rng.uniform(0, 1, (64, 2)).astype(np.float32)
+    ub = rng.uniform(0, 1, (64, 2)).astype(np.float32)
+    bm = np.ones((64, 1), np.float32)
+    bm[-4:] = 0.0
+    n_f, n_b = 240.0, 60.0
+    jbatch = JBatch(*(jnp.asarray(a) for a in (x[:, :1], x[:, 1:], w)), jnp.float32(n_f),
+                    *(jnp.asarray(a) for a in (xb[:, :1], xb[:, 1:], ub[:, :1], ub[:, 1:], bm)),
+                    jnp.float32(n_b))
+    jloss = jax_make_loss_fn(jax_mlp_derivatives_2d, jax_mlp_apply,
+                             jax_mlp_apply if evm else None, 2.0, 1.0, 0.0, 0.1, evm,
+                             loss_mode="L2")
+    jsc = JStageScalars(*(jnp.float32(v) for v in (1e-3, 0.05, 500.0, 10.0)))
+    jvt = jnp.asarray(vis_t) if evm else None
+    (_, (jm, _)), jg = jax.value_and_grad(
+        lambda p: jloss((p, jpe), jbatch, jvt, jsc), has_aux=True)(jp)
+
+    batch = Batch(*(_t(a) for a in (x[:, :1], x[:, 1:], w)), n_f,
+                  *(_t(a) for a in (xb[:, :1], xb[:, 1:], ub[:, :1], ub[:, 1:], bm)), n_b)
+    flat = flatten_params(params_from_numpy(jp)).requires_grad_(True)
+    flat_e = flatten_params(params_from_numpy(jpe)) if evm else None
+    apply = lambda s: (lambda f, z: mlp_apply(unflatten_params(f, s), z))
+    engine = lambda f, z: mlp_derivatives_2d(unflatten_params(f, sizes), z)
+    kw = dict(engine=engine, apply_main=apply(sizes), apply_evm=apply(sizes_1) if evm else None,
+              coord_scale=2.0, alpha_e=1.0, entropy_weight=0.1, evm=evm)
+    loss = make_loss_fn(**kw, loss_mode="L2")
+    total, (m, _) = loss((flat, flat_e), batch, _t(vis_t) if evm else None,
+                         StageScalars(1e-3, 0.05, 500.0, 10.0))
+    # fp32 on both sides, sums over 256 points in another order
+    np.testing.assert_allclose([v.item() for v in m], [float(v) for v in jm], rtol=2e-5,
+                               atol=1e-9)
+    # no 1/n: the L2 boundary loss is the norms' sum, not the MSE mode's means
+    mse_total, (mse, _) = make_loss_fn(**kw)((flat, flat_e), batch,
+                                             _t(vis_t) if evm else None,
+                                             StageScalars(1e-3, 0.05, 500.0, 10.0))
+    assert m.boundary.item() > 5 * mse.boundary.item()
+    (g,) = torch.autograd.grad(total, [flat])
+    for (gw, gb), (rw, rb) in zip(unflatten_params(g, sizes), jg):
+        np.testing.assert_allclose(gw.numpy(), np.asarray(rw), rtol=5e-4, atol=5e-6)
+        np.testing.assert_allclose(gb.numpy(), np.asarray(rb), rtol=5e-4, atol=5e-6)
+
+
+def test_l2_loss_fn_refuses_the_fused_loss_and_unknown_modes():
+    kw = dict(engine=None, apply_main=None, apply_evm=None, coord_scale=1.0, alpha_e=1.0)
+    with pytest.raises(ValueError, match="MSE-mode only"):
+        make_loss_fn(**kw, loss_mode="L2", fused_eq_loss=lambda *a: None)
+    with pytest.raises(ValueError, match="loss_mode"):
+        make_loss_fn(**kw, loss_mode="L1")

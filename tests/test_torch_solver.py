@@ -11,7 +11,11 @@ import torch
 from nsfnet_tpu.data.cavity import CavityData as JaxCavityData
 from nsfnet_tpu.training.solver import PINNSolver as JaxSolver
 from nsfnet_tpu_torch.data.cavity import CavityData
+from nsfnet_tpu_torch import train as port_train
+from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+from nsfnet_tpu_torch.ops import fused_residual as fr
+from nsfnet_tpu_torch.ops import mlp_streams as ms
 from nsfnet_tpu_torch.training.solver import PINNSolver
 
 torch.set_num_threads(2)
@@ -129,3 +133,101 @@ def test_predict_and_evaluate(tmp_path):
     assert errs["u"] > 0 and errs["v"] > 0 and np.isfinite(errs["p"])
     assert errs["p_gauge"] == pytest.approx(0.0, abs=1e-3)  # constant shift removed
     assert errs["p_shift"] == pytest.approx(0.5, rel=1e-4)
+
+
+V1 = dict(Re=400, layers=3, layers_1=None, hidden_size=24, N_f=500, bc_weight=10, eq_weight=1,
+          evm=False, seed=7, log_interval=1, checkpoint_freq=10**9, loss_mode="L2")
+
+
+def test_v1_l2_slice_matches_jax_solver(tmp_path):
+    """The vanilla NSFnet L2-loss path, 5 Adam steps from the same weights
+    and points: the JAX solver through its Pallas stream engine (interpret
+    mode) against the port through `mlp_streams` (its plain version here)."""
+    js = JaxSolver(**V1, engine="pallas", mesh_devices=1, matmul_precision="highest",
+                   checkpoint_path=str(tmp_path / "jax"))
+    jd = JaxCavityData(**DATA, use_native=False)
+    js.set_boundary_data(X=jd.boundary_data())
+    js.set_eq_training_data(X=jd.training_data(), weights=jd.sdf_weights)
+    js.set_coordinate_transform(jd.coord_scale)
+
+    ps = _port_solver(tmp_path, **V1, engine="pallas")
+    assert ps.engine == "pallas" and ps.loss_mode == "L2" and ps.state.params_evm is None
+    ps.set_params(params_from_numpy(jax.device_get(js.state.params)))
+
+    fr.reset_launch_counts()
+    ms.reset_launch_counts()
+    js.train(num_epoch=5, lr=1e-3)
+    ps.train(num_epoch=5, lr=1e-3)
+    assert not any(fr.launch_counts.values()) and not any(ms.launch_counts.values())
+
+    jh = np.asarray(js._loss_history)  # (step, total, eq, bc, eq1..eq4)
+    ph = np.asarray([(s, m.total, m.equation, m.boundary, m.eq1, m.eq2, m.eq3, m.eq4)
+                     for s, m in ps.loss_history])
+    assert jh.shape == ph.shape == (5, 8)
+    # fp32 on both sides, engines summing in other orders, a root on top;
+    # the same bar as the MSE slice above
+    np.testing.assert_allclose(ph, jh, rtol=1e-4, atol=1e-9)
+    assert ph[0, 3] > 1.0  # un-normalised boundary norm: far above any mean square
+    for (gw, gb), (rw, rb) in zip(params_to_numpy(ps.params()), jax.device_get(js.state.params)):
+        np.testing.assert_allclose(gw, rw, rtol=0, atol=5e-5)  # as in the MSE slice
+        np.testing.assert_allclose(gb, rb, rtol=0, atol=5e-5)
+
+
+def test_engine_choice_and_the_unfused_path(tmp_path, monkeypatch):
+    """auto is xla on the CPU; on `pallas` the fused loss is used only for
+    MSE with NSFNET_FUSED_LOSS unset or not 0, and the unfused chain
+    (stream engine -> residuals -> masked sums) gives the same step."""
+    assert _port_solver(tmp_path).engine == "xla"
+    with pytest.raises(ValueError, match="engine"):
+        _port_solver(tmp_path, engine="triton")
+    with pytest.raises(ValueError, match="loss_mode"):
+        _port_solver(tmp_path, loss_mode="L1")
+
+    calls = []
+    real = fr.plain_residual_sums
+    monkeypatch.setattr(fr, "plain_residual_sums",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    runs = {}
+    for name, env in (("fused", None), ("unfused", "0"), ("forced", "1")):
+        if env is None:
+            monkeypatch.delenv("NSFNET_FUSED_LOSS", raising=False)
+        else:
+            monkeypatch.setenv("NSFNET_FUSED_LOSS", env)
+        s = _port_solver(tmp_path, engine="pallas")
+        del calls[:]
+        s.train(num_epoch=3, lr=1e-3)
+        assert bool(calls) == (name != "unfused")
+        runs[name] = (np.asarray([tuple(m) for _, m in s.loss_history]),
+                      s.state.params.detach().numpy().copy())
+    # one algebra, summed in another order (masked means vs sums / n)
+    np.testing.assert_allclose(runs["unfused"][0], runs["fused"][0], rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(runs["unfused"][1], runs["fused"][1], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(runs["forced"][0], runs["fused"][0])
+
+
+V1_YAML = """\
+experiment_name: tiny_v1
+model_variant: nsfnet
+physics: {{Re: 100, bc_weight: 10, eq_weight: 1}}
+network: {{layers: 2, hidden_size: 16}}
+training:
+  N_f: 300
+  loss_mode: L2
+  log_interval: 2
+  checkpoint_freq: 1000000
+  checkpoint_dir: {out}
+  enable_tensorboard: false
+  training_stages:
+    - {{alpha: 0.0, epochs: 3, lr: 1.0e-3, name: S1}}
+"""
+
+
+def test_cli_runs_loss_mode_l2(tmp_path):
+    path = tmp_path / "v1.yaml"
+    path.write_text(V1_YAML.format(out=tmp_path))
+    cfg = ConfigManager.from_file(str(path)).config
+    assert port_train.unsupported(cfg) == []
+    s = port_train.build_solver(cfg, device="cpu")
+    assert s.loss_mode == "L2" and not s.evm and s.engine == "xla"
+    assert port_train.main(["--config", str(path), "--cpu"]) == 0
+    assert len(list(tmp_path.glob("Re100/*/model_final.ckpt"))) == 1
