@@ -14,7 +14,12 @@ Phases (any failure exits non-zero before the result line):
      N_f = 120,000 SDF-weighted points, EVM on, Re = 2000); the five-stream
      engine (kernels 3+4) at that width and at the vanilla NSFnet width
      (4x120 MLP, N_f = 40,000), with random cotangents from a seeded
-     generator;
+     generator; the order-3 streamfunction engine (kernels 5+6) at the
+     streamfunction flagship width (6x80 MLP with a (psi, p) head,
+     N = 120,000), at the small streamfunction net (4x40, N = 10,000) and at
+     a width that forces the smaller tile (4x120, N = 40,000): the thirteen
+     raw streams and the assembled (u, v, p) bundle, and the gradient from
+     seeded random cotangents with the two unused streams zero and non-zero;
   4. the paths, each through ConfigManager.from_dict -> build_solver on cuda
      -> train(), with the launch counts set to 0 just before and read just
      after:
@@ -27,10 +32,16 @@ Phases (any failure exits non-zero before the result line):
        4d. the flagship batch and weights with the fused loss off (kernels
            3+4 -> residuals -> masked sums) against the fused loss (kernels
            1+2): the step's metrics and the main-net gradient;
+       4e. the streamfunction ev-NSFnet config (configs/re2000_sf_ev.yaml at
+           its published widths, its stages cut to one), 30 Adam steps
+           through kernels 5+6 with eq3 == 0 exactly and a divergence-free
+           predicted field; then the kernel engine against the closed-form
+           engine on the same batch and weights, and cuda against the CPU
+           on a small input;
      metrics must be finite, the loss must fall, and each path must have
-     launched its kernels once per step and the other pair not at all;
+     launched its kernels once per step and the other pairs not at all;
   5. times: each kernel, its plain version and its bound, and the step time
-     and collocation points/s of both paths, beside the card's name and
+     and collocation points/s of the three paths, beside the card's name and
      power limit; the profiler's table for each path's step.
 Prints a `kernels` JSON line, then, last, the device JSON line. Also writes
 everything to chiprun_out/chip_smoke.json.
@@ -59,6 +70,9 @@ FWD_TOL = 1e-4   # max relative difference of each loss sum / max|diff|/max|plai
 BWD_TOL = 1e-4   # max |diff| / max |plain| of each gradient tensor and of g_e
 SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
 UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
+ENGINE_TOL = 1e-4   # streamfunction step, kernel engine vs closed form: metrics, gradient tensors
+DIV_TOL = 1e-5      # |u_x + v_y| of the streamfunction field on a grid
+N_SF_SMALL = 10_000  # N_f of configs/re100_streamfunction.yaml
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -87,6 +101,27 @@ V1 = {
         "checkpoint_freq": 10**9, "enable_tensorboard": False,
         "training_stages": [{"alpha": 0.0, "epochs": SLICE_STEPS, "lr": 1e-3,
                              "name": "smoke"}],
+    },
+}
+
+
+# configs/re2000_sf_ev.yaml: its physics, network and training settings at
+# their published values; the six 250,000-epoch stall-aware stages are cut to
+# the first one at 30 steps, and the EVM gate fires within them.
+STREAMFUNCTION = {
+    "experiment_name": "chip_smoke_re2000_sf_ev",
+    "model_variant": "ev-nsfnet",
+    "physics": {"Re": RE, "alpha_evm": 0.05, "bc_weight": 10, "eq_weight": 1},
+    "network": {"layers": 6, "layers_1": 4, "hidden_size": 80, "hidden_size_1": 40,
+                "formulation": "streamfunction"},
+    "training": {
+        "N_f": N_F, "log_interval": 10, "sort_training_points": False,
+        "sdf_weighting": {"enabled": True, "min_weight": 0.2, "decay": 5.0},
+        "stall_threshold": 0.02, "stall_window": 3,
+        "evm_update_freq": 10, "seed": 0,
+        "checkpoint_freq": 10**9, "enable_tensorboard": False,
+        "training_stages": [{"alpha": 0.05, "epochs": SLICE_STEPS, "lr": 1e-3, "name": "S1",
+                             "advance_on_stall": True, "stall_min_epochs": 60000}],
     },
 }
 
@@ -152,18 +187,18 @@ def rel_per_param(unflatten, got, ref, sizes):
 
 
 @contextlib.contextmanager
-def fused_loss_env(value):
-    """NSFNET_FUSED_LOSS set to `value` (None: unset) while a solver builds
-    its loss; restored afterwards."""
-    old = os.environ.pop("NSFNET_FUSED_LOSS", None)
+def env_var(name, value):
+    """The environment variable `name` set to `value` (None: unset) while a
+    solver is built; restored afterwards."""
+    old = os.environ.pop(name, None)
     if value is not None:
-        os.environ["NSFNET_FUSED_LOSS"] = value
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("NSFNET_FUSED_LOSS", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["NSFNET_FUSED_LOSS"] = old
+            os.environ[name] = old
 
 
 def main() -> int:
@@ -179,18 +214,22 @@ def main() -> int:
     from nsfnet_tpu_torch.ops import _build
     from nsfnet_tpu_torch.ops import fused_residual as fr
     from nsfnet_tpu_torch.ops import mlp_streams as ms
-    from nsfnet_tpu_torch.train import build_data, build_solver
+    from nsfnet_tpu_torch.ops import psi_streams as psi
+    from nsfnet_tpu_torch.ops.derivatives import assemble_psi_bundle
+    from nsfnet_tpu_torch.train import build_data, build_solver, unsupported
 
-    os.environ.pop("NSFNET_FUSED_LOSS", None)  # the paths below choose it themselves
+    for name in ("NSFNET_FUSED_LOSS", "NSFNET_PALLAS_PSI"):
+        os.environ.pop(name, None)  # the paths below choose them themselves
     record = {}
     dev = torch.device("cuda", 0)
 
     def reset_counts():
         fr.reset_launch_counts()
         ms.reset_launch_counts()
+        psi.reset_launch_counts()
 
     def read_counts():
-        return {**fr.launch_counts, **ms.launch_counts}
+        return {**fr.launch_counts, **ms.launch_counts, **psi.launch_counts}
 
     def ready_solver(cfg, where="cuda"):
         s = build_solver(cfg, device=where)
@@ -230,6 +269,11 @@ def main() -> int:
         assert ms._lib().nsf_mlp_streams_smem_bytes(tile, h, 3) == smem
         print(f"width {h}: tile {tile} points, {smem} B shared memory per block, "
               f"{fr.PARTIAL_BLOCKS} blocks")
+    for h in (40, 80, 120):
+        tile = psi.pick_tile(h)
+        smem = psi.smem_bytes(tile, h)
+        assert psi._lib().nsf_psi_streams_smem_bytes(tile, h, 2) == smem
+        print(f"width {h}, 13 streams: tile {tile} points, {smem} B shared memory per block")
 
     # ---- 3. kernel checks at full width
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,6 +370,55 @@ def main() -> int:
                     and c["fwd_det"] and c["bwd_det"])
     record["check_streams"] = stream_chk
 
+    # 3c. kernels 5+6: raw streams, bundle, gradient (streams 3-4 zero / non-zero)
+    sizes_sf = layer_sizes(2, 2, 6, 80)
+    sizes_sf_small, sizes_sf_wide = layer_sizes(2, 2, 4, 40), layer_sizes(2, 2, 4, 120)
+    g = torch.Generator().manual_seed(3)
+    x_small = (2.0 * torch.rand((N_SF_SMALL, 2), generator=g) - 1.0).to(dev)
+    psi_cases = {
+        "6x80": (flatten_params(init_mlp(sizes_sf, g)).to(dev), sizes_sf, x),
+        "4x40": (flatten_params(init_mlp(sizes_sf_small, g)).to(dev), sizes_sf_small, x_small),
+        "4x120": (flatten_params(init_mlp(sizes_sf_wide, g)).to(dev), sizes_sf_wide, x_v1),
+    }
+    psi_cts, psi_chk = {}, {}
+    for name, (fl, sz, xx) in psi_cases.items():
+        g = torch.Generator().manual_seed(4)
+        cts = [torch.randn((xx.shape[0], 2), generator=g).to(dev) for _ in range(13)]
+        cts_used = [torch.zeros_like(c) if q in (3, 4) else c for q, c in enumerate(cts)]
+        psi_cts[name] = cts
+        out_k, out_k2 = psi.psi_fwd(fl, sz, xx), psi.psi_fwd(fl, sz, xx)
+        with torch.no_grad():
+            out_p = psi.plain_psi_streams(fl, sz, xx)
+            bun_k, bun_p = assemble_psi_bundle(out_k, 1.0), assemble_psi_bundle(out_p, 1.0)
+        c = {"n": xx.shape[0], "tile": psi.pick_tile(sz[1]),
+             "fwd_rel": max(rel_max(a, b) for a, b in zip(out_k, out_p)),
+             "fwd_abs": max((a - b).abs().max().item() for a, b in zip(out_k, out_p)),
+             "bundle_rel": max(rel_max(a, b) for a, b in zip(bun_k, bun_p)),
+             "fwd_det": all(torch.equal(a, b) for a, b in zip(out_k, out_k2))}
+        del out_k, out_k2, out_p, bun_k, bun_p
+        for tag, cc in (("bwd", cts), ("bwd_zero34", cts_used)):
+            d_k, d_k2 = psi.psi_bwd(fl, sz, xx, cc), psi.psi_bwd(fl, sz, xx, cc)
+            d_p = psi.plain_psi_streams_bwd(fl, sz, xx, cc)
+            torch.cuda.synchronize()
+            c[f"{tag}_rel"] = rel_per_param(unflatten_params, d_k, d_p, sz)
+            c[f"{tag}_abs"] = (d_k - d_p).abs().max().item()
+            c[f"{tag}_det"] = torch.equal(d_k, d_k2)
+            del d_k, d_k2, d_p
+        psi_chk[name] = c
+        print(f"kernel psi_streams_fwd {name} N={c['n']} tile {c['tile']}: raw streams max rel "
+              f"diff {c['fwd_rel']:.3e}, assembled bundle {c['bundle_rel']:.3e} (tolerance "
+              f"{FWD_TOL:g}, per stream max|diff|/max|plain|), max abs {c['fwd_abs']:.3e}, "
+              f"bitwise equal across runs: {c['fwd_det']}")
+        print(f"kernel psi_streams_bwd {name} N={c['n']}: max rel diff dW/db {c['bwd_rel']:.3e} "
+              f"(all 13 cotangents), {c['bwd_zero34_rel']:.3e} (streams 3-4 zero) (tolerance "
+              f"{BWD_TOL:g}, per tensor max|diff|/max|plain|), max abs {c['bwd_abs']:.3e}, "
+              f"bitwise equal across runs: {c['bwd_det'] and c['bwd_zero34_det']}")
+        ok_check = (ok_check and c["fwd_rel"] <= FWD_TOL and c["bundle_rel"] <= FWD_TOL
+                    and c["bwd_rel"] <= BWD_TOL and c["bwd_zero34_rel"] <= BWD_TOL
+                    and c["fwd_det"] and c["bwd_det"] and c["bwd_zero34_det"])
+    record["check_psi"] = psi_chk
+    torch.cuda.empty_cache()
+
     # ---- 4. the paths, through the port's entry points
     def drive(cfg, name, expect):
         """train() for the config's stage with the counts reset just before
@@ -335,7 +428,11 @@ def main() -> int:
         solver.set_alpha_evm(st.alpha)
         reset_counts()
         t0 = time.time()
-        solver.train(num_epoch=st.epochs, lr=st.lr)
+        solver.train(num_epoch=st.epochs, lr=st.lr, advance_on_stall=st.advance_on_stall,
+                     stall_threshold=cfg.training.stall_threshold,
+                     stall_window=cfg.training.stall_window,
+                     stall_min_epochs=st.resolved_stall_min(),
+                     stall_metric=cfg.training.stall_metric)
         torch.cuda.synchronize()
         seconds = time.time() - t0
         launches = read_counts()
@@ -390,7 +487,7 @@ def main() -> int:
     # 4d. unfused against fused on the flagship batch and the trained weights
     sides = {}
     for side, env in (("fused", None), ("unfused", "0")):
-        with fused_loss_env(env):
+        with env_var("NSFNET_FUSED_LOSS", env):
             s, _ = ready_solver(fcfg)
             s.set_params(solver.params(), solver.params_evm())
             s._ensure_ready()
@@ -403,10 +500,9 @@ def main() -> int:
             sides[side] = (metrics.to_host(), grad, read_counts())
     m_rel = rel_sums(list(sides["unfused"][0]), list(sides["fused"][0]))
     g_rel = rel_per_param(unflatten_params, sides["unfused"][1], sides["fused"][1], sizes)
-    routed = (sides["fused"][2] == {"fused_residual_fwd": 1, "fused_residual_bwd": 1,
-                                    "mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
-              and sides["unfused"][2] == {"fused_residual_fwd": 0, "fused_residual_bwd": 0,
-                                          "mlp_streams_fwd": 1, "mlp_streams_bwd": 1})
+    none = dict.fromkeys(read_counts(), 0)
+    routed = (sides["fused"][2] == {**none, "fused_residual_fwd": 1, "fused_residual_bwd": 1}
+              and sides["unfused"][2] == {**none, "mlp_streams_fwd": 1, "mlp_streams_bwd": 1})
     print(f"unfused (kernels 3+4 -> residuals -> masked sums) vs fused (kernels 1+2), "
           f"flagship batch: metrics max rel diff {m_rel:.3e}, main-net gradient "
           f"{g_rel:.3e} (tolerance {UNFUSED_TOL:g}), each side through its own kernels: "
@@ -414,6 +510,52 @@ def main() -> int:
     record["unfused_vs_fused"] = {"metrics_rel": m_rel, "grad_rel": g_rel, "routed": routed}
     ok_unfused = m_rel <= UNFUSED_TOL and g_rel <= UNFUSED_TOL and routed
     del sides, s
+
+    # 4e. the streamfunction slice: kernels 5+6
+    sfcfg = ConfigManager.from_dict(STREAMFUNCTION).config
+    assert unsupported(sfcfg) == [], unsupported(sfcfg)
+    solver_sf, launches_sf, ok_sf = drive(sfcfg, "slice_sf", ("psi_streams_fwd",
+                                                              "psi_streams_bwd"))
+    eq3_zero = all(m["eq3"] == 0.0 for _, m in record["slice_sf"]["history"])
+    grid = torch.linspace(0.0, 1.0, 101)
+    gx, gy = (t.reshape(-1, 1).numpy() for t in torch.meshgrid(grid, grid, indexing="ij"))
+    div = solver_sf.divergence(gx, gy).abs().max().item()
+    print(f"  eq3 == 0 exactly at every logged step: {eq3_zero}; max |u_x + v_y| on a 101x101 "
+          f"grid {div:.3e} (tolerance {DIV_TOL:g})")
+    ok_sf = ok_sf and eq3_zero and div <= DIV_TOL
+    record["slice_sf"].update(eq3_zero=eq3_zero, divergence=div)
+    record["small_rel_sf"] = small_rel_sf = cuda_vs_cpu(STREAMFUNCTION, "6x80 streamfunction",
+                                                        evm_update_freq=2)
+    ok_small = ok_small and small_rel_sf <= SMALL_TOL
+
+    sides = {}
+    for side, env in (("pallas", None), ("xla", "0")):
+        with env_var("NSFNET_PALLAS_PSI", env):
+            s, _ = ready_solver(sfcfg)
+        assert s.engine == side, (s.engine, side)
+        s.set_params(solver_sf.params(), solver_sf.params_evm())
+        s._ensure_ready()
+        reset_counts()
+        total, (metrics, _) = s._make_loss()(
+            (s.state.params, s.state.params_evm), s._batch, s.state.vis_t_minus,
+            s._stage_scalars(1e-3))
+        (grad,) = torch.autograd.grad(total, [s.state.params])
+        torch.cuda.synchronize()
+        sides[side] = (metrics.to_host(), grad, read_counts())
+    m_rel_sf = rel_sums(list(sides["pallas"][0]), list(sides["xla"][0]))
+    g_rel_sf = rel_per_param(unflatten_params, sides["pallas"][1], sides["xla"][1], sizes_sf)
+    routed_sf = (sides["pallas"][2] == {**dict.fromkeys(read_counts(), 0),
+                                        "psi_streams_fwd": 1, "psi_streams_bwd": 1}
+                 and not any(sides["xla"][2].values()))
+    print(f"streamfunction step, kernel engine (kernels 5+6) vs closed form, the path's batch "
+          f"and trained weights: metrics max rel diff {m_rel_sf:.3e}, main-net gradient "
+          f"{g_rel_sf:.3e} (tolerance {ENGINE_TOL:g}), kernels launched on the kernel side "
+          f"only: {routed_sf}")
+    record["psi_vs_closed_form"] = {"metrics_rel": m_rel_sf, "grad_rel": g_rel_sf,
+                                    "routed": routed_sf}
+    ok_engine = m_rel_sf <= ENGINE_TOL and g_rel_sf <= ENGINE_TOL and routed_sf
+    del sides, s
+    torch.cuda.empty_cache()
 
     # ---- 5. times
     kernels, work = [], {}
@@ -483,6 +625,34 @@ def main() -> int:
             del kernels[rows:]
             work["mlp_streams_fwd@6x80"], work["mlp_streams_bwd@6x80"] = w3, w4
 
+    # kernels 5+6: the `kernels` line carries the streamfunction path's shape
+    src = "nsfnet_tpu_torch/csrc/psi_streams.cu"
+    psi_times = {}
+    for name, (fl, sz, xx) in psi_cases.items():
+        cts, c = psi_cts[name], psi_chk[name]
+        k5_ms = cuda_ms(torch, lambda: psi.psi_fwd(fl, sz, xx), 10)
+        k6_ms = cuda_ms(torch, lambda: psi.psi_bwd(fl, sz, xx, cts), 5)
+        with torch.no_grad():
+            p5_ms = cuda_ms(torch, lambda: psi.plain_psi_streams(fl, sz, xx), 5)
+        # the plain backward is the whole function: forward graph + autograd
+        p6_ms = cuda_ms(torch, lambda: psi.plain_psi_streams_bwd(fl, sz, xx, cts), 5)
+        flops, nbytes = psi.flop_counts(sz, xx.shape[0]), psi.byte_counts(sz, xx.shape[0])
+        shape = f"{name} K=2, N={xx.shape[0]}"
+        rows = len(kernels)
+        w5 = add_kernel("psi_streams_fwd", src, "nsfnet_tpu/ops/pallas_psi.py:176",
+                        launches_sf["psi_streams_fwd"], k5_ms, p5_ms, c["fwd_abs"],
+                        max(c["fwd_rel"], c["bundle_rel"]), flops[0], nbytes[0], shape)
+        w6 = add_kernel("psi_streams_bwd", src, "nsfnet_tpu/ops/pallas_psi.py:223",
+                        launches_sf["psi_streams_bwd"], k6_ms, p6_ms, c["bwd_abs"],
+                        max(c["bwd_rel"], c["bwd_zero34_rel"]), flops[1], nbytes[1], shape)
+        psi_times[name] = kernels[rows:]
+        if name == "6x80":
+            work["psi_streams_fwd"], work["psi_streams_bwd"] = w5, w6
+        else:
+            del kernels[rows:]
+            work[f"psi_streams_fwd@{name}"], work[f"psi_streams_bwd@{name}"] = w5, w6
+        torch.cuda.empty_cache()
+
     def time_steps(s, what, n_f):
         s.run_steps(5)
         torch.cuda.synchronize()
@@ -497,21 +667,27 @@ def main() -> int:
 
     step_ms, pts_s = time_steps(solver, "slice (flagship ev-NSFnet, kernels 1+2)", N_F)
     v1_ms, v1_pts = time_steps(solver_v1, "slice (v1 NSFnet L2, kernels 3+4)", N_F_V1)
-    record["times"] = {"kernels": kernels, "streams_by_width": stream_times, "work": work,
+    sf_ms, sf_pts = time_steps(solver_sf, "slice (streamfunction ev-NSFnet, kernels 5+6)", N_F)
+    record["times"] = {"kernels": kernels, "streams_by_width": stream_times,
+                       "psi_by_width": psi_times, "work": work,
                        "step_ms": step_ms, "points_per_s": pts_s,
                        "v1_step_ms": v1_ms, "v1_points_per_s": v1_pts,
+                       "sf_step_ms": sf_ms, "sf_points_per_s": sf_pts,
                        "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
     record["profile"] = profile_steps(torch, solver, card, "flagship step")
     record["profile_v1"] = profile_steps(torch, solver_v1, card, "v1 L2 step")
+    record["profile_sf"] = profile_steps(torch, solver_sf, card, "streamfunction step")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
-    if not (ok_check and ok_slice and ok_v1 and ok_small and ok_unfused):
+    if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
+            and ok_engine):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
-              f"v1 L2 slice {ok_v1}, small-input reference {ok_small}, "
-              f"unfused vs fused {ok_unfused})", file=sys.stderr)
+              f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
+              f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
+              f"{ok_engine})", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

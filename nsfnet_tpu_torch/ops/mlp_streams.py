@@ -52,24 +52,26 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
+def flop_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, int]:
     """Matrix-product FLOPs of kernel 3 and kernel 4 on n points (the
     elementwise tanh algebra, a few percent, is left out, so these give
     lower bounds on the time). The backward recomputes the hidden products
     and runs two more per layer (dW and the carry cotangent); the head has
-    those two only."""
+    those two only. `n_streams` is the height of the packed carry: 5 here,
+    13 in the order-3 engine (ops/psi_streams.py), which has the same shape
+    of work."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    hidden = (n_hidden - 1) * 5 * 2 * h * h
-    head = 5 * 2 * h * k
+    hidden = (n_hidden - 1) * n_streams * 2 * h * h
+    head = n_streams * 2 * h * k
     return n * (hidden + head), n * (3 * hidden + 2 * head)
 
 
-def byte_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
+def byte_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, int]:
     """Bytes kernel 3 and kernel 4 must move: each input read once, each
     output written once."""
     p, k = param_count(sizes), sizes[-1]
-    fwd = n * 8 + 4 * p + 5 * 4 * n * k
-    bwd = n * 8 + 4 * p + 5 * 4 * n * k + 4 * p
+    fwd = n * 8 + 4 * p + n_streams * 4 * n * k
+    bwd = n * 8 + 4 * p + n_streams * 4 * n * k + 4 * p
     return fwd, bwd
 
 
@@ -105,7 +107,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(flat, sizes, x, cts=()):
+def _check_inputs(flat, sizes, x, cts=(), pick_tile=pick_tile):
+    """Raises on what the kernels do not take; returns the batch size and
+    the tile `pick_tile` chooses for the width."""
     n, k = x.shape[0], sizes[-1]
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")

@@ -8,7 +8,7 @@ Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
 -> final checkpoint. Runs on the CUDA card; `--cpu` runs on the CPU, and
 without a card and without `--cpu` it raises. Options of the JAX driver
 that this port does not run yet (resume, init-from, profiling, per-stage
-resampling, RAR, L-BFGS/LM stages, supervision, ...) are refused in
+resampling, RAR, L-BFGS/LM stages, supervision, Fourier / KAN, ...) are refused in
 `unsupported()` rather than ignored.
 """
 
@@ -39,8 +39,8 @@ def unsupported(cfg) -> list:
     out = []
     if cfg.model_variant not in ("nsfnet", "ev-nsfnet"):
         out.append(f"model_variant {cfg.model_variant!r}")
-    if n.backbone != "mlp" or n.formulation != "velocity" or n.fourier_features:
-        out.append("only the plain MLP backbone in the velocity formulation")
+    if n.backbone != "mlp" or n.fourier_features:
+        out.append("only the plain MLP backbone (either formulation)")
     if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
         out.append("microbatches / mesh_devices > 1")
     if t.resample_each_stage or t.rar_pool_mult or t.adaptive_bc_weight:
@@ -48,8 +48,8 @@ def unsupported(cfg) -> list:
     if cfg.supervision.enabled:
         out.append("supervision")
     for st in t.training_stages:
-        if st.optimizer != "adam" or st.advance_on_stall:
-            out.append(f"stage {st.name!r}: optimizer {st.optimizer!r} / advance_on_stall")
+        if st.optimizer != "adam":
+            out.append(f"stage {st.name!r}: optimizer {st.optimizer!r}")
     return out
 
 
@@ -74,6 +74,7 @@ def build_solver(cfg, device=None) -> PINNSolver:
         checkpoint_freq=cfg.training.checkpoint_freq,
         checkpoint_path=cfg.training.checkpoint_dir,
         loss_mode=cfg.training.loss_mode,
+        formulation=cfg.network.formulation,
         device=device,
     )
 
@@ -122,6 +123,7 @@ def main(argv=None) -> int:
     eval_fields = None
     if cfg.eval_data and os.path.exists(cfg.eval_data):
         eval_fields = data.evaluate_data(cfg.eval_data)
+        solver.attach_eval_data(eval_fields)
         logger.info(f"loaded DNS eval data: {cfg.eval_data} "
                     f"({eval_fields[0].shape[0]} points)")
     elif cfg.eval_data:
@@ -135,7 +137,12 @@ def main(argv=None) -> int:
         solver.current_stage = st.name
         solver.set_alpha_evm(st.alpha)
         solver.train(num_epoch=st.epochs, lr=st.lr, Re=st.Re or None,
-                     bc_weight=st.bc_weight or None)
+                     bc_weight=st.bc_weight or None,
+                     advance_on_stall=st.advance_on_stall,
+                     stall_threshold=cfg.training.stall_threshold,
+                     stall_window=cfg.training.stall_window,
+                     stall_min_epochs=st.resolved_stall_min(),
+                     stall_metric=cfg.training.stall_metric)
         if eval_fields:
             solver.evaluate(*eval_fields)
     path = solver.save("model_final.ckpt")

@@ -22,9 +22,18 @@ run with the fused loss off, takes the five-stream kernel pair
 (ops/mlp_streams.py) -> residuals -> masked sums. A kernel wrapper given
 CPU tensors runs its plain version.
 
+`formulation="streamfunction"`: the main net outputs (psi, p) and
+u = psi_y, v = -psi_x, so continuity holds exactly (eq3 == 0) and the
+momentum residuals need third derivatives of psi. Its engine is the order-3
+kernel pair (ops/psi_streams.py) on `pallas` and the closed form
+(ops/derivatives.mlp_psi_derivatives_2d) on `xla`, always followed by
+residuals -> masked sums: the fused residual loss reads (u, v, p) heads and
+is never used. Under `auto`, NSFNET_PALLAS_PSI=0 keeps the closed form on a
+card; an explicit engine="pallas" wins.
+
 Left for later slices: L-BFGS / LM polish, microbatching, multi-GPU,
-supervised data, KAN / Fourier features, the streamfunction formulation,
-RAR and resampling, adaptive bc weight, stall-advance, .pth import/export.
+supervised data, KAN / Fourier features, RAR and resampling, adaptive bc
+weight, .pth import/export.
 """
 
 from __future__ import annotations
@@ -39,9 +48,12 @@ import torch
 
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
-from nsfnet_tpu_torch.ops.derivatives import mlp_derivatives_2d
+from nsfnet_tpu_torch.ops import residuals as R
+from nsfnet_tpu_torch.ops.derivatives import (mlp_derivatives_2d, mlp_psi_derivatives_2d,
+                                              psi_p_uv)
 from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, fused_residual_loss
 from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
+from nsfnet_tpu_torch.ops.psi_streams import psi_streams
 from nsfnet_tpu_torch.parallel import mesh as pmesh
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
 from nsfnet_tpu_torch.training.step import (
@@ -74,10 +86,23 @@ def _exact_fp32():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def stall_gain(eq_track, window: int) -> float:
+    """Relative improvement of the best (minimum) equation loss achieved in
+    the last `window` log intervals over the best before them. Minimum-based
+    so oscillation around a converged value reads as ~0 gain while a
+    noisy-but-descending track reads positive."""
+    window = max(1, int(window))
+    if len(eq_track) <= window:
+        return float("inf")  # not enough history to call a stall
+    best_before = min(eq_track[:-window])
+    best_now = min(eq_track[-window:])
+    return (best_before - best_now) / max(abs(best_before), 1e-30)
+
+
 class PINNSolver:
     """2-D steady cavity PINN solver (vanilla NSFnet or ev-NSFnet), MLP
-    backbone, velocity formulation. Constructor knobs follow
-    ev-NSFnet/pinn_solver.py:32-54 and the JAX package's flagship set."""
+    backbone, velocity or streamfunction formulation. Constructor knobs
+    follow ev-NSFnet/pinn_solver.py:32-54 and the JAX package's flagship set."""
 
     def __init__(
         self,
@@ -104,6 +129,7 @@ class PINNSolver:
         log_interval: int = 1000,
         engine: str = "auto",  # auto | pallas | xla — residual-engine backend
         loss_mode: str = "MSE",  # MSE | L2 (reference v1's un-normalized norms)
+        formulation: str = "velocity",  # velocity | streamfunction (net outputs psi, p)
         device=None,
     ):
         self.device = resolve_device(device)
@@ -111,8 +137,15 @@ class PINNSolver:
             raise ValueError(f"unknown engine {engine!r}; auto, pallas or xla")
         if loss_mode not in ("MSE", "L2"):
             raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
+        if formulation not in ("velocity", "streamfunction"):
+            raise ValueError(f"unknown formulation {formulation!r}")
+        self.formulation = formulation
+        if formulation == "streamfunction":
+            num_outs = 2  # (psi, p); u and v are derivatives of psi
         if engine == "auto":
             engine = "pallas" if self.device.type == "cuda" else "xla"
+            if formulation == "streamfunction" and os.environ.get("NSFNET_PALLAS_PSI") == "0":
+                engine = "xla"
         self.engine = engine
         self.loss_mode = loss_mode
         self.Re = float(Re)
@@ -160,10 +193,12 @@ class PINNSolver:
         self._runner = None
         self._dirty = True
         self._vis_stale = True
+        self._eval_fields = None
 
         self.logger.info(
             f"PINNSolver: variant={'ev-nsfnet' if self.evm else 'nsfnet'} "
-            f"net={layers}x{hidden_size} engine={self.engine} loss={loss_mode} "
+            f"net={layers}x{hidden_size} formulation={formulation} "
+            f"engine={self.engine} loss={loss_mode} "
             f"device={self.device}"
             + (f" ({torch.cuda.get_device_name(self.device)})"
                if self.device.type == "cuda" else ""))
@@ -261,10 +296,26 @@ class PINNSolver:
                 self._vis_stale = False
         return batch
 
-    def _engine(self):
-        """(flat params, X[N,2]) -> the five derivative streams."""
-        sizes, prec = self.net.sizes, self.matmul_precision
-        if self.engine == "pallas":
+    def _uvp_apply(self):
+        """(flat params, X[N,2]) -> [N,3] (u, v, p) VALUES: the forward pass
+        every consumer of velocities uses (boundary loss, prediction). The
+        net's output itself in the velocity formulation; u = s psi_y,
+        v = -s psi_x by one value + first-tangent pass in the streamfunction
+        formulation."""
+        sizes, scale = self.net.sizes, self.coord_scale
+        if self.formulation == "streamfunction":
+            return lambda flat, x: psi_p_uv(unflatten_params(flat, sizes), x, scale)
+        return lambda flat, x: mlp_apply(unflatten_params(flat, sizes), x)
+
+    def _engine(self, kind: Optional[str] = None):
+        """(flat params, X[N,2]) -> the (u, v, p) derivative bundle."""
+        kind = kind or self.engine
+        sizes, prec, scale = self.net.sizes, self.matmul_precision, self.coord_scale
+        if self.formulation == "streamfunction":
+            if kind == "pallas":
+                return lambda flat, x: psi_streams(flat, sizes, x, scale, precision=prec)
+            return lambda flat, x: mlp_psi_derivatives_2d(unflatten_params(flat, sizes), x, scale)
+        if kind == "pallas":
             return lambda flat, x: mlp_streams(flat, sizes, x, precision=prec)
         return lambda flat, x: mlp_derivatives_2d(unflatten_params(flat, sizes), x)
 
@@ -277,7 +328,8 @@ class PINNSolver:
         sizes, sizes_1 = self.net.sizes, (self.net_1.sizes if self.evm else None)
         scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
         fused = None
-        if self.engine == "pallas" and self.loss_mode == "MSE" and self._fused_loss_enabled():
+        if self.engine == "pallas" and self.formulation == "velocity" \
+                and self.loss_mode == "MSE" and self._fused_loss_enabled():
             if evm:
                 def fused(flat, x, e, vis_t, eq_w, re):
                     return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
@@ -288,7 +340,7 @@ class PINNSolver:
                                                coord_scale=scale, evm=False, precision=prec)
         return make_loss_fn(
             engine=self._engine(),
-            apply_main=lambda flat, x: mlp_apply(unflatten_params(flat, sizes), x),
+            apply_main=self._uvp_apply(),
             apply_evm=((lambda flat, x: mlp_apply(unflatten_params(flat, sizes_1), x))
                        if evm else None),
             coord_scale=scale,
@@ -323,11 +375,24 @@ class PINNSolver:
         return metrics
 
     def train(self, num_epoch: int = 1, lr: float = 1e-4,
-              Re: Optional[float] = None, bc_weight: Optional[float] = None):
+              Re: Optional[float] = None, bc_weight: Optional[float] = None,
+              advance_on_stall: bool = False, stall_threshold: float = 0.02,
+              stall_window: int = 3, stall_min_epochs: int = 0,
+              stall_metric: str = "eq_loss"):
         """One Adam stage: num_epoch full-batch steps at fixed lr
         (parity: ev-NSFnet/pinn_solver.py:430-487); Re / bc_weight override
         the physics for this stage. Syncs with the device only at log and
-        checkpoint boundaries."""
+        checkpoint boundaries.
+
+        advance_on_stall ends the stage early once the stall metric, read at
+        the log boundaries, has failed to set a better minimum by
+        `stall_threshold` (relative) over the last `stall_window` intervals
+        (`stall_gain`), never before `stall_min_epochs`. stall_metric
+        'eq_loss' tracks the equation loss; 'eval_error' the mean u/v error
+        against the fields given to `attach_eval_data` (the equation loss if
+        none are attached). An early end fast-forwards `global_step` to the
+        stage's end and writes the stage-end checkpoint, so that train.py's
+        stage <-> step mapping lands on the next stage."""
         self.current_re = float(Re) if Re is not None else self.Re
         self.current_alpha_b = (float(bc_weight) if bc_weight is not None
                                 else self.alpha_b)
@@ -341,6 +406,12 @@ class PINNSolver:
         done = 0
         last_log_t, last_log_e = stage_start, 0
         pts_per_step = int(self._batch.x_f.shape[0] + self._batch.x_b.shape[0])
+        use_eval_track = (advance_on_stall and stall_metric == "eval_error"
+                          and self._eval_fields is not None)
+        if advance_on_stall and stall_metric == "eval_error" and self._eval_fields is None:
+            self.logger.warning("stall_metric='eval_error' but no eval data attached "
+                                "(attach_eval_data): tracking the equation loss instead")
+        eq_track = []  # stall-metric values at log boundaries
         while done < num_epoch:
             # first step alone (log parity with the reference's epoch 0),
             # then to the next log / checkpoint boundary
@@ -361,27 +432,64 @@ class PINNSolver:
                                 pts_per_step, now - stage_start,
                                 now - self.cumulative_start_time, lr)
                 last_log_t, last_log_e = now, done
+                if done > 1:  # the epoch-1 loss is pre-descent; skip it
+                    if use_eval_track:
+                        errs = self.evaluate(*self._eval_fields, log=False)
+                        eq_track.append(0.5 * (errs["u"] + errs["v"]))
+                    else:
+                        eq_track.append(float(m.equation))
             if (done == 1 and num_epoch >= self.checkpoint_freq) \
                     or done % self.checkpoint_freq == 0:
                 self.save(f"model_cavity_loop{done}.ckpt")
+            if (advance_on_stall and done >= max(stall_min_epochs, 1)
+                    and done < num_epoch and len(eq_track) > stall_window):
+                gain = stall_gain(eq_track, stall_window)
+                if gain < stall_threshold:
+                    metric_name = "u/v eval-error" if use_eval_track else "eq-loss"
+                    self.logger.info(
+                        f"[{self.current_stage}] stalled at epoch {done}/{num_epoch}: best "
+                        f"{metric_name} gain {gain * 100:.2f}% over {stall_window} log "
+                        f"intervals < {stall_threshold * 100:.2f}% — advancing stage")
+                    self.global_step += num_epoch - done
+                    self.save(f"model_cavity_loop{num_epoch}.ckpt")
+                    break
         return self.state
 
     # ------------------------------------------------------------ inference
 
+    def _host_points(self, x, y) -> torch.Tensor:
+        """Host coordinate arrays -> [N,2] float32 points on the device."""
+        return torch.cat([torch.as_tensor(np.asarray(x, np.float32).reshape(-1, 1)),
+                          torch.as_tensor(np.asarray(y, np.float32).reshape(-1, 1))],
+                         dim=1).to(self.device)
+
     def neural_net_u(self, x, y):
         """(u, v, p, e) tensors at host points, in full fp32
         (parity: ev-NSFnet/pinn_solver.py:280-288)."""
-        pts = torch.cat([torch.as_tensor(np.asarray(x, np.float32).reshape(-1, 1)),
-                         torch.as_tensor(np.asarray(y, np.float32).reshape(-1, 1))],
-                        dim=1).to(self.device)
+        pts = self._host_points(x, y)
         with torch.no_grad(), _exact_fp32():
-            uvp = self.net(pts)
+            uvp = self._uvp_apply()(self.state.params, pts)
             e = self.net_1(pts)[:, 0:1] if self.evm else torch.zeros_like(pts[:, 0:1])
         return uvp[:, 0:1], uvp[:, 1:2], uvp[:, 2:3], e
 
     def predict(self, X):
         x, y = X
         return self.neural_net_u(x, y)
+
+    def divergence(self, x, y):
+        """Continuity residual u_x + v_y at host points, by the closed-form
+        engine (the reference's divergence() is dead code,
+        NSFnet/pinn_solver.py:382-389; this is the working equivalent)."""
+        pts = self._host_points(x, y)
+        with torch.no_grad(), _exact_fp32():
+            derivs = self._engine("xla")(self.state.params, pts)
+            return R.ns_residuals(derivs, self.current_re, self.coord_scale).eq3
+
+    def attach_eval_data(self, fields) -> None:
+        """Register the DNS evaluation fields (x, y, u, v, p arrays) so that
+        the stall detector can track the field error instead of the equation
+        loss (stall_metric='eval_error')."""
+        self._eval_fields = fields
 
     def evaluate(self, x, y, u, v, p, log: bool = True):
         """Relative L2 % errors vs DNS (parity: ev-NSFnet/pinn_solver.py:669-693)."""
@@ -436,7 +544,8 @@ class PINNSolver:
             "epoch_in_stage": s.epoch_in_stage,
             "meta": {"global_step": self.global_step, "Re": self.Re,
                      "alpha_evm": self.alpha_evm, "alpha_b": self.current_alpha_b,
-                     "stage": self.current_stage, **self._arch()},
+                     "stage": self.current_stage, "formulation": self.formulation,
+                     **self._arch()},
         }
         tmp = path + ".tmp"
         torch.save(blob, tmp)
@@ -447,6 +556,12 @@ class PINNSolver:
         """Restore a checkpoint written by `save` (exact resume)."""
         blob = torch.load(path, map_location=self.device, weights_only=True)
         meta = blob["meta"]
+        theirs = meta.get("formulation", "velocity")  # no stamp: written before the option
+        if theirs != self.formulation:
+            # the shapes of the two heads can coincide; the quantities do not
+            raise ValueError(f"checkpoint {path} was written by a {theirs!r}-formulation "
+                             f"solver; this solver is {self.formulation!r} (the heads "
+                             f"predict different quantities)")
         bad = {k: (meta.get(k), v) for k, v in self._arch().items() if meta.get(k) != v}
         if bad:
             raise ValueError(f"checkpoint {path} architecture does not match this "

@@ -12,6 +12,7 @@ import torch
 from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, unflatten_params
 from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops import mlp_streams as ms
+from nsfnet_tpu_torch.ops import psi_streams as psi
 from nsfnet_tpu_torch.training.solver import PINNSolver
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +211,128 @@ def test_l2_solver_on_the_card_matches_the_cpu(cuda):
     assert ms.launch_counts == {"mlp_streams_fwd": 4, "mlp_streams_bwd": 4}
     on_cpu, _ = _cavity_run("cpu", **kw)
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-9)
+
+
+# ------------------------------------------- order-3 streamfunction engine
+
+# the last is a one-hidden-layer net: only the analytic first layer with its
+# direct dW0 terms and the head
+PSI_CASES = [((2, 32, 32, 32, 2), 512), ((2, 120, 120, 120, 2), 1040), ((2, 40, 40, 1), 272),
+             ((2, 16, 2), 256)]
+
+
+def _psi_inputs(sizes, n, dev, seed=0):
+    flat, x, *_ = _inputs(sizes, n, dev, seed)
+    gen = torch.Generator().manual_seed(seed + 200)
+    cts = [torch.randn((n, sizes[-1]), generator=gen).to(dev) for _ in range(13)]
+    return flat, x, cts
+
+
+def _assert_grads_close(dflat, ref, sizes):
+    for (gw, gb), (rw, rb) in zip(unflatten_params(dflat, sizes), unflatten_params(ref, sizes)):
+        # n-point sums of O(1) terms: the floor is relative to each tensor's size
+        tol = 1e-5 * max(rw.abs().max().item(), 1.0)
+        torch.testing.assert_close(gw, rw, rtol=5e-4, atol=tol)
+        torch.testing.assert_close(gb, rb, rtol=5e-4, atol=tol)
+
+
+@pytest.mark.parametrize("sizes,n", PSI_CASES)
+def test_psi_kernels_match_plain_version(cuda, sizes, n):
+    flat, x, cts = _psi_inputs(sizes, n, cuda)
+    got = psi.psi_fwd(flat, sizes, x)
+    with torch.no_grad():
+        ref = psi.plain_psi_streams(flat, sizes, x)
+    assert len(got) == len(ref) == 13
+    for g, r in zip(got, ref):
+        # fp32 products summed in another order; third-order streams are
+        # O(10) here, so the floor is relative to each stream's size
+        torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-6 * max(r.abs().max().item(), 1.0))
+    _assert_grads_close(psi.psi_bwd(flat, sizes, x, cts),
+                        psi.plain_psi_streams_bwd(flat, sizes, x, cts), sizes)
+
+
+def test_psi_kernels_take_zero_cotangents(cuda):
+    """The bundle never reads a_p, a_m (streams 3, 4): zero there, and zero
+    everywhere but one stream."""
+    sizes, n = (2, 32, 32, 32, 2), 512
+    flat, x, cts = _psi_inputs(sizes, n, cuda, seed=4)
+    cts[3], cts[4] = torch.zeros_like(cts[3]), torch.zeros_like(cts[4])
+    _assert_grads_close(psi.psi_bwd(flat, sizes, x, cts),
+                        psi.plain_psi_streams_bwd(flat, sizes, x, cts), sizes)
+    only = [torch.zeros_like(c) for c in cts]
+    only[11] = cts[11]
+    _assert_grads_close(psi.psi_bwd(flat, sizes, x, only),
+                        psi.plain_psi_streams_bwd(flat, sizes, x, only), sizes)
+
+
+def test_psi_kernels_are_bitwise_deterministic(cuda):
+    sizes = (2, 80, 80, 80, 2)
+    flat, x, cts = _psi_inputs(sizes, 8192, cuda, seed=1)
+    a, b = psi.psi_fwd(flat, sizes, x), psi.psi_fwd(flat, sizes, x)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    assert torch.equal(psi.psi_bwd(flat, sizes, x, cts), psi.psi_bwd(flat, sizes, x, cts))
+
+
+@pytest.mark.parametrize("h", [16, 40, 80, 109, 110, 120, 128])
+def test_psi_tile_choice_agrees_with_the_library(cuda, h):
+    for t in fr._TILES:
+        assert fr.ROW_ALIGN % t == 0
+        for k in (1, 2):
+            assert psi._lib().nsf_psi_streams_smem_bytes(t, h, k) == psi.smem_bytes(t, h, k)
+    assert psi.smem_bytes(psi.pick_tile(h), h) <= fr._MAX_SMEM
+    assert psi.pick_tile(h) == (16 if h <= 109 else 8)
+
+
+def _momentum_loss(bundle):
+    """The momentum-shaped loss of tests/test_pallas_psi.py:41-63."""
+    o, ox, oy, oxx, oyy = bundle
+    u, v = o[:, 0:1], o[:, 1:2]
+    eq1 = u * ox[:, 0:1] + v * oy[:, 0:1] + ox[:, 2:3] - 0.01 * (oxx[:, 0:1] + oyy[:, 0:1])
+    eq2 = u * ox[:, 1:2] + v * oy[:, 1:2] + oy[:, 2:3] - 0.01 * (oxx[:, 1:2] + oyy[:, 1:2])
+    return (eq1**2 + eq2**2).mean() + (o**2).mean()
+
+
+def test_psi_autograd_takes_the_bundle_cotangents(cuda):
+    """Through the bundle, autograd hands the backward zeros for a_p, a_m
+    and column-scattered (strided) cotangents for the rest."""
+    sizes = (2, 32, 32, 32, 2)
+    flat, x, _ = _psi_inputs(sizes, 512, cuda, seed=2)
+    flat.requires_grad_(True)
+    psi.reset_launch_counts()
+    bundle = psi.psi_streams(flat, sizes, x, uv_scale=2.0)
+    (g,) = torch.autograd.grad(_momentum_loss(bundle), [flat])
+    assert psi.launch_counts == {"psi_streams_fwd": 1, "psi_streams_bwd": 1}
+    from nsfnet_tpu_torch.ops.derivatives import mlp_psi_derivatives_2d
+    ref_bundle = mlp_psi_derivatives_2d(unflatten_params(flat, sizes), x, 2.0)
+    for got, ref in zip(bundle, ref_bundle):
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6 * max(ref.abs().max().item(), 1.0))
+    (ref,) = torch.autograd.grad(_momentum_loss(ref_bundle), [flat])
+    torch.testing.assert_close(g, ref, rtol=5e-4, atol=5e-6)
+    with pytest.raises(ValueError):  # unpadded batch: refused, no plain fallback
+        psi.psi_streams(flat, sizes, x[:250])
+    with pytest.raises(ValueError, match="head"):
+        psi.psi_streams(flat[:-1], (2, 32, 32, 32, 1), x)
+
+
+def test_streamfunction_solver_kernel_engine_matches_closed_form(cuda, monkeypatch):
+    """N_f = 500 pads to 512: four Adam steps of the (psi, p) formulation
+    through kernels 5+6 against the closed-form engine on the card and
+    against the CPU."""
+    monkeypatch.delenv("NSFNET_PALLAS_PSI", raising=False)
+    kw = dict(formulation="streamfunction")
+    psi.reset_launch_counts()
+    fr.reset_launch_counts()
+    kernel, p_kernel = _cavity_run("cuda", engine="pallas", **kw)
+    assert psi.launch_counts == {"psi_streams_fwd": 4, "psi_streams_bwd": 4}
+    assert not any(fr.launch_counts.values())
+    psi.reset_launch_counts()
+    closed, p_closed = _cavity_run("cuda", engine="xla", **kw)
+    monkeypatch.setenv("NSFNET_PALLAS_PSI", "0")
+    switched, _ = _cavity_run("cuda", **kw)  # auto, switched off: the closed form
+    assert not any(psi.launch_counts.values())
+    np.testing.assert_array_equal(switched, closed)
+    np.testing.assert_allclose(kernel, closed, rtol=1e-4, atol=1e-9)
+    assert not kernel[:, 6].any()  # eq3 == 0 exactly
+    torch.testing.assert_close(p_kernel, p_closed, rtol=0, atol=5e-6)
+    on_cpu, _ = _cavity_run("cpu", **kw)
+    np.testing.assert_allclose(kernel, on_cpu, rtol=1e-4, atol=1e-9)

@@ -101,6 +101,25 @@ def test_params_numpy_roundtrip_and_flat_views():
         unflatten_params(flat[:-1], (2, 8, 8, 3))
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_conversion_carries_other_heads(k):
+    """The (psi, p) head of the streamfunction formulation (K = 2) and the
+    EVM net's single output: a JAX-initialised net gives the same outputs on
+    both sides after the copy."""
+    sizes = (2, 8, 8, k)
+    jp = _jax_params(sizes, seed=2)
+    tp = params_from_numpy(jp)
+    assert tp[-1][0].shape == (8, k) and tp[-1][1].shape == (k,)
+    assert flatten_params(tp).numel() == param_count(sizes)
+    x = _points(16, seed=2).astype(np.float32)
+    np.testing.assert_allclose(mlp_apply(tp, torch.from_numpy(x)).numpy(),
+                               np.asarray(jax_mlp_apply(jp, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)  # fp32 products, other summation order
+    for (w, b), (w2, b2) in zip(jp, params_to_numpy(unflatten_params(flatten_params(tp), sizes))):
+        np.testing.assert_array_equal(np.asarray(w), w2)
+        np.testing.assert_array_equal(np.asarray(b), b2)
+
+
 def test_init_mlp_is_seeded_and_bounded():
     sizes = (2, 20, 20, 3)
     a = init_mlp(sizes, torch.Generator().manual_seed(4))
