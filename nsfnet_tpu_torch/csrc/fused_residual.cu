@@ -1,15 +1,15 @@
-// Fused NS residual-loss kernel pair for Hopper (sm_90a), fp32 on the CUDA cores.
+// Fused NS residual-loss kernel pair for Hopper (sm_90a), the hidden-layer
+// products on the tensor cores.
 //
 // Replaces the TPU kernels of nsfnet_tpu/ops/pallas_residual.py:
 //   loss_fwd_kernel  <- _loss_fwd_kernel (:100, launched by _fused_fwd, pallas_call at :205)
 //   loss_bwd_kernel  <- _loss_bwd_kernel (:128, launched by _fused_bwd, pallas_call at :249)
-// The packed forward and the packed reverse sweep they share with the
-// five-stream engine (mlp_streams.cu) are in packed_mlp.cuh, which also says
-// how tiles, the fixed grid, the ordered partial sums and the backward
-// scratch work.
+// The packed sweep they run (tensor-core products, bf16 parts, the backward
+// tape, the fixed grid) is in tc_mlp.cuh, which says how each part works.
 //
 // What they compute, for a tanh MLP 2 -> H (x n_hidden) -> 3 and a batch of
-// collocation points x[N,2]:
+// collocation points x[N,2], at a precision name (NP bf16 parts per operand,
+// the passes i + j < NP: "default" 1, "high" 3, "highest" 6):
 //   forward : the packed value + 4 Taylor streams through every layer, the
 //             (u, v, p) derivative streams at the head, the NS / EVM residual
 //             algebra eq1..eq4, and S_i = sum_n eq_w[n] * eq_i[n]^2 (3 or 4 sums).
@@ -21,12 +21,17 @@
 //
 // What bounds them on this card: operations. Per point the forward does
 // ~0.32 MFLOP of matrix products (5 streams x 2*H*H per hidden layer) and
-// the backward ~0.97 MFLOP, against ~20 B of per-point input, so both sit
-// three orders of magnitude above the fp32 ridge point. This first version
-// runs those products as fp32 FMAs on the CUDA cores (67 TFLOP/s peak);
-// tensor-core passes (wgmma, TF32 / bf16x3) are later work.
+// the backward ~0.97 MFLOP, each times the pass count, against ~20 B of
+// per-point input: far above the bf16 ridge point. The products run as
+// mma.sync on bf16 parts (tc_mlp.cuh). What the design does about the rest:
+// the hidden weights are split once per launch, so staging a panel is a copy;
+// the backward's tape holds t and the tangents only (1.0 GB written, 1.8 GB
+// read at 6x80 / N = 120,000, against 1.9 GB each way when every carry was
+// stored) and its 132 persistent blocks with 32-point tiles halve the
+// gradient partial's read-modify-write (ops/fused_residual.py bwd_traffic);
+// the elementwise loops keep several global loads in flight per thread.
 
-#include "packed_mlp.cuh"
+#include "tc_mlp.cuh"
 
 namespace {
 
@@ -63,95 +68,111 @@ __device__ Res residual_at(const float* hb, int p, int tile, int k, float e, flo
   return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
+struct TcRegions {
+  bf16 *buf_a, *buf_b, *wb, *whs;
+  float *hb, *ghp, *red, *dbs;
+};
+
+__device__ TcRegions carve(unsigned char* smem, const TcSmem& L) {
+  TcRegions r;
+  r.buf_a = reinterpret_cast<bf16*>(smem);
+  r.buf_b = reinterpret_cast<bf16*>(smem + L.carry);
+  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry);
+  unsigned char* f = smem + 2 * L.carry + L.wbuf;
+  r.whs = reinterpret_cast<bf16*>(f);
+  r.hb = reinterpret_cast<float*>(f + L.whs);
+  r.ghp = reinterpret_cast<float*>(f + L.whs + L.hb);
+  r.red = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp);
+  r.dbs = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp + L.red);
+  return r;
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, 1)
 loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                 const float* __restrict__ e, const float* __restrict__ vis_t,
-                const float* __restrict__ eq_w, int n, Shapes sh, float re,
-                float scale, int evm, float* partial) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, S = T * h;
-  float* buf_a = smem;
-  float* buf_b = buf_a + 5 * S;
-  float* ws = buf_b + 5 * S;
-  float* red = ws + h * (h + 1);
-  float* hb = red + 4 * T;
+                const float* __restrict__ eq_w, const bf16* __restrict__ wsplit, int n,
+                TcShapes sh, float re, float scale, int evm, float* partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcRegions R = carve(smem, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const int T = sh.tile, h = sh.h, k = sh.k;
   const int n_out = evm ? 4 : 3;
   const long wh = head_off(sh.n_hidden, h);
+  stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
   float acc = 0.f;
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
-    __syncthreads();  // the previous tile's readers of buf_a / red are done
-    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, nullptr);
-    __syncthreads();
-    head_layer(cur, flat + wh, flat + wh + (long)h * k, hb, T, h, k);
+    __syncthreads();  // the previous tile's readers of the buffers / red are done
+    const bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, nullptr);
+    tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
     for (int p = threadIdx.x; p < T; p += blockDim.x) {
       const long i = n0 + p;
-      Res r = residual_at(hb, p, T, k, evm ? e[i] : 0.f, evm ? vis_t[i] : 0.f,
-                          re, scale, evm != 0);
-      const float w = eq_w[i];
-      red[p] = w * r.eq1 * r.eq1;
-      red[T + p] = w * r.eq2 * r.eq2;
-      red[2 * T + p] = w * r.eq3 * r.eq3;
-      red[3 * T + p] = w * r.eq4 * r.eq4;
+      const bool live = i < n;
+      Res r = residual_at(R.hb, p, T, k, evm && live ? e[i] : 0.f,
+                          evm && live ? vis_t[i] : 0.f, re, scale, evm != 0);
+      const float w = live ? eq_w[i] : 0.f;
+      R.red[p] = w * r.eq1 * r.eq1;
+      R.red[T + p] = w * r.eq2 * r.eq2;
+      R.red[2 * T + p] = w * r.eq3 * r.eq3;
+      R.red[3 * T + p] = w * r.eq4 * r.eq4;
     }
     __syncthreads();
     if (threadIdx.x < n_out) {
       float s = 0.f;
-      for (int p = 0; p < T; ++p) s += red[threadIdx.x * T + p];
+      for (int p = 0; p < T; ++p) s += R.red[threadIdx.x * T + p];
       acc += s;
     }
   }
   if (threadIdx.x < 4) partial[blockIdx.x * 4 + threadIdx.x] = threadIdx.x < n_out ? acc : 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, 1)
 loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                 const float* __restrict__ e, const float* __restrict__ vis_t,
-                const float* __restrict__ eq_w, int n, Shapes sh, float re,
-                float scale, int evm, const float* __restrict__ ct,
+                const float* __restrict__ eq_w, const bf16* __restrict__ wsplit, int n,
+                TcShapes sh, float re, float scale, int evm, const float* __restrict__ ct,
                 float* scratch, float* dpart, float* g_e) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, L = sh.n_hidden, S = T * h, TK = T * k;
-  float* buf_a = smem;
-  float* buf_b = buf_a + 5 * S;
-  float* ws = buf_b + 5 * S;
-  float* hb = ws + h * (h + 1) + 4 * T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcRegions R = carve(smem, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const int T = sh.tile, h = sh.h, k = sh.k, L = sh.n_hidden, TK = T * k, rows = 5 * T;
   const long P = n_params(L, h, k);
   float* dp = dpart + blockIdx.x * P;
-  float* store = scratch + blockIdx.x * scratch_floats(T, h, L);
+  float* tape = scratch + blockIdx.x * tc_scratch_floats(T, sh.hp, L);
   const long wh = head_off(L, h);
-  const float* whp = flat + wh;
   const float ss = scale * scale;
   const float c0 = ct[0], c1 = ct[1], c2 = ct[2], c3 = evm ? ct[3] : 0.f;
+  float* hb = R.hb;
 
   for (long i = threadIdx.x; i < P; i += blockDim.x) dp[i] = 0.f;
+  stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
     __syncthreads();
-    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, store);
-    float* other = cur == buf_a ? buf_b : buf_a;
-    __syncthreads();
-    head_layer(cur, whp, whp + (long)h * k, hb, T, h, k);
+    bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, tape);
+    bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
+    tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, hb, sh);
     __syncthreads();
 
     // per-point loss cotangents -> head-stream cotangents, in place in hb
     for (int p = threadIdx.x; p < T; p += blockDim.x) {
       const long i = n0 + p;
-      Res r = residual_at(hb, p, T, k, evm ? e[i] : 0.f, evm ? vis_t[i] : 0.f,
-                          re, scale, evm != 0);
-      const float w = eq_w[i];
+      const bool live = i < n;
+      Res r = residual_at(hb, p, T, k, evm && live ? e[i] : 0.f,
+                          evm && live ? vis_t[i] : 0.f, re, scale, evm != 0);
+      const float w = live ? eq_w[i] : 0.f;
       float g1, g2, g3, gu, gv;
       if (evm) {
         float g4 = 2.0f * (w * r.eq4) * c3;
         g1 = 2.0f * (w * r.eq1) * c0 + g4 * (r.u - 0.5f);
         g2 = 2.0f * (w * r.eq2) * c1 + g4 * (r.v - 0.5f);
         g3 = 2.0f * (w * r.eq3) * c2;
-        g_e[i] = -g4;
+        if (live) g_e[i] = -g4;
         gu = g1 * r.ux + g2 * r.vx + g4 * r.eq1;
         gv = g1 * r.uy + g2 * r.vy + g4 * r.eq2;
       } else {
@@ -179,15 +200,70 @@ loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
       o[4 * TK + 2] = 0.f;
     }
     __syncthreads();
-
-    reverse_sweep(x, flat, n0, sh, cur, other, ws, hb, store, dp);
+    for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {  // head cotangent parts
+      bf16 part[NP];
+      split_one<NP>(hb[idx], part);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) R.ghp[(long)i * rows * k + idx] = __bfloat162float(part[i]);
+    }
+    __syncthreads();
+    tc_head_backward<NP, 3>(x, flat, n0, n, cur, R.whs, R.ghp, hb, tape, other, R.dbs, dp, sh);
+    __syncthreads();
+    flush_sums(R.dbs, T / 8, L - 1, dp, h, sh.hp);
+    tc_reverse<NP>(x, flat, wsplit, n0, n, other, cur, R.wb, R.dbs, tape, dp, sh);
   }
 }
 
-// The residual algebra reads (u, v, p): the head is 3 wide.
-int check_loss_args(int n, int h, int k, int tile, int n_hidden, int n_blocks, size_t smem) {
-  if (k != 3) return (int)cudaErrorInvalidValue;
-  return check_launch_args(n, h, k, tile, n_hidden, n_blocks, smem);
+// What the pair takes: the residual algebra reads (u, v, p), so the head is
+// 3 wide; a batch padded to 16 rows; a tile of 16 or 32; a panel that tiles
+// the padded width; 1-3 parts; a block that fits.
+int check_loss_args(int n, int h, int k, int tile, int panel, int n_hidden, int n_blocks,
+                    int parts, size_t smem) {
+  const int hp = pad16(h);
+  if (k != 3 || n <= 0 || n % 16 != 0 || h <= 0 || n_hidden < 1 || n_blocks <= 0 ||
+      (tile != 16 && tile != 32) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
+      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Splits the hidden weights into wsplit (tc_wsplit_elems bf16) on stream s.
+template <int NP>
+int launch_split(const float* flat, const TcShapes& sh, bf16* wsplit, cudaStream_t s) {
+  if (sh.n_hidden < 2) return 0;
+  const long total = (long)(sh.n_hidden - 1) * sh.hp * sh.hp;
+  split_weights<NP><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(flat, sh.n_hidden, sh.h,
+                                                                    sh.hp, wsplit);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_fwd(const float* x, const float* flat, const float* e, const float* vis_t,
+               const float* eq_w, bf16* wsplit, int n, TcShapes sh, int n_blocks, float re,
+               float scale, int evm, float* partial, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(loss_fwd_kernel<NP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  loss_fwd_kernel<NP><<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh,
+                                                         re, scale, evm, partial);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_bwd(const float* x, const float* flat, const float* e, const float* vis_t,
+               const float* eq_w, bf16* wsplit, int n, TcShapes sh, int n_blocks, float re,
+               float scale, int evm, const float* ct, float* scratch, float* dpart, float* g_e,
+               size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(loss_bwd_kernel<NP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  loss_bwd_kernel<NP><<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh,
+                                                         re, scale, evm, ct, scratch, dpart, g_e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -195,56 +271,66 @@ int check_loss_args(int n, int h, int k, int tile, int n_hidden, int n_blocks, s
 extern "C" {
 
 // Shared memory one block of either kernel uses, in bytes.
-int nsf_fused_loss_smem_bytes(int tile, int h, int k) {
-  return (int)(smem_floats(tile, h, k) * sizeof(float));
+int nsf_fused_loss_smem_bytes(int tile, int panel, int h, int k, int parts) {
+  return (int)tc_smem(tile, panel, pad16(h), k, parts).total();
 }
 
-// Floats of backward scratch one block uses; the wrapper allocates n_blocks of them.
+// Floats of backward tape one block uses; the wrapper allocates n_blocks of them.
 long nsf_fused_loss_scratch_floats(int tile, int h, int n_hidden) {
-  return scratch_floats(tile, h, n_hidden);
+  return tc_scratch_floats(tile, pad16(h), n_hidden);
+}
+
+// Bytes of the launch's split copy of the hidden weights (either kernel).
+long nsf_fused_loss_weight_bytes(int n_hidden, int h, int parts) {
+  return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
 }
 
 // Forward: out[0..n_out) = per-equation weighted sums of squares.
-// partial: [n_blocks, 4] scratch. Returns a cudaError_t code (0 = launched).
+// partial: [n_blocks, 4] scratch; wsplit: nsf_fused_loss_weight_bytes of
+// scratch. Returns a cudaError_t code (0 = launched).
 int nsf_fused_loss_fwd(const float* x, const float* flat, const float* e, const float* vis_t,
                        const float* eq_w, int n, int n_hidden, int h, int k, int tile,
-                       int n_blocks, float re, float scale, int evm, float* partial,
-                       float* out, void* stream) {
-  const size_t smem = smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_loss_args(n, h, k, tile, n_hidden, n_blocks, smem);
+                       int panel, int n_blocks, int parts, float re, float scale, int evm,
+                       void* wsplit, float* partial, float* out, void* stream) {
+  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts).total();
+  int bad = check_loss_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(loss_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Shapes sh{n_hidden, h, k, tile};
-  loss_fwd_kernel<<<n_blocks, kThreads, smem, s>>>(x, flat, e, vis_t, eq_w, n, sh, re, scale,
-                                                   evm, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel};
+  bf16* ws = static_cast<bf16*>(wsplit);
+  int err = parts == 1   ? launch_fwd<1>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, partial, smem, s)
+            : parts == 2 ? launch_fwd<2>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, partial, smem, s)
+                         : launch_fwd<3>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, partial, smem, s);
+  if (err) return err;
   sum_partials<<<1, 32, 0, s>>>(partial, n_blocks, 4, evm ? 4 : 3, out);
   return (int)cudaGetLastError();
 }
 
 // Backward: dflat = d(sum_i ct[i] * S_i)/dparams in the flat layout, and
-// g_e[N] = its cotangent wrt e (EVM only). scratch: [n_blocks, nsf_fused_loss_scratch_floats],
-// dpart: [n_blocks, n_params]. Returns a cudaError_t code (0 = launched).
+// g_e[N] = its cotangent wrt e (EVM only). wsplit as for the forward;
+// scratch: [n_blocks, nsf_fused_loss_scratch_floats], dpart: [n_blocks,
+// n_params]. Returns a cudaError_t code (0 = launched).
 int nsf_fused_loss_bwd(const float* x, const float* flat, const float* e, const float* vis_t,
                        const float* eq_w, int n, int n_hidden, int h, int k, int tile,
-                       int n_blocks, float re, float scale, int evm, const float* ct,
-                       float* scratch, float* dpart, float* dflat, float* g_e, void* stream) {
-  const size_t smem = smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_loss_args(n, h, k, tile, n_hidden, n_blocks, smem);
+                       int panel, int n_blocks, int parts, float re, float scale, int evm,
+                       void* wsplit, const float* ct, float* scratch, float* dpart, float* dflat,
+                       float* g_e, void* stream) {
+  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts).total();
+  int bad = check_loss_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Shapes sh{n_hidden, h, k, tile};
-  loss_bwd_kernel<<<n_blocks, kThreads, smem, s>>>(x, flat, e, vis_t, eq_w, n, sh, re, scale,
-                                                   evm, ct, scratch, dpart, g_e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel};
+  bf16* ws = static_cast<bf16*>(wsplit);
+  int err = parts == 1   ? launch_bwd<1>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, ct, scratch, dpart, g_e, smem, s)
+            : parts == 2 ? launch_bwd<2>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, ct, scratch, dpart, g_e, smem, s)
+                         : launch_bwd<3>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
+                                         scale, evm, ct, scratch, dpart, g_e, smem, s);
+  if (err) return err;
   return (int)sum_gradient_partials(dpart, n_blocks, n_params(n_hidden, h, k), dflat, s);
 }
 

@@ -1,9 +1,11 @@
-// Device code shared by the port's packed-MLP kernels (fp32, CUDA cores):
-// the fused residual-loss pair (fused_residual.cu) and the five-stream
-// derivative engine (mlp_streams.cu). It ports the parts of
-// nsfnet_tpu/ops/pallas_mlp.py that both TPU kernel pairs inline:
+// Device code of the port's CUDA-core packed-MLP kernels (fp32): the
+// five-stream derivative engine (mlp_streams.cu) and, through packed_psi.cuh,
+// the order-3 engine (psi_streams.cu). It ports the parts of
+// nsfnet_tpu/ops/pallas_mlp.py that the TPU kernel pairs inline:
 // _first_layer_packed, _layer_packed, _forward_streams, _recompute_forward
-// and _packed_reverse_sweep.
+// and _packed_reverse_sweep. The fused residual-loss pair (fused_residual.cu)
+// takes only its flat parameter layout and sum_partials from here; its sweep
+// runs on the tensor cores (tc_mlp.cuh).
 //
 // For a tanh MLP 2 -> H (x n_hidden) -> K and a tile of T points, the five
 // Taylor streams (h, h_x, h_y, h_xx, h_yy) travel as one packed carry

@@ -1,0 +1,745 @@
+// Tensor-core packed-MLP sweep for Hopper (sm_90a): the device code of the
+// fused residual-loss pair (fused_residual.cu). It ports the parts of
+// nsfnet_tpu/ops/pallas_mlp.py that the TPU pair inlines (_first_layer_packed,
+// _layer_packed, _forward_streams, _recompute_forward, _packed_reverse_sweep)
+// with every matrix product of a hidden layer on the tensor cores.
+//
+// Precision. The JAX kernels take a precision name; here it arrives as the
+// number of bf16 parts NP each operand is split into (round to nearest:
+// a_0 = bf16(a), a_1 = bf16(a - a_0), a_2 = bf16(a - a_0 - a_1)), and every
+// product runs the passes a_i b_j with i + j < NP, fp32 accumulation:
+//   "default" NP = 1:  1 pass  (a_0 b_0)
+//   "high"    NP = 2:  3 passes (a_0 b_0 + a_0 b_1 + a_1 b_0), JAX's bf16x3
+//                      (pallas_mlp.py:111-129)
+//   "highest" NP = 3:  6 passes, Mosaic's HIGHEST, about exact fp32
+// A bf16 x bf16 product is exact in fp32, so the kernel and the plain version
+// (ops/fused_residual.py) differ only in the order of the sums. Weights are
+// split once per launch (split_weights); carries and cotangents are split
+// by the epilogue that produces them and kept as bf16 parts, the operand the
+// next product reads.
+//
+// Route: mma.sync.m16n8k16 (bf16 in, fp32 accumulators) fed by ldmatrix,
+// not wgmma. A tile of T = 16 or 32 points makes a [5T, H] packed carry,
+// stream-major ([5][T][H]); one warp computes a 16-point group x 16 units of
+// all five streams, so the five accumulator fragments of one (point, unit)
+// sit in the same thread and the tanh Taylor algebra (forward) and the g_z
+// algebra (backward) run on the fragments in registers. wgmma's 64-row
+// warpgroup tiles do not divide the 5 x 16 rows of a point group, so a
+// point's five streams would not meet in one thread without a shared-memory
+// round trip before every epilogue.
+//
+// Products per hidden layer l (W_l [H, H], P packed carry, G cotangent):
+//   forward  Z = P W        A: carry parts (ldmatrix), B: W parts (.trans)
+//   backward G = Gz W^T     A: Gz parts,             B: W parts
+//            dW += P^T Gz   A: P parts (.trans),     B: Gz parts (.trans)
+// The head (K = 3) runs the same passes on the CUDA cores: a bf16 x bf16
+// product is exact in fp32, so its result is that of the tensor cores.
+//
+// Widths. H is zero-padded to Hp, a multiple of 16, in shared memory and in
+// the launch's split copy of the weights: padded weight rows / columns and
+// bias are zero, so padded units have t = 0
+// and feed nothing (the role of _pad_params_lanes, pallas_mlp.py:371-413).
+// Only real entries reach the gradient. A weight too large for shared memory
+// is staged in column (forward) or row (backward) panels of `panel` units.
+//
+// Backward tape. The recompute keeps, per tanh layer, only t and the four
+// pre-activation tangents (fp32, [5][T][Hp]; t alone for the analytic first
+// layer) in a block-private global scratch. The reverse sweep rebuilds the
+// carry P_{l-1} from them with the forward's own arithmetic (carry_from_t),
+// bit for bit, instead of storing it.
+//
+// Grid. A fixed number of persistent blocks (a constant of the wrapper, not
+// the SM count) loops over tiles; each block writes one partial, and
+// sum_partials adds them in block order. No float atomics: equal inputs give
+// bitwise-equal outputs. A ragged last tile reads rows >= n as zero points;
+// the callers give them zero weight.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "packed_mlp.cuh"
+
+namespace {
+
+constexpr int kTcWarps = 10;  // 80 units = 5 n16-blocks x 2 point groups at T = 32
+constexpr int kTcThreads = 32 * kTcWarps;
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ inline int pad16(int h) { return (h + 15) / 16 * 16; }
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+struct TcShapes {
+  int n_hidden;  // tanh layers
+  int h;         // real hidden width
+  int hp;        // padded width, a multiple of 16
+  int k;         // head outputs
+  int tile;      // points per tile: 16 or 32
+  int panel;     // weight panel width, a multiple of 16 dividing hp
+};
+
+// Shared memory of one block, in bytes, region by region (16-byte aligned):
+// two carry buffers [NP][5T][Hp+8] bf16, the weight panel, the head weight
+// parts [NP][Hp][K] bf16, the head streams [5][T][K], the head cotangent
+// parts [NP][5T][K], the loss terms [4][T], the column sums [T/8][3][Hp].
+struct TcSmem {
+  size_t carry, wbuf, whs, hb, ghp, red, dbs;
+  __host__ __device__ size_t total() const { return 2 * carry + wbuf + whs + hb + ghp + red + dbs; }
+};
+
+__host__ __device__ inline TcSmem tc_smem(int tile, int panel, int hp, int k, int np) {
+  TcSmem s;
+  s.carry = round16((size_t)np * 5 * tile * (hp + 8) * 2);
+  size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
+  s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
+  s.whs = round16((size_t)np * hp * k * 2);
+  s.hb = round16((size_t)5 * tile * k * 4);
+  s.ghp = round16((size_t)np * 5 * tile * k * 4);
+  s.red = round16((size_t)4 * tile * 4);
+  s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
+  return s;
+}
+
+// Scratch floats of one block: t0 [T][Hp], then [5][T][Hp] (t, z_x, z_y,
+// z_xx, z_yy) for each product layer 1 .. L-1.
+__host__ __device__ inline long tc_scratch_floats(int tile, int hp, int n_hidden) {
+  return (long)tile * hp * (1 + 5L * (n_hidden - 1));
+}
+__device__ inline long tc_tape_off(int l, int tile, int hp) {
+  return l == 0 ? 0 : (long)tile * hp * (1 + 5L * (l - 1));
+}
+
+// ---------------------------------------------------------------- bf16 parts
+
+template <int NP>
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t out[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);  // .x = v0: the lower column
+    out[i] = *reinterpret_cast<uint32_t*>(&h);
+    v0 = __fsub_rn(v0, __low2float(h));  // exact: the remainder has <= 16 bits
+    v1 = __fsub_rn(v1, __high2float(h));
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void split_one(float v, bf16 out[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    out[i] = __float2bfloat16_rn(v);
+    v = __fsub_rn(v, __bfloat162float(out[i]));
+  }
+}
+
+// ------------------------------------------------------ tensor-core wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// c += a b for one m16n8k16 tile: a row-major bf16, b col-major bf16, c fp32.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The passes a_i b_j, i + j < NP, on two n8 tiles (b[j] holds both).
+template <int NP>
+__device__ __forceinline__ void mma_passes(float acc[2][4], const uint32_t a[NP][4],
+                                           const uint32_t b[NP][4]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int j = 0; j + i < NP; ++j) {
+      mma_bf16(acc[0], a[i], b[j][0], b[j][1]);
+      mma_bf16(acc[1], a[i], b[j][2], b[j][3]);
+    }
+}
+
+// ------------------------------------------------------------ the algebra
+// One function per formula, with rounded intrinsics (no contraction), so the
+// reverse sweep rebuilds the forward's carries bit for bit.
+
+// Hidden carry from t = tanh(z) and the pre-activation tangents.
+__device__ __forceinline__ void carry_from_t(float t, float zx, float zy, float zxx, float zyy,
+                                             float v[5]) {
+  const float s = __fsub_rn(1.0f, __fmul_rn(t, t));
+  const float c = __fmul_rn(__fmul_rn(-2.0f, t), s);
+  v[0] = t;
+  v[1] = __fmul_rn(s, zx);
+  v[2] = __fmul_rn(s, zy);
+  v[3] = __fadd_rn(__fmul_rn(__fmul_rn(c, zx), zx), __fmul_rn(s, zxx));
+  v[4] = __fadd_rn(__fmul_rn(__fmul_rn(c, zy), zy), __fmul_rn(s, zyy));
+}
+
+// Analytic first-layer carry [t; s wx; s wy; c wx^2; c wy^2].
+__device__ __forceinline__ void first_carry(float t, float wx, float wy, float v[5]) {
+  const float s = __fsub_rn(1.0f, __fmul_rn(t, t));
+  const float c = __fmul_rn(__fmul_rn(-2.0f, t), s);
+  v[0] = t;
+  v[1] = __fmul_rn(s, wx);
+  v[2] = __fmul_rn(s, wy);
+  v[3] = __fmul_rn(c, __fmul_rn(wx, wx));
+  v[4] = __fmul_rn(c, __fmul_rn(wy, wy));
+}
+
+// Packed carry cotangent G -> pre-activation cotangent Gz at a tanh layer.
+__device__ __forceinline__ void gz_from(float t, float zx, float zy, float zxx, float zyy,
+                                        const float G[5], float z[5]) {
+  const float s = 1.0f - t * t;
+  const float c = -2.0f * t * s;
+  const float u6 = (6.0f * t * t - 2.0f) * s;
+  z[0] = G[0] * s + (G[1] * zx + G[2] * zy) * c + G[3] * (u6 * zx * zx + c * zxx) +
+         G[4] * (u6 * zy * zy + c * zyy);
+  z[1] = G[1] * s + 2.0f * G[3] * c * zx;
+  z[2] = G[2] * s + 2.0f * G[4] * c * zy;
+  z[3] = G[3] * s;
+  z[4] = G[4] * s;
+}
+
+// The analytic first layer's gradient terms at one (point, unit):
+// d += (dW0[0], dW0[1], db0) contributions (pallas_mlp.py:296-310).
+__device__ __forceinline__ void first_terms(float t0, float wx, float wy, float px, float py,
+                                            const float G[5], float d[3]) {
+  const float s0 = 1.0f - t0 * t0;
+  const float c0 = -2.0f * t0 * s0;
+  const float u0 = (6.0f * t0 * t0 - 2.0f) * s0;
+  const float gz0 = G[0] * s0 + (G[1] * wx + G[2] * wy) * c0 +
+                    (G[3] * (wx * wx) + G[4] * (wy * wy)) * u0;
+  d[0] += px * gz0 + G[1] * s0 + 2.0f * G[3] * c0 * wx;
+  d[1] += py * gz0 + G[2] * s0 + 2.0f * G[4] * c0 * wy;
+  d[2] += gz0;
+}
+
+// ------------------------------------------------------------ staging
+
+// Global loads in flight per thread in the elementwise loops: a loop that
+// stores between its loads would otherwise wait out one L2 round trip per item.
+constexpr int kBatch = 8;
+
+// The hidden weights W_1 .. W_{L-1}, each split once per launch into NP
+// parts zero-padded to hp x hp: wsplit[l-1][NP][hp][hp] bf16. Staging a
+// panel is then a copy of 16-byte rows.
+__host__ __device__ inline long tc_wsplit_elems(int n_hidden, int hp, int np) {
+  return (long)(n_hidden > 1 ? n_hidden - 1 : 1) * np * hp * hp;
+}
+
+template <int NP>
+__global__ void split_weights(const float* __restrict__ flat, int n_hidden, int h, int hp,
+                              bf16* wsplit) {
+  const long per = (long)hp * hp, total = (long)(n_hidden - 1) * per;
+  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long)gridDim.x * blockDim.x) {
+    const int l = 1 + (int)(idx / per), r = (int)(idx % per) / hp, c = (int)(idx % per) % hp;
+    bf16 part[NP];
+    split_one<NP>(r < h && c < h ? flat[hidden_off(l, h) + (long)r * h + c] : 0.0f, part);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) wsplit[((long)(l - 1) * NP + i) * per + idx % per] = part[i];
+  }
+}
+
+// Rows [r0, r0+nr) x columns [c0, c0+nc) of the layer's parts wl[NP][hp][hp]
+// into wb[NP][nr][nc+8], 8 bf16 (16 bytes) at a time.
+template <int NP>
+__device__ void stage_panel(bf16* wb, const bf16* __restrict__ wl, int hp, int r0, int nr,
+                            int c0, int nc) {
+  const int ld = nc + 8, row8 = nc / 8, per_part = nr * row8, total = NP * per_part;
+  for (int base = threadIdx.x; base < total; base += kBatch * blockDim.x) {
+    uint4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int i = idx / per_part, rem = idx - i * per_part, r = rem / row8;
+      if (idx < total)
+        v[u] = __ldg(reinterpret_cast<const uint4*>(
+            wl + ((long)i * hp + r0 + r) * hp + c0 + 8 * (rem - r * row8)));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= total) break;
+      const int i = idx / per_part, rem = idx - i * per_part, r = rem / row8;
+      *reinterpret_cast<uint4*>(wb + ((long)i * nr + r) * ld + 8 * (rem - r * row8)) = v[u];
+    }
+  }
+}
+
+// Head weight [h, k] -> whs[NP][hp][k] bf16 parts.
+template <int NP>
+__device__ void stage_head(bf16* whs, const float* __restrict__ wh, int h, int hp, int k) {
+  for (int idx = threadIdx.x; idx < hp * k; idx += blockDim.x) {
+    const int m = idx / k;
+    bf16 part[NP];
+    split_one<NP>(m < h ? wh[idx] : 0.0f, part);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) whs[(long)i * hp * k + idx] = part[i];
+  }
+}
+
+// ------------------------------------------------------------ products
+
+// One warp's unit of a row product: the 16-point group pg x the 16 columns
+// nb*16.. of the panel, all five streams: acc[q][tile][4] += in[q] x W.
+// in: carry parts [NP][5T][hp+8]; wb: the panel, [NP][hp][panel+8] (forward,
+// W[k][n]: BT = true) or [NP][panel][hp+8] (backward, W[n][k]: BT = false).
+template <int NP, bool BT>
+__device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int tile, int hp,
+                                            int panel, int pg, int nb, float acc[5][2][4]) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const int ld = hp + 8, rows = 5 * tile;
+#pragma unroll
+  for (int q = 0; q < 5; ++q)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][t][e] = 0.0f;
+  for (int k0 = 0; k0 < hp; k0 += 16) {
+    uint32_t b[NP][4];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (BT) {
+        const int kr = k0 + (lane & 7) + ((mi & 1) << 3);
+        const int nn = nb * 16 + ((mi >> 1) << 3);
+        ldsm_x4_t(b[j], wb + ((long)j * hp + kr) * (panel + 8) + nn);
+      } else {
+        const int nn = nb * 16 + (lane & 7) + ((mi >> 1) << 3);
+        const int kc = k0 + ((mi & 1) << 3);
+        ldsm_x4(b[j], wb + ((long)j * panel + nn) * ld + kc);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      uint32_t a[NP][4];
+      const int r = q * tile + pg * 16 + (lane & 15);
+      const int kc = k0 + ((lane >> 4) << 3);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) ldsm_x4(a[i], in + ((long)i * rows + r) * ld + kc);
+      mma_passes<NP>(acc[q], a, b);
+    }
+  }
+}
+
+// dW[m][j] += sum_r P[r][m] Gz[r][j] over the 5T rows of the tile, for the
+// real m, j < h; dw is the layer's [h, h] block of the block's partial. One
+// warp per 16 x 16 block of dW, owned by the same thread in every tile.
+template <int NP>
+__device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, int h, int hp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3;
+  const int g = lane >> 2, cq = lane & 3;
+  const int ld = hp + 8, rows = 5 * tile, nbs = hp / 16;
+  for (int u = warp; u < nbs * nbs; u += kTcWarps) {
+    const int mb = u / nbs, nb = u - mb * nbs;
+    // the partial's entries of this block, loaded before the products hide them
+    float old[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mb * 16 + g + 8 * (e >> 1), j = nb * 16 + t * 8 + 2 * cq + (e & 1);
+        old[t][e] = m < h && j < h ? dw[(long)m * h + j] : 0.f;
+      }
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int r0 = 0; r0 < rows; r0 += 16) {
+      uint32_t a[NP][4], b[NP][4];
+      const int ra = r0 + (lane & 7) + ((mi >> 1) << 3), ca = mb * 16 + ((mi & 1) << 3);
+      const int rb = r0 + (lane & 7) + ((mi & 1) << 3), cb = nb * 16 + ((mi >> 1) << 3);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        ldsm_x4_t(a[i], P + ((long)i * rows + ra) * ld + ca);
+        ldsm_x4_t(b[i], Gz + ((long)i * rows + rb) * ld + cb);
+      }
+      mma_passes<NP>(acc, a, b);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mb * 16 + g + 8 * (e >> 1), j = nb * 16 + t * 8 + 2 * cq + (e & 1);
+        if (m < h && j < h) dw[(long)m * h + j] = old[t][e] + acc[t][e];
+      }
+  }
+}
+
+// Sums over the 8 lane groups g (rows g and g+8 are already added): lanes
+// 0..3 end with the column sums of their two columns.
+__device__ __forceinline__ float sum_over_rows(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// Stores the five values of one (point, column pair) as NP bf16x2 parts.
+template <int NP>
+__device__ __forceinline__ void store_pair(bf16* buf, int tile, int hp, int p, int col,
+                                           const float v0[5], const float v1[5]) {
+  const int ld = hp + 8, rows = 5 * tile;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    uint32_t part[NP];
+    split_pair<NP>(v0[q], v1[q], part);
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      *reinterpret_cast<uint32_t*>(buf + ((long)i * rows + q * tile + p) * ld + col) = part[i];
+  }
+}
+
+// Stores the five values of one (point, unit) as NP bf16 parts.
+template <int NP>
+__device__ __forceinline__ void store_one(bf16* buf, int tile, int hp, int p, int m,
+                                          const float v[5]) {
+  const int ld = hp + 8, rows = 5 * tile;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    bf16 part[NP];
+    split_one<NP>(v[q], part);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) buf[((long)i * rows + q * tile + p) * ld + m] = part[i];
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// ------------------------------------------------------------ forward
+
+// Analytic first layer of tile n0 -> carry parts in buf (t0 kept in tape[0]).
+template <int NP>
+__device__ void tc_first_layer(const float* __restrict__ x, long n0, int n,
+                               const float* __restrict__ w0, const float* __restrict__ b0,
+                               bf16* buf, float* tape, const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp;
+  for (int idx = threadIdx.x; idx < T * hp; idx += blockDim.x) {
+    const int p = idx / hp, j = idx - p * hp;
+    const bool live = n0 + p < n && j < h;
+    float t = 0.f, wx = 0.f, wy = 0.f;
+    if (j < h) {
+      wx = w0[j];
+      wy = w0[h + j];
+      float px = live ? x[2 * (n0 + p)] : 0.f, py = live ? x[2 * (n0 + p) + 1] : 0.f;
+      t = tanhf(px * wx + py * wy + b0[j]);
+    }
+    float v[5];
+    first_carry(t, wx, wy, v);
+    store_one<NP>(buf, T, hp, p, j, v);
+    if (tape) tape[idx] = t;
+  }
+}
+
+// Packed forward of tile n0 through the hidden layers, with the product
+// layers on the tensor cores. Returns the buffer that holds the last carry.
+// With tape != nullptr keeps t and the tangents of every layer.
+template <int NP>
+__device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict__ flat,
+                            const bf16* __restrict__ wsplit, long n0, int n, const TcShapes& sh,
+                            bf16* buf_a, bf16* buf_b, bf16* wb, float* tape) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  tc_first_layer<NP>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
+  bf16* cur = buf_a;
+  bf16* nxt = buf_b;
+  const int units = (T / 16) * (nc / 16);
+  for (int l = 1; l < L; ++l) {
+    const float* bias = flat + hidden_off(l, h) + (long)h * h;
+    const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
+    float* lt = tape ? tape + tc_tape_off(l, T, hp) : nullptr;
+    for (int c0 = 0; c0 < hp; c0 += nc) {
+      __syncthreads();  // readers of the previous panel / writers of cur are done
+      stage_panel<NP>(wb, wl, hp, 0, hp, c0, nc);
+      __syncthreads();
+      for (int u = warp; u < units; u += kTcWarps) {
+        const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
+        float acc[5][2][4];
+        row_product<NP, true>(cur, wb, T, hp, nc, pg, nb, acc);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int col = c0 + nb * 16 + t * 8 + 2 * cq;
+          const float bb0 = col < h ? bias[col] : 0.f, bb1 = col + 1 < h ? bias[col + 1] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = pg * 16 + g + 8 * half, e = 2 * half;
+            const float t0 = tanhf(acc[0][t][e] + bb0), t1 = tanhf(acc[0][t][e + 1] + bb1);
+            float v0[5], v1[5];
+            carry_from_t(t0, acc[1][t][e], acc[2][t][e], acc[3][t][e], acc[4][t][e], v0);
+            carry_from_t(t1, acc[1][t][e + 1], acc[2][t][e + 1], acc[3][t][e + 1],
+                         acc[4][t][e + 1], v1);
+            store_pair<NP>(nxt, T, hp, p, col, v0, v1);
+            if (lt) {
+              st2(lt + (long)p * hp + col, t0, t1);
+#pragma unroll
+              for (int q = 1; q < 5; ++q)
+                st2(lt + ((long)q * T + p) * hp + col, acc[q][t][e], acc[q][t][e + 1]);
+            }
+          }
+        }
+      }
+    }
+    bf16* tmp = cur;  // the next layer's first panel synchronises before reading
+    cur = nxt;
+    nxt = tmp;
+  }
+  __syncthreads();
+  return cur;
+}
+
+// Head on the last carry (CUDA cores, the same passes) -> hb [5][T][K].
+// K, the head width, is a constant so that its loops unroll.
+template <int NP, int K>
+__device__ void tc_head(const bf16* cur, const bf16* whs, const float* __restrict__ bh,
+                        float* hb, const TcShapes& sh) {
+  const int T = sh.tile, hp = sh.hp, ld = hp + 8, rows = 5 * T;
+  constexpr int k = K;
+  for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {
+    const int r = idx / k, kk = idx - r * k;
+    float a = 0.f;
+    for (int m = 0; m < hp; ++m) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const float pv = __bfloat162float(cur[((long)i * rows + r) * ld + m]);
+#pragma unroll
+        for (int j = 0; j + i < NP; ++j) a += pv * __bfloat162float(whs[((long)j * hp + m) * k + kk]);
+      }
+    }
+    if (r < T) a += bh[kk];
+    hb[idx] = a;
+  }
+}
+
+// ------------------------------------------------------------ reverse sweep
+
+// P_{l-1} parts rebuilt from the tape into buf (bit for bit the forward's).
+template <int NP>
+__device__ void rebuild_carry(const float* tape, const float* __restrict__ w0, int l,
+                              bf16* buf, const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp;
+  const float* lt = tape + tc_tape_off(l, T, hp);
+  const int S = T * hp, nq = l == 0 ? 1 : 5;
+  for (int base = threadIdx.x; base < S; base += kBatch * blockDim.x) {
+    float z[kBatch][5];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) z[u][q] = idx < S && q < nq ? lt[q * S + idx] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= S) break;
+      const int p = idx / hp, j = idx - p * hp;
+      float v[5];
+      if (l == 0)
+        first_carry(z[u][0], j < h ? w0[j] : 0.f, j < h ? w0[h + j] : 0.f, v);
+      else
+        carry_from_t(z[u][0], z[u][1], z[u][2], z[u][3], z[u][4], v);
+      store_one<NP>(buf, T, hp, p, j, v);
+    }
+  }
+}
+
+// Head backward of one tile. cur: the last carry's parts; ghp: the head
+// cotangent parts [NP][5T][k]; hb: the head cotangents (fp32, value rows
+// give dbh). Writes dWh / dbh into dp, the pre-activation cotangent of the
+// last tanh layer as parts into gz_out, and the column sums of its bias
+// gradient (or, for a one-layer net, the first layer's terms) into dbs.
+template <int NP, int K>
+__device__ void tc_head_backward(const float* __restrict__ x, const float* __restrict__ flat,
+                                 long n0, int n, const bf16* cur, const bf16* whs,
+                                 const float* ghp, const float* hb, const float* tape,
+                                 bf16* gz_out, float* dbs, float* dp, const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden;
+  constexpr int k = K;
+  const int ld = hp + 8, rows = 5 * T;
+  const long wh = head_off(L, h);
+  for (int idx = threadIdx.x; idx < h * k; idx += blockDim.x) {  // dWh = P^T G
+    const int m = idx / k, kk = idx - m * k;
+    float a = 0.f;
+    for (int r = 0; r < rows; ++r) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const float pv = __bfloat162float(cur[((long)i * rows + r) * ld + m]);
+#pragma unroll
+        for (int j = 0; j + i < NP; ++j) a += pv * ghp[((long)j * rows + r) * k + kk];
+      }
+    }
+    dp[wh + idx] += a;
+  }
+  for (int kk = threadIdx.x; kk < k; kk += blockDim.x) {
+    float a = 0.f;
+    for (int p = 0; p < T; ++p) a += hb[p * k + kk];
+    dp[wh + (long)h * k + kk] += a;
+  }
+  // G = g_head Wh^T, then the last layer's g_z algebra (or, for a one-layer
+  // net, the first layer's terms): one thread per unit and 8-point group,
+  // column sums into dbs[group][3][hp] (flush_sums adds them to dp)
+  const float* lt = tape + tc_tape_off(L - 1, T, hp);
+  const long S = (long)T * hp;
+  for (int idx = threadIdx.x; idx < (T / 8) * hp; idx += blockDim.x) {
+    const int grp = idx / hp, m = idx - grp * hp;
+    float d[3] = {0.f, 0.f, 0.f};
+    float wv[NP][K];  // this unit's head weight parts
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) wv[j][kk] = __bfloat162float(whs[(j * hp + m) * K + kk]);
+    float tv[8][5];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int q = 0; q < 5; ++q)
+        tv[u][q] = q == 0 || L > 1 ? lt[q * S + (long)(grp * 8 + u) * hp + m] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int p = grp * 8 + u;
+      float G[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        float a = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            const float gv = ghp[(i * rows + q * T + p) * K + kk];
+#pragma unroll
+            for (int j = 0; j + i < NP; ++j) a += gv * wv[j][kk];
+          }
+        G[q] = a;
+      }
+      if (L > 1) {
+        float z[5];
+        gz_from(tv[u][0], tv[u][1], tv[u][2], tv[u][3], tv[u][4], G, z);
+        store_one<NP>(gz_out, T, hp, p, m, z);
+        d[0] += z[0];
+      } else if (m < h) {
+        const bool live = n0 + p < n;
+        first_terms(tv[u][0], flat[m], flat[h + m], live ? x[2 * (n0 + p)] : 0.f,
+                    live ? x[2 * (n0 + p) + 1] : 0.f, G, d);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dbs[((long)grp * 3 + a) * hp + m] = d[a];
+  }
+}
+
+// Adds the column sums dbs[group][3][hp] (in group order) to the gradient
+// of layer `layer`: its bias (layer >= 1, sums of g_z), or dW0 / db0.
+__device__ void flush_sums(const float* dbs, int groups, int layer, float* dp, int h, int hp) {
+  for (int j = threadIdx.x; j < h; j += blockDim.x) {
+    float d[3] = {0.f, 0.f, 0.f};
+    for (int grp = 0; grp < groups; ++grp)
+      for (int a = 0; a < (layer > 0 ? 1 : 3); ++a) d[a] += dbs[((long)grp * 3 + a) * hp + j];
+    if (layer > 0) {
+      dp[hidden_off(layer, h) + (long)h * h + j] += d[0];
+    } else {
+      dp[j] += d[0];
+      dp[h + j] += d[1];
+      dp[2 * h + j] += d[2];
+    }
+  }
+}
+
+// The product layers in reverse, from gz (the last tanh layer's
+// pre-activation cotangent parts) down to the first layer's terms. other:
+// the second carry buffer; dbs: column sums. Both carry buffers are
+// overwritten. The caller synchronises before the call.
+template <int NP>
+__device__ void tc_reverse(const float* __restrict__ x, const float* __restrict__ flat,
+                           const bf16* __restrict__ wsplit, long n0, int n, bf16* gz,
+                           bf16* other, bf16* wb, float* dbs, const float* tape, float* dp,
+                           const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int pgs = T / 16, units = pgs * (nc / 16);
+  for (int l = L - 1; l >= 1; --l) {
+    const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
+    rebuild_carry<NP>(tape, flat, l - 1, other, sh);
+    __syncthreads();
+    dw_product<NP>(other, gz, dp + hidden_off(l, h), T, h, hp);
+    const float* lt = tape + tc_tape_off(l - 1, T, hp);
+    const long S = (long)T * hp;
+    for (int c0 = 0; c0 < hp; c0 += nc) {
+      __syncthreads();  // the dW product / the previous panel are done with other, wb
+      stage_panel<NP>(wb, wl, hp, c0, nc, 0, hp);
+      __syncthreads();
+      for (int u = warp; u < units; u += kTcWarps) {
+        const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
+        float2 tp[2][2][5];  // this unit's tape entries, in flight during the products
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int q = 0; q < 5; ++q)
+              tp[t][half][q] = q == 0 || l > 1
+                  ? ld2(lt + q * S + (long)(pg * 16 + g + 8 * half) * hp + c0 + nb * 16 + t * 8 + 2 * cq)
+                  : make_float2(0.f, 0.f);
+        float acc[5][2][4];
+        row_product<NP, false>(gz, wb, T, hp, nc, pg, nb, acc);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int col = c0 + nb * 16 + t * 8 + 2 * cq;
+          float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = pg * 16 + g + 8 * half, e = 2 * half;
+            float G0[5], G1[5];
+#pragma unroll
+            for (int q = 0; q < 5; ++q) {
+              G0[q] = acc[q][t][e];
+              G1[q] = acc[q][t][e + 1];
+            }
+            const float2 tt = tp[t][half][0];
+            if (l > 1) {
+              const float2 zx = tp[t][half][1], zy = tp[t][half][2];
+              const float2 zxx = tp[t][half][3], zyy = tp[t][half][4];
+              float z0[5], z1[5];
+              gz_from(tt.x, zx.x, zy.x, zxx.x, zyy.x, G0, z0);
+              gz_from(tt.y, zx.y, zy.y, zxx.y, zyy.y, G1, z1);
+              store_pair<NP>(other, T, hp, p, col, z0, z1);
+              s[0][0] += z0[0];
+              s[1][0] += z1[0];
+            } else {
+              const bool live = n0 + p < n;
+              const float px = live ? x[2 * (n0 + p)] : 0.f;
+              const float py = live ? x[2 * (n0 + p) + 1] : 0.f;
+              if (col < h) first_terms(tt.x, flat[col], flat[h + col], px, py, G0, s[0]);
+              if (col + 1 < h)
+                first_terms(tt.y, flat[col + 1], flat[h + col + 1], px, py, G1, s[1]);
+            }
+          }
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            if (l > 1 && a > 0) break;
+            const float v0 = sum_over_rows(s[0][a]), v1 = sum_over_rows(s[1][a]);
+            if (g == 0) st2(dbs + ((long)pg * 3 + a) * hp + col, v0, v1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    flush_sums(dbs, pgs, l - 1, dp, h, hp);
+    bf16* tmp = gz;  // Gz_{l-1} now lives in other
+    gz = other;
+    other = tmp;
+  }
+}
+
+}  // namespace

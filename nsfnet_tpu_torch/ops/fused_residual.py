@@ -13,27 +13,33 @@ and its gradient wrt the main-net parameters and the EVM output e:
   * kernel 2, `fused_bwd`: loss_bwd_kernel, which replaces
     `_loss_bwd_kernel` (pallas_residual.py:128).
 
-The CUDA source says what bounds them (operations) and how the design
-deals with the TPU kernels' sequential-grid accumulation (fixed block
-count, per-block partials, an ordered second pass: bitwise deterministic).
+The CUDA sources (fused_residual.cu, tc_mlp.cuh) say what bounds them
+(operations) and how the design deals with the TPU kernels' sequential-grid
+accumulation (a fixed grid of persistent blocks, per-block partials, an
+ordered second pass: bitwise deterministic).
+
+Precision. Every hidden-layer and head product of the pair runs on bf16
+parts of its operands, as the JAX kernels do: "default" one pass, "high"
+three (JAX's bf16x3, pallas_mlp.py:111-129), "highest" six (Mosaic's
+HIGHEST). The name reaches the kernel as the number of parts (`PARTS`).
+`plain_residual_sums(..., precision=name)` applies the same passes with
+bf16 casts (`pass_dot`, `emulated_derivatives`); `precision=None` is exact
+fp32.
 
 `fused_residual_loss` is the entry point. On a CPU tensor it runs
-`plain_residual_sums` (closed-form derivative engine -> residuals -> masked
-sums, differentiated by autograd); on a CUDA tensor it launches the kernel
-pair through `_FusedResidualLoss`, or raises. x, vis_t, eq_w and Re get no
-gradient: they are optimization constants (collocation points, the lagged
-eddy viscosity, the SDF weights, the stage Reynolds number).
-
-Every precision name of the JAX package ("highest", "high", "default") is
-accepted so configs run unchanged; the kernels compute exact fp32 for all
-three. Tensor-core passes are later work.
+`plain_residual_sums` in exact fp32 (closed-form derivative engine ->
+residuals -> masked sums, differentiated by autograd); on a CUDA tensor it
+launches the kernel pair at the precision name through `_FusedResidualLoss`,
+or raises. x, vis_t, eq_w and Re get no gradient: they are optimization
+constants (collocation points, the lagged eddy viscosity, the SDF weights,
+the stage Reynolds number).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,13 +47,21 @@ from nsfnet_tpu_torch.models.mlp import Params, param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build
 from nsfnet_tpu_torch.ops import losses as L
 from nsfnet_tpu_torch.ops import residuals as R
-from nsfnet_tpu_torch.ops.derivatives import mlp_derivatives_2d
+from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
 
 PRECISIONS = ("highest", "high", "default")
+PARTS = {"highest": 3, "high": 2, "default": 1}  # bf16 parts of each operand
 ROW_ALIGN = 16         # batches are padded to this; every tile size divides it
+_MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
+
+# The five-stream and order-3 engines (kernels 3-6): their fixed grid and tiles.
 PARTIAL_BLOCKS = 264   # fixed grid = number of partials: fixes the summation order
 _TILES = (16, 8, 4, 2, 1)
-_MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
+
+# Kernels 1+2: one persistent block per SM of an H100 (a constant, not read
+# from the card), and 32-point tiles where they fit, else 16.
+LOSS_BLOCKS = 132
+LOSS_TILES = (32, 16)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"fused_residual_fwd": 0, "fused_residual_bwd": 0}
@@ -58,24 +72,51 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def smem_bytes(tile: int, h: int, k: int = 3) -> int:
-    """Shared memory of one block, for choosing the tile without the library;
-    the source's nsf_fused_loss_smem_bytes owns the layout and must agree
-    (tests/test_torch_gpu.py checks every tile). _MAX_SMEM is its kMaxSmem."""
-    return 4 * (10 * tile * h + h * (h + 1) + 4 * tile + 5 * tile * k)
+def passes(precision: str) -> int:
+    """bf16 products per fp32 product: the pairs of parts i + j < PARTS."""
+    n = PARTS[precision]
+    return n * (n + 1) // 2
 
 
-def pick_tile(h: int, k: int = 3) -> int:
-    """Largest tile (at most 16 points) whose block fits in shared memory.
-    At the flagship width 16 points take 78 KB: two blocks per SM."""
-    for t in _TILES:
-        if smem_bytes(t, h, k) <= _MAX_SMEM:
-            return t
-    raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
+def _pad16(h: int) -> int:
+    return -(-h // 16) * 16
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def loss_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 3) -> int:
+    """Shared memory of one block of kernels 1+2, for choosing the tile
+    without the library; the source's tc_smem (nsf_fused_loss_smem_bytes)
+    owns the layout and must agree (tests/test_torch_gpu.py checks)."""
+    hp = _pad16(h)
+    carry = _round16(parts * 5 * tile * (hp + 8) * 2)
+    wbuf = _round16(parts * max(hp * (panel + 8), panel * (hp + 8)) * 2)
+    rest = (_round16(parts * hp * k * 2) + _round16(5 * tile * k * 4)
+            + _round16(parts * 5 * tile * k * 4) + _round16(4 * tile * 4)
+            + _round16((tile // 8) * 3 * hp * 4))
+    return 2 * carry + wbuf + rest
+
+
+def pick_loss_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
+    """(tile, panel) of kernels 1+2: the largest tile of LOSS_TILES, then the
+    widest weight panel (a multiple of 16 dividing the padded width), whose
+    block fits in shared memory. At the flagship width 80 the whole weight
+    and 32 points fit at every name; "highest" is refused from H = 193 on."""
+    hp = _pad16(h)
+    panels = [p for p in range(hp, 0, -16) if hp % p == 0]
+    for tile in LOSS_TILES:
+        for panel in panels:
+            if loss_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
+                return tile, panel
+    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit the "
+                     f"kernel's shared memory")
 
 
 def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
-    """Matrix-product FLOPs of kernel 1 and kernel 2 on n points (the
+    """Matrix-product FLOPs of kernel 1 and kernel 2 on n points, one pass
+    (multiply by `passes` for the bf16 products the kernels run; the
     elementwise tanh / residual algebra, a few percent, is left out, so
     these give lower bounds on the time)."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
@@ -95,12 +136,102 @@ def byte_counts(sizes: Sequence[int], n: int, evm: bool) -> Tuple[int, int]:
     return fwd, bwd
 
 
+def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[str, int]:
+    """Bytes per launch of kernel 2's own traffic beyond its inputs: the
+    backward tape (written once, read by the carry rebuild and by the
+    epilogues) and the read-modify-write of the block's gradient partial
+    once per tile; beside them, the same counts for the earlier CUDA-core
+    design (16-point tiles storing every carry and tangent)."""
+    n_hidden, h = len(sizes) - 2, sizes[1]
+    p = param_count(sizes)
+    tile, _ = pick_loss_tile(h, precision)
+    tiles, hp = -(-n // tile), _pad16(h)
+    layer = tile * hp * 4
+    written = tiles * layer * (1 + 5 * (n_hidden - 1))
+    rebuilt = tiles * layer * (1 + 5 * (n_hidden - 2)) if n_hidden > 1 else 0
+    return {"tape_written": written, "tape_read": written + rebuilt,
+            "partial_rmw": tiles * p * 4 * 2,
+            "cuda_core_scratch_written": n * (9 * n_hidden - 4) * h * 4,
+            "cuda_core_scratch_read": n * (9 * n_hidden - 4) * h * 4,
+            "cuda_core_partial_rmw": (n // 16) * p * 4 * 2}
+
+
+# ------------------------------------------------------------ plain version
+
+def bf16_split(a: torch.Tensor, parts: int) -> Tuple[torch.Tensor, ...]:
+    """a = a_0 + a_1 + ... + remainder, each a_i a bf16 value (round to
+    nearest, as astype(bfloat16)) held in fp32: JAX's _bf16_split
+    (pallas_mlp.py:111) for two parts, continued for three."""
+    out, r = [], a
+    for _ in range(parts):
+        p = r.to(torch.bfloat16).to(a.dtype)
+        out.append(p)
+        r = r - p
+    return tuple(out)
+
+
+def _passes_mm(a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
+    sa, sb = bf16_split(a, parts), bf16_split(b, parts)
+    # a bf16 x bf16 product is exact in fp32: the fp32 matmul only sums
+    return sum(sa[i] @ sb[j] for i in range(parts) for j in range(parts - i))
+
+
+class _PassDot(torch.autograd.Function):
+    """a @ b as the sum of the bf16 passes, with the backward products split
+    the same way (the cotangent too), as JAX's _general dots are inside the
+    custom_vjp kernels (_dot_tn, _dot_nt, pallas_mlp.py:132-134)."""
+
+    @staticmethod
+    def forward(ctx, a, b, parts):
+        ctx.save_for_backward(a, b)
+        ctx.parts = parts
+        return _passes_mm(a, b, parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return _passes_mm(g, b.t(), ctx.parts), _passes_mm(a.t(), g, ctx.parts), None
+
+
+def pass_dot(a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
+    return _PassDot.apply(a, b, parts)
+
+
+def emulated_derivatives(params: Params, x: torch.Tensor, parts: int) -> Derivs:
+    """mlp_derivatives_2d with every hidden and head product run as the
+    kernels run it: on the packed carry [5N, H] (_layer_packed,
+    pallas_mlp.py:149), through pass_dot."""
+    w0, b0 = params[0]
+    n = x.shape[0]
+    t = torch.tanh(x @ w0 + b0)
+    s = 1.0 - t * t
+    curv = -2.0 * t * s
+    wx, wy = w0[0], w0[1]
+    packed = torch.cat([t, s * wx, s * wy, curv * (wx * wx), curv * (wy * wy)])
+    for w, b in params[1:-1]:
+        zx_all = pass_dot(packed, w, parts)
+        z, zx, zy, zxx, zyy = zx_all.split(n)
+        t = torch.tanh(z + b)
+        s = 1.0 - t * t
+        curv = -2.0 * t * s
+        packed = torch.cat([t, s * zx, s * zy, curv * zx * zx + s * zxx,
+                            curv * zy * zy + s * zyy])
+    w, b = params[-1]
+    out, ox, oy, oxx, oyy = pass_dot(packed, w, parts).split(n)
+    return (out + b, ox, oy, oxx, oyy)
+
+
 def plain_residual_sums(params: Params, x: torch.Tensor, e: Optional[torch.Tensor],
                         vis_t: Optional[torch.Tensor], eq_w: torch.Tensor, re: float,
-                        coord_scale: float = 1.0, evm: bool = True) -> torch.Tensor:
+                        coord_scale: float = 1.0, evm: bool = True,
+                        precision: Optional[str] = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel pair: S_i = sum(eq_w * eq_i^2),
-    [4] (EVM) or [3] (vanilla). Its gradient is autograd's."""
-    derivs = mlp_derivatives_2d(params, x)
+    [4] (EVM) or [3] (vanilla). Its gradient is autograd's. precision None:
+    exact fp32; a name: the kernels' bf16 passes on every product."""
+    if precision is None:
+        derivs = mlp_derivatives_2d(params, x)
+    else:
+        derivs = emulated_derivatives(params, x, PARTS[precision])
     if evm:
         res = R.ev_ns_residuals(derivs, e, vis_t, re, coord_scale)
         eqs = (res.eq1, res.eq2, res.eq3, res.eq4)
@@ -114,23 +245,31 @@ def plain_residual_sums(params: Params, x: torch.Tensor, e: Optional[torch.Tenso
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_residual")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    common = [p, p, p, p, p, i, i, i, i, i, i, f, f, i]
-    lib.nsf_fused_loss_fwd.argtypes = common + [p, p, p]
+    common = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i]
+    lib.nsf_fused_loss_fwd.argtypes = common + [p, p, p, p]
     lib.nsf_fused_loss_fwd.restype = i
-    lib.nsf_fused_loss_bwd.argtypes = common + [p, p, p, p, p, p]
+    lib.nsf_fused_loss_bwd.argtypes = common + [p, p, p, p, p, p, p]
     lib.nsf_fused_loss_bwd.restype = i
-    lib.nsf_fused_loss_smem_bytes.argtypes = [i, i, i]
+    lib.nsf_fused_loss_smem_bytes.argtypes = [i, i, i, i, i]
     lib.nsf_fused_loss_smem_bytes.restype = i
     lib.nsf_fused_loss_scratch_floats.argtypes = [i, i, i]
     lib.nsf_fused_loss_scratch_floats.restype = ctypes.c_long
+    lib.nsf_fused_loss_weight_bytes.argtypes = [i, i, i]
+    lib.nsf_fused_loss_weight_bytes.restype = ctypes.c_long
     return lib
+
+
+def _weight_split(sizes, precision, dev) -> torch.Tensor:
+    """Workspace for the launch's split copy of the hidden weights."""
+    nbytes = _lib().nsf_fused_loss_weight_bytes(len(sizes) - 2, sizes[1], PARTS[precision])
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm):
+def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision):
     n = x.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
@@ -142,17 +281,19 @@ def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm):
         if t is None or t.dtype != torch.float32 or t.device != x.device \
                 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous float32 {shape} on {x.device}")
-    tile = pick_tile(sizes[1], sizes[-1])
-    if n % tile != 0:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    tile, panel = pick_loss_tile(sizes[1], precision, sizes[-1])
+    if n % ROW_ALIGN != 0:
         raise ValueError(f"batch {n} must be padded to a multiple of {ROW_ALIGN}")
-    return n, tile
+    return n, (tile, panel)
 
 
-def _launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tile):
+def _launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision):
     n_hidden = len(sizes) - 2
     return [_ptr(x), _ptr(flat), _ptr(e) if evm else None, _ptr(vis_t) if evm else None,
-            _ptr(eq_w), x.shape[0], n_hidden, sizes[1], sizes[-1], tile, PARTIAL_BLOCKS,
-            float(re), float(scale), int(evm)]
+            _ptr(eq_w), x.shape[0], n_hidden, sizes[1], sizes[-1], *tiling, LOSS_BLOCKS,
+            PARTS[precision], float(re), float(scale), int(evm)]
 
 
 def _raise_on(code: int, what: str):
@@ -162,17 +303,19 @@ def _raise_on(code: int, what: str):
 
 def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               e: Optional[torch.Tensor], vis_t: Optional[torch.Tensor],
-              eq_w: torch.Tensor, re: float, scale: float, evm: bool) -> torch.Tensor:
+              eq_w: torch.Tensor, re: float, scale: float, evm: bool,
+              precision: str = "high") -> torch.Tensor:
     """Kernel 1: the [3|4] weighted sums of squares."""
     e = e.contiguous() if evm else None
-    n, tile = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm)
-    partial = torch.empty(PARTIAL_BLOCKS * 4, dtype=torch.float32, device=x.device)
+    n, tiling = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision)
+    partial = torch.empty(LOSS_BLOCKS * 4, dtype=torch.float32, device=x.device)
     out = torch.empty(4 if evm else 3, dtype=torch.float32, device=x.device)
+    wsplit = _weight_split(sizes, precision, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _lib().nsf_fused_loss_fwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tile),
-            _ptr(partial), _ptr(out), stream)
+            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision),
+            _ptr(wsplit), _ptr(partial), _ptr(out), stream)
     _raise_on(code, "fused residual loss forward")
     launch_counts["fused_residual_fwd"] += 1
     return out
@@ -181,26 +324,27 @@ def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
 def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               e: Optional[torch.Tensor], vis_t: Optional[torch.Tensor],
               eq_w: torch.Tensor, re: float, ct: torch.Tensor, scale: float,
-              evm: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              evm: bool, precision: str = "high") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel 2: (d(ct . S)/dflat, d(ct . S)/de) — the latter None if vanilla."""
     e = e.contiguous() if evm else None
-    n, tile = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm)
+    n, tiling = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision)
     n_out = 4 if evm else 3
     ct = ct.to(device=x.device, dtype=torch.float32).contiguous().reshape(-1)
     if ct.numel() != n_out:
         raise ValueError(f"ct: need {n_out} cotangents, got {ct.numel()}")
     p = param_count(sizes)
     dev = x.device
-    block_floats = _lib().nsf_fused_loss_scratch_floats(tile, sizes[1], len(sizes) - 2)
-    scratch = torch.empty(PARTIAL_BLOCKS * block_floats, dtype=torch.float32, device=dev)
-    dpart = torch.empty(PARTIAL_BLOCKS * p, dtype=torch.float32, device=dev)
+    block_floats = _lib().nsf_fused_loss_scratch_floats(tiling[0], sizes[1], len(sizes) - 2)
+    scratch = torch.empty(LOSS_BLOCKS * block_floats, dtype=torch.float32, device=dev)
+    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     g_e = torch.empty((n, 1), dtype=torch.float32, device=dev) if evm else None
+    wsplit = _weight_split(sizes, precision, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().nsf_fused_loss_bwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tile),
-            _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream)
+            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision),
+            _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream)
     _raise_on(code, "fused residual loss backward")
     launch_counts["fused_residual_bwd"] += 1
     return dflat, g_e
@@ -211,17 +355,17 @@ class _FusedResidualLoss(torch.autograd.Function):
     pallas_residual.py:302-310). Gradients flow to flat and e only."""
 
     @staticmethod
-    def forward(ctx, flat, x, e, vis_t, eq_w, re, sizes, scale, evm):
+    def forward(ctx, flat, x, e, vis_t, eq_w, re, sizes, scale, evm, precision):
         ctx.save_for_backward(flat, x, e, vis_t, eq_w)
-        ctx.meta = (re, sizes, scale, evm)
-        return fused_fwd(flat, sizes, x, e, vis_t, eq_w, re, scale, evm)
+        ctx.meta = (re, sizes, scale, evm, precision)
+        return fused_fwd(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, precision)
 
     @staticmethod
     def backward(ctx, ct):
         flat, x, e, vis_t, eq_w = ctx.saved_tensors
-        re, sizes, scale, evm = ctx.meta
-        dflat, g_e = fused_bwd(flat, sizes, x, e, vis_t, eq_w, re, ct, scale, evm)
-        return dflat, None, g_e, None, None, None, None, None, None
+        re, sizes, scale, evm, precision = ctx.meta
+        dflat, g_e = fused_bwd(flat, sizes, x, e, vis_t, eq_w, re, ct, scale, evm, precision)
+        return dflat, None, g_e, None, None, None, None, None, None, None
 
 
 def fused_residual_loss(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -232,11 +376,12 @@ def fused_residual_loss(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tenso
     (models/mlp.py layout, `sizes` its layer sizes); [4] with EVM, [3]
     vanilla (pass e = vis_t = None). Divide by the real-point count for the
     per-equation mean losses. The batch must be padded to ROW_ALIGN rows,
-    with eq_w = 0 on pad rows."""
+    with eq_w = 0 on pad rows. On a card the kernels run the bf16 passes of
+    `precision`; on the CPU the plain version computes exact fp32."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
     if x.device.type == "cpu":
         return plain_residual_sums(unflatten_params(flat, sizes), x, e, vis_t, eq_w,
                                    re, coord_scale, evm)
     return _FusedResidualLoss.apply(flat, x, e, vis_t, eq_w, float(re), tuple(sizes),
-                                    float(coord_scale), bool(evm))
+                                    float(coord_scale), bool(evm), precision)

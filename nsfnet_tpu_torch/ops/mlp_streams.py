@@ -22,7 +22,7 @@ raises. x gets no gradient: collocation points are optimization constants
 (pallas_mlp.py:415-431).
 
 The tile and the batch padding come from this card's shared memory
-(`fused_residual.pick_tile`, `ROW_ALIGN`), not from the TPU kernel's
+(`pick_tile` here, `ROW_ALIGN`), not from the TPU kernel's
 TILE = 512. The TPU engine's `lane_pad` option (pallas_mlp.py:371-413)
 zero-pads hidden widths to the MXU's 128 lanes and changes no result; CUDA
 cores have no such granule, so it is not carried over. Every precision name
@@ -40,8 +40,8 @@ import torch
 from nsfnet_tpu_torch.models.mlp import param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build
 from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
-from nsfnet_tpu_torch.ops.fused_residual import (PARTIAL_BLOCKS, PRECISIONS, ROW_ALIGN,
-                                                 _raise_on, pick_tile)
+from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, PARTIAL_BLOCKS, PRECISIONS,
+                                                 ROW_ALIGN, _raise_on)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
@@ -50,6 +50,23 @@ launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def smem_bytes(tile: int, h: int, k: int = 3) -> int:
+    """Shared memory of one block (two [5][T][H] carries, the staged weight,
+    the loss terms, the [5][T][K] head block), for choosing the tile without
+    the library; the source's nsf_mlp_streams_smem_bytes owns the layout and
+    must agree (tests/test_torch_gpu.py checks every tile)."""
+    return 4 * (10 * tile * h + h * (h + 1) + 4 * tile + 5 * tile * k)
+
+
+def pick_tile(h: int, k: int = 3) -> int:
+    """Largest tile (at most 16 points) whose block fits in shared memory.
+    At the flagship width 16 points take 78 KB: two blocks per SM."""
+    for t in _TILES:
+        if smem_bytes(t, h, k) <= _MAX_SMEM:
+            return t
+    raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
 
 
 def flop_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, int]:

@@ -1,75 +1,155 @@
-"""Are the kernels' outputs bitwise those of another copy of the CUDA sources?
+"""Do the kernels give the outputs of another copy of the CUDA sources?
 
     python -m nsfnet_tpu_torch.tools.compare_sources <directory with *.cu / *.cuh>
+        [--kernels 1,2,3,4,5,6]
 
-Builds the fused residual-loss pair and the five-stream pair from this
-checkout's csrc/ and from the given directory (for example the csrc/ of an
-earlier commit, unpacked with `git archive`), runs kernels 1-4 from both
-builds on the same seeded inputs on the card (6x80 / N = 120,000 with EVM,
-4x120 / N = 40,000) and compares every output with torch.equal. Exits 1 on
-any difference. Use it after touching a header the kernels share.
+Builds the libraries from this checkout's csrc/ and from the given directory
+(for example the csrc/ of an earlier commit, unpacked with `git archive`),
+runs the chosen kernels from both builds on the same seeded inputs on the
+card and compares their outputs:
+
+  * kernels 3-6 (the five-stream and order-3 engines) must be bitwise equal
+    (torch.equal), at 6x80 / N = 120,000 and 4x120 / N = 40,000 (K = 3 for
+    kernels 3+4, K = 2 for kernels 5+6);
+  * kernels 1+2 (the fused residual-loss pair, 6x80 / N = 120,000 with EVM)
+    are reported as the largest relative difference, max|a - b| / max|b|
+    per output, at the precision name "high". A copy of the sources from
+    before the tensor-core pair (its C interface has no tile panel and no
+    precision) computes exact fp32 and is called through that interface.
+
+Exits 1 when a kernel of 3-6 differs. Use it after touching a header the
+kernels share.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import sys
 from pathlib import Path
 
 import torch
 
-from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, layer_sizes
+from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, layer_sizes, param_count
 from nsfnet_tpu_torch.ops import _build
 from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops import mlp_streams as ms
+from nsfnet_tpu_torch.ops import psi_streams as psi
 
-CASES = {"6x80": (layer_sizes(2, 3, 6, 80), 120_000), "4x120": (layer_sizes(2, 3, 4, 120), 40_000)}
+CASES = {"6x80": 120_000, "4x120": 40_000}
+LEGACY_BLOCKS = 264  # the CUDA-core pair's fixed grid
 
 
-def run_kernels(csrc: Path) -> dict:
-    """Outputs of kernels 1-4 built from `csrc`, by case and kernel."""
+def _inputs(sizes, n, dev):
+    g = torch.Generator().manual_seed(0)
+    flat = flatten_params(init_mlp(sizes, g)).to(dev)
+    x = (2.0 * torch.rand((n, 2), generator=g) - 1.0).to(dev)
+    return g, flat, x
+
+
+def _legacy_pair(lib, flat, sizes, x, e, vis_t, eq_w, re, ct):
+    """Kernels 1+2 of a copy whose C interface predates the tensor-core pair."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    common = [p, p, p, p, p, i, i, i, i, i, i, f, f, i]
+    lib.nsf_fused_loss_fwd.argtypes = common + [p, p, p]
+    lib.nsf_fused_loss_bwd.argtypes = common + [p, p, p, p, p, p]
+    lib.nsf_fused_loss_scratch_floats.argtypes = [i, i, i]
+    lib.nsf_fused_loss_scratch_floats.restype = ctypes.c_long
+    n, dev, nparam = x.shape[0], x.device, param_count(sizes)
+    tile = ms.pick_tile(sizes[1])  # the CUDA-core pair shared kernels 3+4's tile rule
+    args = [x.data_ptr(), flat.data_ptr(), e.data_ptr(), vis_t.data_ptr(), eq_w.data_ptr(), n,
+            len(sizes) - 2, sizes[1], sizes[-1], tile, LEGACY_BLOCKS, re, 1.0, 1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = torch.empty(LEGACY_BLOCKS * 4, device=dev)
+    sums = torch.empty(4, device=dev)
+    scratch = torch.empty(
+        LEGACY_BLOCKS * lib.nsf_fused_loss_scratch_floats(tile, sizes[1], len(sizes) - 2),
+        device=dev)
+    dpart = torch.empty(LEGACY_BLOCKS * nparam, device=dev)
+    dflat, g_e = torch.empty(nparam, device=dev), torch.empty((n, 1), device=dev)
+    codes = (lib.nsf_fused_loss_fwd(*args, partial.data_ptr(), sums.data_ptr(), stream),
+             lib.nsf_fused_loss_bwd(*args, ct.data_ptr(), scratch.data_ptr(), dpart.data_ptr(),
+                                    dflat.data_ptr(), g_e.data_ptr(), stream))
+    if any(codes):
+        raise RuntimeError(f"legacy fused pair: CUDA errors {codes}")
+    return [sums], [dflat, g_e]
+
+
+def run_kernels(csrc: Path, kernels) -> dict:
+    """Outputs of the chosen kernels built from `csrc`, by case and kernel."""
     _build.CSRC = Path(csrc).resolve()
     _build._loaded.clear()
-    fr._lib.cache_clear()
-    ms._lib.cache_clear()
+    for mod in (fr, ms, psi):
+        mod._lib.cache_clear()
     dev, out = torch.device("cuda", 0), {}
-    for name, (sizes, n) in CASES.items():
-        g = torch.Generator().manual_seed(0)
-        flat = flatten_params(init_mlp(sizes, g)).to(dev)
-        x = (2.0 * torch.rand((n, 2), generator=g) - 1.0).to(dev)
+    if kernels & {1, 2}:
+        sizes = layer_sizes(2, 3, 6, 80)
+        n = CASES["6x80"]
+        g, flat, x = _inputs(sizes, n, dev)
         e = (0.05 * torch.randn((n, 1), generator=g)).to(dev)
         vis_t = (0.01 * torch.rand((n, 1), generator=g)).to(dev)
         eq_w = (0.2 + torch.rand((n, 1), generator=g)).to(dev)
         ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev) / n
-        cts = [torch.randn((n, 3), generator=g).to(dev) for _ in range(5)]
-        args = (flat, sizes, x, e, vis_t, eq_w, 2000.0)
-        dflat, g_e = fr.fused_bwd(*args, ct, 1.0, True)
-        out[name] = {"fused_residual_fwd": [fr.fused_fwd(*args, 1.0, True)],
-                     "fused_residual_bwd": [dflat, g_e],
-                     "mlp_streams_fwd": list(ms.streams_fwd(flat, sizes, x)),
-                     "mlp_streams_bwd": [ms.streams_bwd(flat, sizes, x, cts)]}
+        if "tc_mlp.cuh" in (_build.CSRC / "fused_residual.cu").read_text():
+            args = (flat, sizes, x, e, vis_t, eq_w, 2000.0)
+            fwd = [fr.fused_fwd(*args, 1.0, True, "high")]
+            bwd = list(fr.fused_bwd(*args, ct, 1.0, True, "high"))
+        else:
+            fwd, bwd = _legacy_pair(_build.load("fused_residual"), flat, sizes, x, e, vis_t,
+                                    eq_w, 2000.0, ct)
+        out["6x80"] = {1: ("fused_residual_fwd", fwd), 2: ("fused_residual_bwd", bwd)}
+    for case, n in CASES.items():
+        got = out.setdefault(case, {})
+        depth, width = (6, 80) if case == "6x80" else (4, 120)
+        if kernels & {3, 4}:
+            sizes = layer_sizes(2, 3, depth, width)
+            g, flat, x = _inputs(sizes, n, dev)
+            cts = [torch.randn((n, 3), generator=g).to(dev) for _ in range(5)]
+            got[3] = ("mlp_streams_fwd", list(ms.streams_fwd(flat, sizes, x)))
+            got[4] = ("mlp_streams_bwd", [ms.streams_bwd(flat, sizes, x, cts)])
+        if kernels & {5, 6}:
+            sizes = layer_sizes(2, 2, depth, width)
+            g, flat, x = _inputs(sizes, n, dev)
+            cts = [torch.randn((n, 2), generator=g).to(dev) for _ in range(13)]
+            got[5] = ("psi_streams_fwd", list(psi.psi_fwd(flat, sizes, x)))
+            got[6] = ("psi_streams_bwd", [psi.psi_bwd(flat, sizes, x, cts)])
     torch.cuda.synchronize()
-    return out
+    return {case: {k: v for k, v in got.items() if k in kernels} for case, got in out.items()}
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("csrc", type=Path)
+    ap.add_argument("--kernels", default="1,2,3,4,5,6",
+                    help="comma-separated kernel numbers, 1-6 (default: all)")
+    a = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    kernels = {int(k) for k in a.kernels.split(",")}
+    if not kernels <= set(range(1, 7)):
+        ap.error(f"kernels are numbered 1-6, got {a.kernels}")
     if not torch.cuda.is_available():
         print("compare_sources: no CUDA device; the kernels run on the card", file=sys.stderr)
         return 1
     here = _build.CSRC
     try:
-        mine, theirs = run_kernels(here), run_kernels(Path(argv[0]))
+        mine, theirs = run_kernels(here, kernels), run_kernels(a.csrc, kernels)
     finally:
         _build.CSRC = here
+        _build._loaded.clear()
+        for mod in (fr, ms, psi):
+            mod._lib.cache_clear()
     same = True
-    for case, kernels in mine.items():
-        for kernel, tensors in kernels.items():
-            eq = all(torch.equal(a, b) for a, b in zip(tensors, theirs[case][kernel]))
+    for case, got in mine.items():
+        for k, (name, tensors) in sorted(got.items()):
+            ref = theirs[case][k][1]
+            if k in (1, 2):
+                rel = max(((t - r).abs().max() / r.abs().max()).item()
+                          for t, r in zip(tensors, ref))
+                print(f"{name} {case}: max relative difference from the build from "
+                      f"{a.csrc}: {rel:.3e}")
+                continue
+            eq = all(torch.equal(t, r) for t, r in zip(tensors, ref))
             same = same and eq
-            print(f"{kernel} {case}: bitwise equal to the build from {argv[0]}: {eq}")
+            print(f"{name} {case}: bitwise equal to the build from {a.csrc}: {eq}")
     return 0 if same else 1
 
 

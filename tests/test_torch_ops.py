@@ -194,17 +194,40 @@ def test_fused_loss_never_falls_back_off_the_cpu():
 
 def test_tile_choice_and_bounds_accounting():
     assert all(fr.ROW_ALIGN % t == 0 for t in fr._TILES)
-    assert fr.pick_tile(80) == 16
-    assert 2 * fr.smem_bytes(16, 80) <= 228 * 1024  # two blocks per SM at the flagship width
-    assert fr.pick_tile(160) == 16 and fr.pick_tile(224) == 2  # wider nets: smaller tiles
+    # kernels 1+2: 32-point tiles where they fit, a ragged last tile masked
+    assert fr.LOSS_TILES == (32, 16) and fr.LOSS_BLOCKS == 132
+    assert fr.pick_loss_tile(80, "high") == (32, 80)  # the whole weight, one block per SM
+    assert fr.loss_smem_bytes(32, 80, 80, 2) == 151_872
+    assert fr.pick_loss_tile(80, "highest") == (32, 80)
+    assert fr.pick_loss_tile(80, "default") == (32, 80)
+    # every width the configs and tests use launches at "high" (the configs' name)
+    for h, tiling in {16: (32, 16), 24: (32, 32), 112: (32, 112), 120: (32, 64),
+                      160: (16, 160), 224: (16, 32), 288: (16, 16)}.items():
+        assert fr.pick_loss_tile(h, "high") == tiling, h
+        assert fr.loss_smem_bytes(*tiling, h, 2) <= fr._MAX_SMEM
+        tile, panel = tiling
+        assert fr.ROW_ALIGN % 16 == 0 and panel % 16 == 0 and (-(-h // 16) * 16) % panel == 0
     with pytest.raises(ValueError):
-        fr.pick_tile(300)
+        fr.pick_loss_tile(300, "high")
+    with pytest.raises(ValueError):  # six passes need a third part: the widest do not fit
+        fr.pick_loss_tile(224, "highest")
+    # kernels 3+4 keep their rule
+    assert fr.PARTIAL_BLOCKS == 264
     fwd, bwd = fr.flop_counts(layer_sizes(2, 3, 6, 80), 120_000)
     assert fwd == 120_000 * (5 * 5 * 2 * 80 * 80 + 5 * 2 * 80 * 3)  # ~0.32 MFLOP/point
     assert bwd == 3 * fwd
+    # the pass counts: bf16 products issued per fp32 product
+    assert [fr.passes(p) for p in ("default", "high", "highest")] == [1, 3, 6]
     b_fwd, b_bwd = fr.byte_counts(layer_sizes(2, 3, 6, 80), 120_000, True)
     assert b_fwd == 120_000 * 20 + 4 * 32883 + 16
     assert b_bwd == b_fwd + 4 * 32883 + 4 * 120_000
+    # kernel 2's own traffic at the flagship size: the tape and the partial
+    t = fr.bwd_traffic(layer_sizes(2, 3, 6, 80), 120_000, "high")
+    assert t["tape_written"] == 3750 * 32 * 80 * 4 * 26  # t0 + 5 x (t, 4 tangents)
+    assert t["tape_read"] == t["tape_written"] + 3750 * 32 * 80 * 4 * 21
+    assert t["partial_rmw"] == 3750 * 32883 * 8
+    assert t["cuda_core_scratch_written"] == 120_000 * 50 * 80 * 4  # 1.92 GB
+    assert t["cuda_core_partial_rmw"] == 7500 * 32883 * 8  # 1.97 GB
 
 
 # ------------------------------------------------------------ loss fn

@@ -154,8 +154,8 @@ def test_never_falls_back_off_the_cpu(monkeypatch):
 
 def test_tile_and_bounds_accounting_at_the_v1_width():
     sizes = layer_sizes(2, 3, 4, 120)
-    assert fr.pick_tile(120) == 16
-    assert fr.smem_bytes(16, 120) == 136_096  # one block per SM, where 6x80 has two
+    assert ms.pick_tile(120) == 16
+    assert ms.smem_bytes(16, 120) == 136_096  # one block per SM, where 6x80 has two
     assert param_count(sizes) == 44_283
     fwd, bwd = ms.flop_counts(sizes, 40_000)
     assert fwd == 40_000 * (3 * 5 * 2 * 120 * 120 + 5 * 2 * 120 * 3)  # 435,600 FLOP/point
