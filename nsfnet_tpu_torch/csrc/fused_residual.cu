@@ -68,25 +68,6 @@ __device__ Res residual_at(const float* hb, int p, int tile, int k, float e, flo
   return r;
 }
 
-struct TcRegions {
-  bf16 *buf_a, *buf_b, *wb, *whs;
-  float *hb, *ghp, *red, *dbs;
-};
-
-__device__ TcRegions carve(unsigned char* smem, const TcSmem& L) {
-  TcRegions r;
-  r.buf_a = reinterpret_cast<bf16*>(smem);
-  r.buf_b = reinterpret_cast<bf16*>(smem + L.carry);
-  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry);
-  unsigned char* f = smem + 2 * L.carry + L.wbuf;
-  r.whs = reinterpret_cast<bf16*>(f);
-  r.hb = reinterpret_cast<float*>(f + L.whs);
-  r.ghp = reinterpret_cast<float*>(f + L.whs + L.hb);
-  r.red = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp);
-  r.dbs = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp + L.red);
-  return r;
-}
-
 template <int NP>
 __global__ void __launch_bounds__(kTcThreads, 1)
 loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
@@ -225,16 +206,6 @@ int check_loss_args(int n, int h, int k, int tile, int panel, int n_hidden, int 
       parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   return 0;
-}
-
-// Splits the hidden weights into wsplit (tc_wsplit_elems bf16) on stream s.
-template <int NP>
-int launch_split(const float* flat, const TcShapes& sh, bf16* wsplit, cudaStream_t s) {
-  if (sh.n_hidden < 2) return 0;
-  const long total = (long)(sh.n_hidden - 1) * sh.hp * sh.hp;
-  split_weights<NP><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(flat, sh.n_hidden, sh.h,
-                                                                    sh.hp, wsplit);
-  return (int)cudaGetLastError();
 }
 
 template <int NP>

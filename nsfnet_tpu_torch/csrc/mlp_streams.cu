@@ -1,34 +1,42 @@
-// Five-stream derivative engine for Hopper (sm_90a), fp32 on the CUDA cores.
+// Five-stream derivative engine for Hopper (sm_90a): the forward in fp32 on
+// the CUDA cores, the backward on the tensor cores.
 //
 // Replaces the TPU kernels of nsfnet_tpu/ops/pallas_mlp.py:
-//   streams_fwd_kernel <- _fwd_kernel (:183, launched by _fwd_pallas, pallas_call at :218)
-//   streams_bwd_kernel <- _bwd_kernel (:313, launched by _bwd_pallas, pallas_call at :352)
+//   streams_fwd_kernel     <- _fwd_kernel (:183, launched by _fwd_pallas, pallas_call at :218)
+//   streams_bwd_kernel<NP> <- _bwd_kernel (:313, launched by _bwd_pallas, pallas_call at :352)
 //
 // What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points x[N,2]:
 //   forward : the packed value + 4 Taylor streams through every layer, then
 //             the five [N,K] head streams (value, d/dx, d/dy, d2/dx2, d2/dy2)
 //             of every output, written row-major to global memory, the value
-//             stream with the head bias.
-//   backward: recompute the forward keeping every carry, read the five [N,K]
+//             stream with the head bias. Exact fp32 at every precision name.
+//   backward: recompute the forward keeping the tape, read the five [N,K]
 //             cotangent streams, run the packed reverse sweep -> dW / db of
-//             every layer in the flat parameter layout of models/mlp.py.
-//             x gets no cotangent: collocation points are constants.
+//             every layer in the flat parameter layout of models/mlp.py, at
+//             the precision name's bf16 passes (NP parts: "default" 1 pass,
+//             "high" 3 = JAX's bf16x3, "highest" 6). x gets no cotangent:
+//             collocation points are constants.
 //
 // What bounds them on this card: operations. Per point the forward does
 // 5 streams x 2*H*H FLOP per product layer (0.43 MFLOP at 4x120, 0.32 at
 // 6x80) and the backward three times that, against 8 B read and 20*K B
 // written (forward) or read (backward) per point: both sit far above the
-// fp32 ridge point. The products run as fp32 FMAs on the CUDA cores, as in
-// fused_residual.cu; tensor-core passes are later work.
+// ridge point.
 //
-// Design: packed_mlp.cuh holds the tile, the fixed grid, the ordered partial
-// sums and the backward scratch, shared with the fused residual-loss pair.
-// The forward reduces nothing, so any grid would give the same result; it
-// keeps the fixed-block loop so that both kernels have one code shape. The
-// backward does not run the head product: the head's output is not an input
-// of its own gradient, only the last carry and the cotangents are.
+// The forward runs packed_mlp.cuh's CUDA-core design (one thread per
+// (point, unit), fp32 FMAs). The backward is the fused residual-loss backward
+// (fused_residual.cu loss_bwd_kernel) without the residual algebra, as the
+// TPU kernel is _recompute_forward + _packed_reverse_sweep: the hidden
+// weights split once per launch (split_weights), tc_forward with the tape,
+// the tile's five cotangent rows loaded as the head's cotangents and split
+// into bf16 parts, tc_head_backward and tc_reverse (tc_mlp.cuh, which says
+// how each part works), 132 persistent blocks of 32-point tiles (16 where
+// 32 do not fit) with one partial each, added in block order. The tile and
+// the weight panel come from tc_smem, as for the pair. The backward does not
+// run the head product: the head's output is not an input of its own
+// gradient, only the last carry and the cotangents are.
 
-#include "packed_mlp.cuh"
+#include "tc_mlp.cuh"
 
 namespace {
 
@@ -55,7 +63,7 @@ streams_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
     __syncthreads();  // the previous tile's readers of buf_a / hb are done
-    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, nullptr);
+    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws);
     __syncthreads();
     head_layer(cur, flat + wh, flat + wh + (long)h * k, hb, T, h, k);
     __syncthreads();
@@ -67,48 +75,95 @@ streams_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int n,
-                   Shapes sh, ConstStreams ct, float* scratch, float* dpart) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, L = sh.n_hidden, S = T * h, TK = T * k;
-  float* buf_a = smem;
-  float* buf_b = buf_a + 5 * S;
-  float* ws = buf_b + 5 * S;
-  float* hb = ws + h * (h + 1) + 4 * T;
+// K, the head width, is a constant so that the head's loops unroll (3, the
+// velocity head); K = 0 takes any width from sh.k.
+template <int NP, int K>
+__global__ void __launch_bounds__(kTcThreads, 1)
+streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
+                   const bf16* __restrict__ wsplit, int n, TcShapes sh, ConstStreams ct,
+                   float* scratch, float* dpart) {
+  extern __shared__ __align__(16) unsigned char tc_buf[];  // the forward's smem is float
+  const TcRegions R = carve(tc_buf, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const int T = sh.tile, h = sh.h, L = sh.n_hidden, rows = 5 * T;
+  const int k = K > 0 ? K : sh.k, TK = T * k;
   const long P = n_params(L, h, k);
   float* dp = dpart + blockIdx.x * P;
-  float* store = scratch + blockIdx.x * scratch_floats(T, h, L);
+  float* tape = scratch + blockIdx.x * tc_scratch_floats(T, sh.hp, L);
 
   for (long i = threadIdx.x; i < P; i += blockDim.x) dp[i] = 0.f;
+  stage_head<NP>(R.whs, flat + head_off(L, h), h, sh.hp, k);
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
-    __syncthreads();  // the previous tile's sweep is done with the buffers and hb
-    for (int idx = threadIdx.x; idx < 5 * TK; idx += blockDim.x) {
-      int q = idx / TK, r = idx - q * TK;
-      hb[idx] = ct.s[q][n0 * k + r];
+    __syncthreads();  // the previous tile's sweep is done with the buffers, hb and ghp
+    // the tile's rows of the five cotangent streams (rows >= n are zero)
+    for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {
+      const int q = idx / TK, r = idx - q * TK;
+      R.hb[idx] = n0 * k + r < (long)n * k ? ct.s[q][n0 * k + r] : 0.f;
     }
-    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, store);
-    float* other = cur == buf_a ? buf_b : buf_a;
+    bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, tape);
+    bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
+    for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {  // head cotangent parts
+      bf16 part[NP];
+      split_one<NP>(R.hb[idx], part);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) R.ghp[(long)i * rows * k + idx] = __bfloat162float(part[i]);
+    }
     __syncthreads();
-    reverse_sweep(x, flat, n0, sh, cur, other, ws, hb, store, dp);
+    tc_head_backward<NP, K>(x, flat, n0, n, cur, R.whs, R.ghp, R.hb, tape, other, R.dbs, dp, sh);
+    __syncthreads();
+    flush_sums(R.dbs, T / 8, L - 1, dp, h, sh.hp);
+    tc_reverse<NP>(x, flat, wsplit, n0, n, other, cur, R.wb, R.dbs, tape, dp, sh);
   }
+}
+
+template <int NP, int K>
+int launch_bwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
+               int n_blocks, ConstStreams ct, float* scratch, float* dpart, size_t smem,
+               cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(streams_bwd_kernel<NP, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  streams_bwd_kernel<NP, K><<<n_blocks, kTcThreads, smem, s>>>(x, flat, wsplit, n, sh, ct,
+                                                               scratch, dpart);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_bwd_k(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
+                 int n_blocks, ConstStreams ct, float* scratch, float* dpart, size_t smem,
+                 cudaStream_t s) {
+  return sh.k == 3 ? launch_bwd<NP, 3>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                       smem, s)
+                   : launch_bwd<NP, 0>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                       smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of either kernel uses, in bytes.
+// Shared memory one block of the forward uses, in bytes.
 int nsf_mlp_streams_smem_bytes(int tile, int h, int k) {
   return (int)(smem_floats(tile, h, k) * sizeof(float));
 }
 
-// Floats of backward scratch one block uses; the wrapper allocates n_blocks of them.
-long nsf_mlp_streams_scratch_floats(int tile, int h, int n_hidden) {
-  return scratch_floats(tile, h, n_hidden);
+// Shared memory one block of the backward uses, in bytes (tc_smem).
+int nsf_mlp_streams_bwd_smem_bytes(int tile, int panel, int h, int k, int parts) {
+  return (int)tc_smem(tile, panel, pad16(h), k, parts).total();
+}
+
+// Floats of backward tape one block uses; the wrapper allocates n_blocks of them.
+long nsf_mlp_streams_tape_floats(int tile, int h, int n_hidden) {
+  return tc_scratch_floats(tile, pad16(h), n_hidden);
+}
+
+// Bytes of the backward's split copy of the hidden weights.
+long nsf_mlp_streams_weight_bytes(int n_hidden, int h, int parts) {
+  return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
 }
 
 // Forward: o, ox, oy, oxx, oyy <- the five [n, k] streams.
@@ -130,25 +185,31 @@ int nsf_mlp_streams_fwd(const float* x, const float* flat, int n, int n_hidden, 
 }
 
 // Backward: dflat = sum over the five streams of <cotangent, d stream / d params>,
-// in the flat layout. g*: the [n, k] cotangents of o, ox, oy, oxx, oyy.
-// scratch: [n_blocks, nsf_mlp_streams_scratch_floats], dpart: [n_blocks, n_params].
+// in the flat layout, at `parts` bf16 parts per operand (1-3). g*: the
+// [n, k] cotangents of o, ox, oy, oxx, oyy. tile 16 or 32 (a ragged last
+// tile is allowed), panel a multiple of 16 dividing the padded width;
+// wsplit: nsf_mlp_streams_weight_bytes of scratch; scratch: [n_blocks,
+// nsf_mlp_streams_tape_floats]; dpart: [n_blocks, n_params].
 // Returns a cudaError_t code (0 = launched).
 int nsf_mlp_streams_bwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
-                        int tile, int n_blocks, const float* g, const float* gx,
-                        const float* gy, const float* gxx, const float* gyy, float* scratch,
-                        float* dpart, float* dflat, void* stream) {
-  const size_t smem = smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_launch_args(n, h, k, tile, n_hidden, n_blocks, smem);
-  if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(streams_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+                        int tile, int panel, int n_blocks, int parts, void* wsplit,
+                        const float* g, const float* gx, const float* gy, const float* gxx,
+                        const float* gyy, float* scratch, float* dpart, float* dflat,
+                        void* stream) {
+  const int hp = pad16(h);
+  const size_t smem = tc_smem(tile, panel, hp, k, parts).total();
+  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
+      (tile != 16 && tile != 32) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
+      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Shapes sh{n_hidden, h, k, tile};
+  TcShapes sh{n_hidden, h, hp, k, tile, panel};
   ConstStreams ct{{g, gx, gy, gxx, gyy}};
-  streams_bwd_kernel<<<n_blocks, kThreads, smem, s>>>(x, flat, n, sh, ct, scratch, dpart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  bf16* ws = static_cast<bf16*>(wsplit);
+  int err = parts == 1   ? launch_bwd_k<1>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s)
+            : parts == 2 ? launch_bwd_k<2>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s)
+                         : launch_bwd_k<3>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s);
+  if (err) return err;
   return (int)sum_gradient_partials(dpart, n_blocks, n_params(n_hidden, h, k), dflat, s);
 }
 

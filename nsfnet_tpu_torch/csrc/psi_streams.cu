@@ -1,40 +1,43 @@
-// Order-3 streamfunction derivative engine for Hopper (sm_90a), fp32 on the
-// CUDA cores.
+// Order-3 streamfunction derivative engine for Hopper (sm_90a): the forward
+// in fp32 on the CUDA cores, the backward on the tensor cores.
 //
 // Replaces the TPU kernels of nsfnet_tpu/ops/pallas_psi.py:
-//   psi_fwd_kernel <- _fwd_kernel (:176, launched by _fwd_pallas, pallas_call at :204)
-//   psi_bwd_kernel <- _bwd_kernel (:223, launched by _bwd_pallas, pallas_call at :330)
+//   psi_fwd_kernel        <- _fwd_kernel (:176, launched by _fwd_pallas, pallas_call at :204)
+//   psi_bwd_kernel<NP, T> <- _bwd_kernel (:223, launched by _bwd_pallas, pallas_call at :330)
 //
 // What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points x[N,2]:
 //   forward : the packed value + 12 Taylor streams (orders 1-3 along e_x,
 //             e_y, (1,1), (1,-1)) through every layer, then the thirteen
 //             [N,K] head streams, written row-major to global memory, the
-//             value stream with the head bias.
-//   backward: recompute the forward keeping every carry and tangent row,
-//             read the thirteen [N,K] cotangent streams, run the packed
-//             order-3 reverse sweep -> dW / db of every layer in the flat
-//             parameter layout of models/mlp.py. x gets no cotangent:
-//             collocation points are constants.
+//             value stream with the head bias. Exact fp32 at every name.
+//   backward: recompute the forward keeping the tape, read the thirteen
+//             [N,K] cotangent streams, run the packed order-3 reverse sweep
+//             -> dW / db of every layer in the flat parameter layout of
+//             models/mlp.py, at the precision name's bf16 passes (NP parts:
+//             "default" 1 pass, "high" 3 = JAX's bf16x3, "highest" 6). x
+//             gets no cotangent: collocation points are constants.
 // The (u, v, p) bundle is assembled from the raw streams outside, in plain
 // PyTorch (ops/derivatives.assemble_psi_bundle), as the JAX package does.
 //
 // What bounds them on this card: operations. Per point the forward does
 // 13 streams x 2*H*H FLOP per product layer (0.83 MFLOP at 6x80) and the
 // backward three times that, against 8 B read and 52*K B written (forward)
-// or read (backward) per point: both sit far above the fp32 ridge point.
-// The products run as fp32 FMAs on the CUDA cores, as in the other two
-// pairs; tensor-core passes are later work.
+// or read (backward) per point: both sit far above the ridge point.
 //
-// Design: packed_psi.cuh holds the 13-stream device functions over
-// packed_mlp.cuh's tile, fixed grid, ordered partial sums and backward
-// scratch. The TPU kernels' tile functions (fwd_tile_for_psi,
-// bwd_tile_for_psi) are VMEM budgets and are not carried over: the tile
-// here comes from shared memory (two [13][T][H] carries, the staged weight
-// and the [13][T][K] head block must fit in one block's 227 KB), chosen by
-// the wrapper and checked against nsf_psi_streams_smem_bytes. As in
-// mlp_streams.cu, the backward does not run the head product.
+// The forward runs the CUDA-core design (packed_psi.cuh over packed_mlp.cuh: one
+// thread per (point, unit), fp32 FMAs, the tile from psi_smem_floats). The
+// backward runs tc_psi.cuh's sweep, which says how each part works: the
+// hidden weights split once per launch (split_weights), the recompute with
+// a tape of t and the 12 tangents, the tile's thirteen cotangent rows split
+// into the head's cotangent parts, the head backward on the CUDA cores, the
+// reverse sweep with the three products per layer on the tensor cores; 132
+// persistent blocks with one partial each, added in block order, no float
+// atomics. Its tile (16 or 8 points) and weight panel come from psi_smem
+// (nsf_psi_streams_bwd_smem_bytes), chosen by the wrapper. The backward does
+// not run the head product: the head's output is not an input of its own
+// gradient, only the last carry and the cotangents are.
 
-#include "packed_psi.cuh"
+#include "tc_psi.cuh"
 
 namespace {
 
@@ -61,7 +64,7 @@ psi_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
     __syncthreads();  // the previous tile's readers of buf_a / hb are done
-    float* cur = psi_forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, nullptr);
+    float* cur = psi_forward_tile(x, flat, n0, sh, buf_a, buf_b, ws);
     __syncthreads();
     psi_head_layer(cur, flat + wh, flat + wh + (long)h * k, hb, T, h, k);
     __syncthreads();
@@ -73,48 +76,102 @@ psi_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int 
   }
 }
 
-__global__ void __launch_bounds__(kPsiThreads)
-psi_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int n, Shapes sh,
-               PsiCt ct, float* scratch, float* dpart) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, L = sh.n_hidden, S = T * h, TK = T * k;
-  float* buf_a = smem;
-  float* buf_b = buf_a + kPsi * S;
-  float* ws = buf_b + kPsi * S;
-  float* hb = ws + h * (h + 1);
+// K, the head width, is a constant so that the head's loops unroll (2, the
+// (psi, p) head); K = 0 takes any width from sh.k.
+template <int NP, int T, int K>
+__global__ void __launch_bounds__(kTcThreads, 1)
+psi_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
+               const bf16* __restrict__ wsplit, int n, TcShapes sh, PsiCt ct, float* scratch,
+               float* dpart) {
+  extern __shared__ __align__(16) unsigned char tc_buf[];  // the forward's smem is float
+  const PsiRegions R = psi_carve(tc_buf, psi_smem(T, sh.panel, sh.hp, sh.k, NP));
+  const int h = sh.h, hp = sh.hp, L = sh.n_hidden;
+  const int k = K > 0 ? K : sh.k, TK = T * k;
   const long P = n_params(L, h, k);
   float* dp = dpart + blockIdx.x * P;
-  float* store = scratch + blockIdx.x * psi_scratch_floats(T, h, L);
+  float* tape = scratch + blockIdx.x * psi_tape_floats(T, hp, L);
 
   for (long i = threadIdx.x; i < P; i += blockDim.x) dp[i] = 0.f;
+  stage_head<NP>(R.whs, flat + head_off(L, h), h, hp, k);
+  zero_pad_stream<NP, T>(R.buf_a, hp);
+  zero_pad_stream<NP, T>(R.buf_b, hp);
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
-    __syncthreads();  // the previous tile's sweep is done with the buffers and hb
+    __syncthreads();  // the previous tile's sweep is done with the buffers, hb and ghp
+    // the tile's rows of the thirteen cotangent streams (rows >= n are zero)
     for (int idx = threadIdx.x; idx < kPsi * TK; idx += blockDim.x) {
-      int q = idx / TK, r = idx - q * TK;
-      hb[idx] = ct.s[q][n0 * k + r];
+      const int q = idx / TK, r = idx - q * TK;
+      R.hb[idx] = n0 * k + r < (long)n * k ? ct.s[q][n0 * k + r] : 0.f;
     }
-    float* cur = psi_forward_tile(x, flat, n0, sh, buf_a, buf_b, ws, store);
-    float* other = cur == buf_a ? buf_b : buf_a;
+    bf16* cur = psi_tc_forward<NP, T>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, tape);
+    bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
+    for (int idx = threadIdx.x; idx < kPsi * TK; idx += blockDim.x) {  // head cotangent parts
+      bf16 part[NP];
+      split_one<NP>(R.hb[idx], part);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) R.ghp[(long)i * kPsi * TK + idx] = __bfloat162float(part[i]);
+    }
     __syncthreads();
-    psi_reverse_sweep(x, flat, n0, sh, cur, other, ws, hb, store, dp);
+    psi_head_backward<NP, T, K>(x, flat, n0, n, cur, R.whs, R.ghp, R.hb, tape, other, R.dbs, dp,
+                                sh);
+    __syncthreads();
+    flush_sums(R.dbs, T / 8, L - 1, dp, h, hp);
+    psi_reverse<NP, T>(x, flat, wsplit, n0, n, other, cur, R.wb, R.dbs, tape, dp, sh);
   }
+}
+
+template <int NP, int T, int K>
+int launch_bwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh, int n_blocks,
+               const PsiCt& ct, float* scratch, float* dpart, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(psi_bwd_kernel<NP, T, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  psi_bwd_kernel<NP, T, K><<<n_blocks, kTcThreads, smem, s>>>(x, flat, wsplit, n, sh, ct,
+                                                              scratch, dpart);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_bwd_np(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
+                  int n_blocks, const PsiCt& ct, float* scratch, float* dpart, size_t smem,
+                  cudaStream_t s) {
+  if (sh.tile == 16)
+    return sh.k == 2 ? launch_bwd<NP, 16, 2>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                             smem, s)
+                     : launch_bwd<NP, 16, 0>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                             smem, s);
+  return sh.k == 2 ? launch_bwd<NP, 8, 2>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                          smem, s)
+                   : launch_bwd<NP, 8, 0>(x, flat, wsplit, n, sh, n_blocks, ct, scratch, dpart,
+                                          smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of either kernel uses, in bytes.
+// Shared memory one block of the forward uses, in bytes.
 int nsf_psi_streams_smem_bytes(int tile, int h, int k) {
   return (int)(psi_smem_floats(tile, h, k) * sizeof(float));
 }
 
-// Floats of backward scratch one block uses; the wrapper allocates n_blocks of them.
-long nsf_psi_streams_scratch_floats(int tile, int h, int n_hidden) {
-  return psi_scratch_floats(tile, h, n_hidden);
+// Shared memory one block of the backward uses, in bytes (psi_smem).
+int nsf_psi_streams_bwd_smem_bytes(int tile, int panel, int h, int k, int parts) {
+  return (int)psi_smem(tile, panel, pad16(h), k, parts).total();
+}
+
+// Floats of backward tape one block uses; the wrapper allocates n_blocks of them.
+long nsf_psi_streams_tape_floats(int tile, int h, int n_hidden) {
+  return psi_tape_floats(tile, pad16(h), n_hidden);
+}
+
+// Bytes of the backward's split copy of the hidden weights.
+long nsf_psi_streams_weight_bytes(int n_hidden, int h, int parts) {
+  return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
 }
 
 // Forward: outs[0..12] <- the thirteen [n, k] streams (outs is a host array
@@ -136,25 +193,31 @@ int nsf_psi_streams_fwd(const float* x, const float* flat, int n, int n_hidden, 
 }
 
 // Backward: dflat = sum over the thirteen streams of <cotangent, d stream / d params>,
-// in the flat layout. cts[0..12]: the [n, k] cotangents (a host array of
-// device pointers). scratch: [n_blocks, nsf_psi_streams_scratch_floats],
-// dpart: [n_blocks, n_params]. Returns a cudaError_t code (0 = launched).
+// in the flat layout, at `parts` bf16 parts per operand (1-3). cts[0..12]:
+// the [n, k] cotangents (a host array of device pointers). tile 16 or 8, panel
+// a multiple of 16 dividing the padded width; wsplit:
+// nsf_psi_streams_weight_bytes of scratch; scratch: [n_blocks,
+// nsf_psi_streams_tape_floats]; dpart: [n_blocks, n_params].
+// Returns a cudaError_t code (0 = launched).
 int nsf_psi_streams_bwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
-                        int tile, int n_blocks, const float* const* cts, float* scratch,
-                        float* dpart, float* dflat, void* stream) {
-  const size_t smem = psi_smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_launch_args(n, h, k, tile, n_hidden, n_blocks, smem);
-  if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(psi_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+                        int tile, int panel, int n_blocks, int parts, void* wsplit,
+                        const float* const* cts, float* scratch, float* dpart, float* dflat,
+                        void* stream) {
+  const int hp = pad16(h);
+  const size_t smem = psi_smem(tile, panel, hp, k, parts).total();
+  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
+      (tile != 16 && tile != 8) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
+      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Shapes sh{n_hidden, h, k, tile};
+  TcShapes sh{n_hidden, h, hp, k, tile, panel};
   PsiCt ct;
   for (int q = 0; q < kPsi; ++q) ct.s[q] = cts[q];
-  psi_bwd_kernel<<<n_blocks, kPsiThreads, smem, s>>>(x, flat, n, sh, ct, scratch, dpart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  bf16* ws = static_cast<bf16*>(wsplit);
+  int err = parts == 1   ? launch_bwd_np<1>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s)
+            : parts == 2 ? launch_bwd_np<2>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s)
+                         : launch_bwd_np<3>(x, flat, ws, n, sh, n_blocks, ct, scratch, dpart, smem, s);
+  if (err) return err;
   return (int)sum_gradient_partials(dpart, n_blocks, n_params(n_hidden, h, k), dflat, s);
 }
 

@@ -1,8 +1,11 @@
 // Tensor-core packed-MLP sweep for Hopper (sm_90a): the device code of the
-// fused residual-loss pair (fused_residual.cu). It ports the parts of
-// nsfnet_tpu/ops/pallas_mlp.py that the TPU pair inlines (_first_layer_packed,
-// _layer_packed, _forward_streams, _recompute_forward, _packed_reverse_sweep)
-// with every matrix product of a hidden layer on the tensor cores.
+// fused residual-loss pair (fused_residual.cu) and of the five-stream
+// engine's backward (mlp_streams.cu streams_bwd_kernel); the order-3
+// backward (tc_psi.cuh) builds on its primitives. It ports the parts of
+// nsfnet_tpu/ops/pallas_mlp.py that the TPU kernels inline
+// (_first_layer_packed, _layer_packed, _forward_streams, _recompute_forward,
+// _packed_reverse_sweep) with every matrix product of a hidden layer on the
+// tensor cores.
 //
 // Precision. The JAX kernels take a precision name; here it arrives as the
 // number of bf16 parts NP each operand is split into (round to nearest:
@@ -32,7 +35,7 @@
 //   forward  Z = P W        A: carry parts (ldmatrix), B: W parts (.trans)
 //   backward G = Gz W^T     A: Gz parts,             B: W parts
 //            dW += P^T Gz   A: P parts (.trans),     B: Gz parts (.trans)
-// The head (K = 3) runs the same passes on the CUDA cores: a bf16 x bf16
+// The head (K outputs) runs the same passes on the CUDA cores: a bf16 x bf16
 // product is exact in fp32, so its result is that of the tensor cores.
 //
 // Widths. H is zero-padded to Hp, a multiple of 16, in shared memory and in
@@ -110,6 +113,26 @@ __host__ __device__ inline long tc_scratch_floats(int tile, int hp, int n_hidden
 }
 __device__ inline long tc_tape_off(int l, int tile, int hp) {
   return l == 0 ? 0 : (long)tile * hp * (1 + 5L * (l - 1));
+}
+
+// The regions of tc_smem in one block's dynamic shared memory.
+struct TcRegions {
+  bf16 *buf_a, *buf_b, *wb, *whs;
+  float *hb, *ghp, *red, *dbs;
+};
+
+__device__ inline TcRegions carve(unsigned char* smem, const TcSmem& L) {
+  TcRegions r;
+  r.buf_a = reinterpret_cast<bf16*>(smem);
+  r.buf_b = reinterpret_cast<bf16*>(smem + L.carry);
+  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry);
+  unsigned char* f = smem + 2 * L.carry + L.wbuf;
+  r.whs = reinterpret_cast<bf16*>(f);
+  r.hb = reinterpret_cast<float*>(f + L.whs);
+  r.ghp = reinterpret_cast<float*>(f + L.whs + L.hb);
+  r.red = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp);
+  r.dbs = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp + L.red);
+  return r;
 }
 
 // ---------------------------------------------------------------- bf16 parts
@@ -254,6 +277,16 @@ __global__ void split_weights(const float* __restrict__ flat, int n_hidden, int 
   }
 }
 
+// Splits the hidden weights into wsplit (tc_wsplit_elems bf16) on stream s.
+template <int NP>
+int launch_split(const float* flat, const TcShapes& sh, bf16* wsplit, cudaStream_t s) {
+  if (sh.n_hidden < 2) return 0;
+  const long total = (long)(sh.n_hidden - 1) * sh.hp * sh.hp;
+  split_weights<NP><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(flat, sh.n_hidden, sh.h,
+                                                                    sh.hp, wsplit);
+  return (int)cudaGetLastError();
+}
+
 // Rows [r0, r0+nr) x columns [c0, c0+nc) of the layer's parts wl[NP][hp][hp]
 // into wb[NP][nr][nc+8], 8 bf16 (16 bytes) at a time.
 template <int NP>
@@ -335,14 +368,15 @@ __device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int 
   }
 }
 
-// dW[m][j] += sum_r P[r][m] Gz[r][j] over the 5T rows of the tile, for the
-// real m, j < h; dw is the layer's [h, h] block of the block's partial. One
-// warp per 16 x 16 block of dW, owned by the same thread in every tile.
-template <int NP>
+// dW[m][j] += sum_r P[r][m] Gz[r][j] over the S T rows of the tile (S
+// streams of T points, stream-major), for the real m, j < h; dw is the
+// layer's [h, h] block of the block's partial. One warp per 16 x 16 block of
+// dW, owned by the same thread in every tile.
+template <int NP, int S = 5>
 __device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, int h, int hp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3;
   const int g = lane >> 2, cq = lane & 3;
-  const int ld = hp + 8, rows = 5 * tile, nbs = hp / 16;
+  const int ld = hp + 8, rows = S * tile, nbs = hp / 16;
   for (int u = warp; u < nbs * nbs; u += kTcWarps) {
     const int mb = u / nbs, nb = u - mb * nbs;
     // the partial's entries of this block, loaded before the products hide them
@@ -385,13 +419,14 @@ __device__ __forceinline__ float sum_over_rows(float v) {
   return v;
 }
 
-// Stores the five values of one (point, column pair) as NP bf16x2 parts.
-template <int NP>
+// Stores the NQ stream values of one (point, column pair) as NP bf16x2
+// parts, in a carry of S streams (S >= NQ; the rest are padding).
+template <int NP, int NQ = 5, int S = NQ>
 __device__ __forceinline__ void store_pair(bf16* buf, int tile, int hp, int p, int col,
-                                           const float v0[5], const float v1[5]) {
-  const int ld = hp + 8, rows = 5 * tile;
+                                           const float* v0, const float* v1) {
+  const int ld = hp + 8, rows = S * tile;
 #pragma unroll
-  for (int q = 0; q < 5; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     uint32_t part[NP];
     split_pair<NP>(v0[q], v1[q], part);
 #pragma unroll
@@ -400,13 +435,14 @@ __device__ __forceinline__ void store_pair(bf16* buf, int tile, int hp, int p, i
   }
 }
 
-// Stores the five values of one (point, unit) as NP bf16 parts.
-template <int NP>
+// Stores the NQ stream values of one (point, unit) as NP bf16 parts, in a
+// carry of S streams.
+template <int NP, int NQ = 5, int S = NQ>
 __device__ __forceinline__ void store_one(bf16* buf, int tile, int hp, int p, int m,
-                                          const float v[5]) {
-  const int ld = hp + 8, rows = 5 * tile;
+                                          const float* v) {
+  const int ld = hp + 8, rows = S * tile;
 #pragma unroll
-  for (int q = 0; q < 5; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     bf16 part[NP];
     split_one<NP>(v[q], part);
 #pragma unroll
@@ -560,13 +596,15 @@ __device__ void rebuild_carry(const float* tape, const float* __restrict__ w0, i
 // give dbh). Writes dWh / dbh into dp, the pre-activation cotangent of the
 // last tanh layer as parts into gz_out, and the column sums of its bias
 // gradient (or, for a one-layer net, the first layer's terms) into dbs.
+// K, the head width, is a constant so that its loops unroll; K = 0 reads
+// the width from sh.k (any width, loops not unrolled).
 template <int NP, int K>
 __device__ void tc_head_backward(const float* __restrict__ x, const float* __restrict__ flat,
                                  long n0, int n, const bf16* cur, const bf16* whs,
                                  const float* ghp, const float* hb, const float* tape,
                                  bf16* gz_out, float* dbs, float* dp, const TcShapes& sh) {
   const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden;
-  constexpr int k = K;
+  const int k = K > 0 ? K : sh.k;
   const int ld = hp + 8, rows = 5 * T;
   const long wh = head_off(L, h);
   for (int idx = threadIdx.x; idx < h * k; idx += blockDim.x) {  // dWh = P^T G
@@ -595,7 +633,7 @@ __device__ void tc_head_backward(const float* __restrict__ x, const float* __res
   for (int idx = threadIdx.x; idx < (T / 8) * hp; idx += blockDim.x) {
     const int grp = idx / hp, m = idx - grp * hp;
     float d[3] = {0.f, 0.f, 0.f};
-    float wv[NP][K];  // this unit's head weight parts
+    float wv[NP][K > 0 ? K : 1];  // this unit's head weight parts (K > 0)
 #pragma unroll
     for (int j = 0; j < NP; ++j)
 #pragma unroll
@@ -614,12 +652,13 @@ __device__ void tc_head_backward(const float* __restrict__ x, const float* __res
       for (int q = 0; q < 5; ++q) {
         float a = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < K; ++kk)
+        for (int kk = 0; kk < k; ++kk)
 #pragma unroll
           for (int i = 0; i < NP; ++i) {
-            const float gv = ghp[(i * rows + q * T + p) * K + kk];
+            const float gv = ghp[(i * rows + q * T + p) * k + kk];
 #pragma unroll
-            for (int j = 0; j + i < NP; ++j) a += gv * wv[j][kk];
+            for (int j = 0; j + i < NP; ++j)
+              a += gv * (K > 0 ? wv[j][kk] : __bfloat162float(whs[(j * hp + m) * k + kk]));
           }
         G[q] = a;
       }

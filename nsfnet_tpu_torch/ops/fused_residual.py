@@ -54,12 +54,14 @@ PARTS = {"highest": 3, "high": 2, "default": 1}  # bf16 parts of each operand
 ROW_ALIGN = 16         # batches are padded to this; every tile size divides it
 _MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
 
-# The five-stream and order-3 engines (kernels 3-6): their fixed grid and tiles.
-PARTIAL_BLOCKS = 264   # fixed grid = number of partials: fixes the summation order
+# The CUDA-core forwards of the five-stream and order-3 engines (kernels 3, 5):
+# their fixed grid and tiles.
+PARTIAL_BLOCKS = 264
 _TILES = (16, 8, 4, 2, 1)
 
-# Kernels 1+2: one persistent block per SM of an H100 (a constant, not read
-# from the card), and 32-point tiles where they fit, else 16.
+# The tensor-core kernels (1, 2, 4, 6): one persistent block per SM of an
+# H100 (a constant, not read from the card: the number of partials fixes the
+# summation order); kernels 1, 2, 4 take 32-point tiles where they fit, else 16.
 LOSS_BLOCKS = 132
 LOSS_TILES = (32, 16)
 

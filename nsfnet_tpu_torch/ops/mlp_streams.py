@@ -8,7 +8,7 @@ five [N,K] cotangents into the gradient wrt the flat weights:
 
   * kernel 3, `streams_fwd`: csrc/mlp_streams.cu streams_fwd_kernel, which
     replaces `_fwd_kernel` (pallas_mlp.py:183);
-  * kernel 4, `streams_bwd`: streams_bwd_kernel, which replaces
+  * kernel 4, `streams_bwd`: streams_bwd_kernel<NP, K>, which replaces
     `_bwd_kernel` (pallas_mlp.py:313).
 
 The solver's equation loss runs engine -> residuals -> masked sums through
@@ -16,32 +16,43 @@ this engine whenever the fused residual loss (ops/fused_residual.py) is
 off: every `loss_mode: L2` run, and MSE runs with NSFNET_FUSED_LOSS=0.
 
 `mlp_streams` is the entry point. On a CPU tensor it runs
-`plain_mlp_streams` (the closed-form engine, differentiated by autograd);
-on a CUDA tensor it launches the kernel pair through `_MlpStreams`, or
-raises. x gets no gradient: collocation points are optimization constants
-(pallas_mlp.py:415-431).
+`plain_mlp_streams` (the closed-form engine, differentiated by autograd) in
+exact fp32 at every name; on a CUDA tensor it launches the kernel pair
+through `_MlpStreams`, or raises. x gets no gradient: collocation points
+are optimization constants (pallas_mlp.py:415-431).
 
-The tile and the batch padding come from this card's shared memory
-(`pick_tile` here, `ROW_ALIGN`), not from the TPU kernel's
-TILE = 512. The TPU engine's `lane_pad` option (pallas_mlp.py:371-413)
-zero-pads hidden widths to the MXU's 128 lanes and changes no result; CUDA
-cores have no such granule, so it is not carried over. Every precision name
-of the JAX package is accepted and computes exact fp32.
+Precision. Kernel 4 runs every hidden-layer and head product on bf16 parts
+of its operands at the name's passes, as the JAX backward does: "default"
+one pass, "high" three (JAX's bf16x3, pallas_mlp.py:111-129), "highest"
+six; the name reaches the kernel as the number of parts
+(`fused_residual.PARTS`). Kernel 3, the forward, computes exact fp32 at
+every name. So at "high" the gradient is that of JAX's bf16x3 backward,
+while the forward values are exact fp32 (within 1e-5 of JAX's "high").
+`plain_mlp_streams_bwd(..., precision=name)` applies the same passes
+(`fused_residual.emulated_derivatives`); `precision=None` is exact fp32.
+
+Tiles come from this card's shared memory, not from the TPU kernel's
+TILE = 512: kernel 3's from `pick_tile` here, kernel 4's (tile and weight
+panel) from the tensor-core sweep's count (`pick_bwd_tile`, the rule of
+kernels 1+2). The TPU engine's `lane_pad` option (pallas_mlp.py:371-413)
+zero-pads hidden widths to the MXU's 128 lanes and changes no result; the
+kernels pad to their own granule, so it is not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from nsfnet_tpu_torch.models.mlp import param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build
+from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
-from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, PARTIAL_BLOCKS, PRECISIONS,
-                                                 ROW_ALIGN, _raise_on)
+from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, LOSS_BLOCKS, PARTIAL_BLOCKS,
+                                                 PARTS, PRECISIONS, ROW_ALIGN, _raise_on)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
@@ -69,6 +80,15 @@ def pick_tile(h: int, k: int = 3) -> int:
     raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
 
 
+def pick_bwd_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
+    """(tile, panel) of kernel 4: the rule of kernels 1+2 (the same
+    tensor-core sweep and shared-memory count, tc_smem), at the net's head
+    width; the source's nsf_mlp_streams_bwd_smem_bytes must agree
+    (tests/test_torch_gpu.py checks). 32 points with the whole weight at
+    4x120 and 6x80 at "high"."""
+    return fr.pick_loss_tile(h, precision, k)
+
+
 def flop_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, int]:
     """Matrix-product FLOPs of kernel 3 and kernel 4 on n points (the
     elementwise tanh algebra, a few percent, is left out, so these give
@@ -76,7 +96,8 @@ def flop_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, 
     and runs two more per layer (dW and the carry cotangent); the head has
     those two only. `n_streams` is the height of the packed carry: 5 here,
     13 in the order-3 engine (ops/psi_streams.py), which has the same shape
-    of work."""
+    of work. One fp32 product each: kernel 4 runs `fused_residual.passes`
+    bf16 products per fp32 product."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
     hidden = (n_hidden - 1) * n_streams * 2 * h * h
     head = n_streams * 2 * h * k
@@ -99,12 +120,19 @@ def plain_mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor)
 
 
 def plain_mlp_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-                          cts: Sequence[torch.Tensor]) -> torch.Tensor:
+                          cts: Sequence[torch.Tensor],
+                          precision: Optional[str] = None) -> torch.Tensor:
     """The plain PyTorch version of kernel 4: autograd's gradient of
-    sum_q <cts[q], stream_q> wrt the flat weights."""
+    sum_q <cts[q], stream_q> wrt the flat weights. precision None: exact
+    fp32; a name: the kernel's bf16 passes on every hidden and head product,
+    forward and backward (`emulated_derivatives`, whose `pass_dot` splits
+    the cotangent too, as JAX's _dot_tn / _dot_nt do)."""
     flat = flat.detach().requires_grad_(True)
     with torch.enable_grad():
-        streams = plain_mlp_streams(flat, sizes, x)
+        if precision is None:
+            streams = plain_mlp_streams(flat, sizes, x)
+        else:
+            streams = fr.emulated_derivatives(unflatten_params(flat, sizes), x, PARTS[precision])
     return torch.autograd.grad(streams, [flat], list(cts))[0]
 
 
@@ -112,21 +140,24 @@ def plain_mlp_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Ten
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mlp_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
-    common = [p, p, i, i, i, i, i, i]
-    lib.nsf_mlp_streams_fwd.argtypes = common + [p] * 6
+    common = [p, p, i, i, i, i]
+    lib.nsf_mlp_streams_fwd.argtypes = common + [i, i] + [p] * 6
     lib.nsf_mlp_streams_fwd.restype = i
-    lib.nsf_mlp_streams_bwd.argtypes = common + [p] * 9
+    lib.nsf_mlp_streams_bwd.argtypes = common + [i, i, i, i] + [p] * 10
     lib.nsf_mlp_streams_bwd.restype = i
     lib.nsf_mlp_streams_smem_bytes.argtypes = [i, i, i]
     lib.nsf_mlp_streams_smem_bytes.restype = i
-    lib.nsf_mlp_streams_scratch_floats.argtypes = [i, i, i]
-    lib.nsf_mlp_streams_scratch_floats.restype = ctypes.c_long
+    lib.nsf_mlp_streams_bwd_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.nsf_mlp_streams_bwd_smem_bytes.restype = i
+    lib.nsf_mlp_streams_tape_floats.argtypes = [i, i, i]
+    lib.nsf_mlp_streams_tape_floats.restype = ctypes.c_long
+    lib.nsf_mlp_streams_weight_bytes.argtypes = [i, i, i]
+    lib.nsf_mlp_streams_weight_bytes.restype = ctypes.c_long
     return lib
 
 
-def _check_inputs(flat, sizes, x, cts=(), pick_tile=pick_tile):
-    """Raises on what the kernels do not take; returns the batch size and
-    the tile `pick_tile` chooses for the width."""
+def _check_inputs(flat, sizes, x, cts=()):
+    """Raises on what the kernels do not take; returns the batch size."""
     n, k = x.shape[0], sizes[-1]
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
@@ -137,25 +168,29 @@ def _check_inputs(flat, sizes, x, cts=(), pick_tile=pick_tile):
         if t is None or t.dtype != torch.float32 or t.device != x.device \
                 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous float32 {shape} on {x.device}")
-    tile = pick_tile(sizes[1], k)
-    if n % tile != 0:
+    if n % ROW_ALIGN != 0:
         raise ValueError(f"batch {n} must be padded to a multiple of {ROW_ALIGN}")
-    return n, tile
+    return n
 
 
-def _launch_args(flat, sizes, x, tile):
-    return [x.data_ptr(), flat.data_ptr(), x.shape[0], len(sizes) - 2, sizes[1], sizes[-1],
-            tile, PARTIAL_BLOCKS]
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+
+
+def _launch_args(flat, sizes, x):
+    return [x.data_ptr(), flat.data_ptr(), x.shape[0], len(sizes) - 2, sizes[1], sizes[-1]]
 
 
 def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor) -> Derivs:
-    """Kernel 3: the five [N,K] streams."""
-    n, tile = _check_inputs(flat, sizes, x)
+    """Kernel 3: the five [N,K] streams (exact fp32)."""
+    n = _check_inputs(flat, sizes, x)
+    tile = pick_tile(sizes[1], sizes[-1])
     out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=x.device)
                 for _ in range(5))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _lib().nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x, tile),
+        code = _lib().nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), tile, PARTIAL_BLOCKS,
                                           *(o.data_ptr() for o in out), stream)
     _raise_on(code, "mlp streams forward")
     launch_counts["mlp_streams_fwd"] += 1
@@ -163,44 +198,52 @@ def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor) -> De
 
 
 def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-                cts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Kernel 4: the gradient wrt the flat weights from five [N,K] cotangents."""
+                cts: Sequence[torch.Tensor], precision: str = "high") -> torch.Tensor:
+    """Kernel 4: the gradient wrt the flat weights from five [N,K]
+    cotangents, at the name's bf16 passes."""
     if len(cts) != 5:
         raise ValueError(f"need the five streams' cotangents, got {len(cts)}")
-    n, tile = _check_inputs(flat, sizes, x, cts)
-    p, dev = param_count(sizes), x.device
-    block_floats = _lib().nsf_mlp_streams_scratch_floats(tile, sizes[1], len(sizes) - 2)
-    scratch = torch.empty(PARTIAL_BLOCKS * block_floats, dtype=torch.float32, device=dev)
-    dpart = torch.empty(PARTIAL_BLOCKS * p, dtype=torch.float32, device=dev)
+    _check_precision(precision)
+    n = _check_inputs(flat, sizes, x, cts)
+    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+    tile, panel = pick_bwd_tile(h, precision, k)
+    parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
+    tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(tile, h, n_hidden),
+                       dtype=torch.float32, device=dev)
+    wsplit = torch.empty(lib.nsf_mlp_streams_weight_bytes(n_hidden, h, parts), dtype=torch.uint8,
+                         device=dev)
+    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _lib().nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x, tile),
-                                          *(c.data_ptr() for c in cts), scratch.data_ptr(),
-                                          dpart.data_ptr(), dflat.data_ptr(), stream)
+        code = lib.nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
+                                       parts, wsplit.data_ptr(), *(c.data_ptr() for c in cts),
+                                       tape.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
+                                       stream)
     _raise_on(code, "mlp streams backward")
     launch_counts["mlp_streams_bwd"] += 1
     return dflat
 
 
 class _MlpStreams(torch.autograd.Function):
-    """Kernel 3 forward, kernel 4 backward (the custom_vjp of
-    pallas_mlp.py:415-431). Gradients flow to flat only. A stream the loss
-    does not use arrives as zeros (autograd materialises it), and a
-    cotangent scattered from column slices may be strided: each is made
-    contiguous fp32 before the kernel reads it."""
+    """Kernel 3 forward, kernel 4 backward at the precision name (the
+    custom_vjp of pallas_mlp.py:415-431). Gradients flow to flat only. A
+    stream the loss does not use arrives as zeros (autograd materialises
+    it), and a cotangent scattered from column slices may be strided: each
+    is made contiguous fp32 before the kernel reads it."""
 
     @staticmethod
-    def forward(ctx, flat, x, sizes):
+    def forward(ctx, flat, x, sizes, precision):
         ctx.save_for_backward(flat, x)
-        ctx.sizes = sizes
+        ctx.meta = (sizes, precision)
         return streams_fwd(flat, sizes, x)
 
     @staticmethod
     def backward(ctx, *cts):
         flat, x = ctx.saved_tensors
+        sizes, precision = ctx.meta
         cts = [c.to(torch.float32).contiguous() for c in cts]
-        return streams_bwd(flat, ctx.sizes, x, cts), None, None
+        return streams_bwd(flat, sizes, x, cts, precision), None, None, None
 
 
 def mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -208,9 +251,9 @@ def mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     """(out, d/dx, d/dy, d2/dx2, d2/dy2), each [N,K], of the MLP whose flat
     weights are `flat` (models/mlp.py layout, `sizes` its layer sizes).
     Differentiable wrt `flat` only. On a card the batch must be padded to
-    ROW_ALIGN rows."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    ROW_ALIGN rows and the backward runs the bf16 passes of `precision`; on
+    the CPU the plain version computes exact fp32."""
+    _check_precision(precision)
     if x.device.type == "cpu":
         return plain_mlp_streams(flat, sizes, x.detach())
-    return _MlpStreams.apply(flat, x, tuple(sizes))
+    return _MlpStreams.apply(flat, x, tuple(sizes), precision)

@@ -12,41 +12,54 @@ gradient wrt the flat weights:
 
   * kernel 5, `psi_fwd`: csrc/psi_streams.cu psi_fwd_kernel, which replaces
     `_fwd_kernel` (pallas_psi.py:176);
-  * kernel 6, `psi_bwd`: psi_bwd_kernel, which replaces `_bwd_kernel`
-    (pallas_psi.py:223).
+  * kernel 6, `psi_bwd`: psi_bwd_kernel<NP, T, K> over csrc/tc_psi.cuh,
+    which replaces `_bwd_kernel` (pallas_psi.py:223).
 
 `psi_streams` is the entry point of the streamfunction formulation (the net
 outputs (psi, p); u = psi_y, v = -psi_x, continuity exact): it returns the
 (u, v, p) `Derivs` bundle, assembled from the raw streams in plain PyTorch
 outside the kernel, as the JAX package does (pallas_psi.py:373-380). On a
 CPU tensor it runs `plain_psi_streams` (the closed-form engine,
-differentiated by autograd); on anything else it launches the kernel pair
-through `_PsiStreams`, or raises. x gets no gradient: collocation points
-are optimization constants (pallas_psi.py:367-369).
+differentiated by autograd) in exact fp32 at every name; on anything else it
+launches the kernel pair through `_PsiStreams`, or raises. x gets no
+gradient: collocation points are optimization constants
+(pallas_psi.py:367-369).
 
-The tile comes from this card's shared memory (`pick_tile` here: the packed
-carries are 13/5 the size of the five-stream engine's), not from the TPU
-kernels' VMEM budgets (`fwd_tile_for_psi` / `bwd_tile_for_psi`) or their
-NSFNET_PALLAS_PSI_*_TILE knobs. Every tile divides ROW_ALIGN, so the
-solver's padding is that of the other engines. Every precision name of the
-JAX package is accepted and computes exact fp32.
+Precision. Kernel 6 runs every hidden-layer and head product on bf16 parts
+of its operands at the name's passes, as the JAX backward does: "default"
+one pass, "high" three (JAX's bf16x3), "highest" six; the name reaches the
+kernel as the number of parts (`fused_residual.PARTS`). Kernel 5, the
+forward, computes exact fp32 at every name. So at "high" the gradient is
+that of JAX's bf16x3 backward, while the forward values are exact fp32
+(within 1e-5 of JAX's "high"). `plain_psi_streams_bwd(..., precision=name)`
+applies the same passes (`emulated_psi_streams`); `precision=None` is exact
+fp32.
+
+Tiles come from this card's shared memory, not from the TPU kernels' VMEM
+budgets (`fwd_tile_for_psi` / `bwd_tile_for_psi`) or their
+NSFNET_PALLAS_PSI_*_TILE knobs: kernel 5's from `pick_tile`, kernel 6's
+(16 or 8 points and a weight panel) from `pick_bwd_tile`. Every tile
+divides ROW_ALIGN, so the solver's padding is that of the other engines.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from nsfnet_tpu_torch.models.mlp import param_count, unflatten_params
+from nsfnet_tpu_torch.models.mlp import Params, param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build, mlp_streams
 from nsfnet_tpu_torch.ops.derivatives import (N_PSI_STREAMS, Derivs, assemble_psi_bundle,
-                                              mlp_psi_streams)
-from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, PARTIAL_BLOCKS, PRECISIONS,
-                                                 _raise_on)
-from nsfnet_tpu_torch.ops.mlp_streams import _check_inputs, _launch_args
+                                              mlp_psi_streams, tanh_chain)
+from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, LOSS_BLOCKS, PARTIAL_BLOCKS,
+                                                 PARTS, _pad16, _raise_on, _round16, pass_dot)
+from nsfnet_tpu_torch.ops.mlp_streams import _check_inputs, _check_precision, _launch_args
+
+# Kernel 6: 16-point tiles where they fit, else 8 (the 13 streams padded to 14)
+PSI_BWD_TILES = (16, 8)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"psi_streams_fwd": 0, "psi_streams_bwd": 0}
@@ -58,27 +71,58 @@ def reset_launch_counts() -> None:
 
 
 def smem_bytes(tile: int, h: int, k: int = 2) -> int:
-    """Shared memory of one block (two [13][T][H] carries, the staged weight,
-    the [13][T][K] head block), for choosing the tile without the library;
-    the source's nsf_psi_streams_smem_bytes owns the layout and must agree
-    (tests/test_torch_gpu.py checks every tile)."""
+    """Shared memory of one block of kernel 5 (two [13][T][H] carries, the
+    staged weight, the [13][T][K] head block), for choosing the tile without
+    the library; the source's nsf_psi_streams_smem_bytes owns the layout and
+    must agree (tests/test_torch_gpu.py checks every tile)."""
     return 4 * (2 * N_PSI_STREAMS * tile * h + h * (h + 1) + N_PSI_STREAMS * tile * k)
 
 
 def pick_tile(h: int, k: int = 2) -> int:
-    """Largest tile (at most 16 points) whose block fits in shared memory:
-    16 points up to H = 109 (161 KB at H = 80: one block per SM), 8 from
-    H = 110 (159 KB at H = 120)."""
+    """Kernel 5's tile: the largest (at most 16 points) whose block fits in
+    shared memory: 16 points up to H = 109 (161 KB at H = 80: one block per
+    SM), 8 from H = 110 (159 KB at H = 120)."""
     for t in _TILES:
         if smem_bytes(t, h, k) <= _MAX_SMEM:
             return t
     raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
 
 
+def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2) -> int:
+    """Shared memory of one block of kernel 6, for choosing the tile without
+    the library; the source's psi_smem (nsf_psi_streams_bwd_smem_bytes)
+    owns the layout and must agree (tests/test_torch_gpu.py checks)."""
+    hp = _pad16(h)
+    streams = N_PSI_STREAMS if tile == 16 else N_PSI_STREAMS + 1
+    carry = _round16(parts * streams * tile * (hp + 8) * 2)
+    wbuf = _round16(parts * max(hp * (panel + 8), panel * (hp + 8)) * 2)
+    rest = (_round16(parts * hp * k * 2) + _round16(N_PSI_STREAMS * tile * k * 4)
+            + _round16(parts * N_PSI_STREAMS * tile * k * 4) + _round16((tile // 8) * 3 * hp * 4))
+    return 2 * carry + wbuf + rest
+
+
+def pick_bwd_tile(h: int, precision: str = "high", k: int = 2) -> Tuple[int, int]:
+    """(tile, panel) of kernel 6: the largest tile of PSI_BWD_TILES, then the
+    widest weight panel (a multiple of 16 dividing the padded width), whose
+    block fits in shared memory. 16 points and the whole weight at 4x40 and
+    at 6x80 up to "high"; 8 points at 6x80 "highest" and at 4x120 "high" /
+    "highest". A width and name that fits neither raises."""
+    hp = _pad16(h)
+    panels = [p for p in range(hp, 0, -16) if hp % p == 0]
+    for tile in PSI_BWD_TILES:
+        for panel in panels:
+            if bwd_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
+                return tile, panel
+    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit kernel 6's "
+                     f"shared memory")
+
+
 def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
     """Matrix-product FLOPs of kernel 5 and kernel 6 on n points: the
     five-stream engine's count with thirteen streams (the elementwise tanh
-    algebra is left out, so these give lower bounds on the time)."""
+    algebra is left out, so these give lower bounds on the time). One fp32
+    product each: kernel 6 runs `fused_residual.passes` bf16 products per
+    fp32 product."""
     return mlp_streams.flop_counts(sizes, n, N_PSI_STREAMS)
 
 
@@ -88,6 +132,27 @@ def byte_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
     return mlp_streams.byte_counts(sizes, n, N_PSI_STREAMS)
 
 
+def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[str, int]:
+    """Bytes per launch of kernel 6's own traffic beyond its inputs: the
+    tape (written once by the recompute, read by the carry rebuild and by
+    the epilogues) and the read-modify-write of the block's gradient partial
+    once per tile; beside them, the same counts for the CUDA-core design it
+    replaced (kernel 5's tile, every layer's 13-row carry and 12 tangent
+    rows stored, one partial read and written per tile)."""
+    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+    p = param_count(sizes)
+    tile, _ = pick_bwd_tile(h, precision, k)
+    tiles, hp = -(-n // tile), _pad16(h)
+    layer = tile * hp * 4
+    written = tiles * layer * (1 + 13 * (n_hidden - 1))
+    rebuilt = tiles * layer * (1 + 13 * (n_hidden - 2)) if n_hidden > 1 else 0
+    old = n * (25 * n_hidden - 12) * h * 4
+    return {"tape_written": written, "tape_read": written + rebuilt,
+            "partial_rmw": tiles * p * 4 * 2,
+            "cuda_core_scratch_written": old, "cuda_core_scratch_read": old,
+            "cuda_core_partial_rmw": (n // pick_tile(h, k)) * p * 4 * 2}
+
+
 def plain_psi_streams(flat: torch.Tensor, sizes: Sequence[int],
                       x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The plain PyTorch version of kernel 5: the thirteen raw streams by the
@@ -95,13 +160,46 @@ def plain_psi_streams(flat: torch.Tensor, sizes: Sequence[int],
     return mlp_psi_streams(unflatten_params(flat, sizes), x)
 
 
+def emulated_psi_streams(params: Params, x: torch.Tensor, parts: int) -> Tuple[torch.Tensor, ...]:
+    """mlp_psi_streams with every hidden and head product run as kernel 6
+    runs it: on the 13-row packed carry [13N, H] (_layer_packed,
+    pallas_psi.py:152-171, and the head at :186), through `pass_dot` with
+    `parts` bf16 parts of each operand. At 3 parts it is about exact fp32."""
+    w0, b0 = params[0]
+    n = x.shape[0]
+    t = torch.tanh(x @ w0 + b0)
+    d1, d2, d3, _ = tanh_chain(t)
+    wx, wy = w0[0], w0[1]
+    rows = (wx, wy, wx + wy, wx - wy)
+    packed = torch.cat([t] + [d1 * r for r in rows] + [d2 * (r * r) for r in rows]
+                       + [d3 * (r * r * r) for r in rows])
+    for w, b in params[1:-1]:
+        z = pass_dot(packed, w, parts).split(n)
+        t = torch.tanh(z[0] + b)
+        d1, d2, d3, _ = tanh_chain(t)
+        z1, z2, z3 = z[1:5], z[5:9], z[9:13]
+        packed = torch.cat([t] + [d1 * a for a in z1]
+                           + [d2 * a * a + d1 * c for a, c in zip(z1, z2)]
+                           + [d3 * a * a * a + 3.0 * d2 * a * c + d1 * e
+                              for a, c, e in zip(z1, z2, z3)])
+    w, b = params[-1]
+    out = pass_dot(packed, w, parts).split(n)
+    return (out[0] + b, *out[1:])
+
+
 def plain_psi_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-                          cts: Sequence[torch.Tensor]) -> torch.Tensor:
+                          cts: Sequence[torch.Tensor],
+                          precision: Optional[str] = None) -> torch.Tensor:
     """The plain PyTorch version of kernel 6: autograd's gradient of
-    sum_q <cts[q], stream_q> wrt the flat weights."""
+    sum_q <cts[q], stream_q> wrt the flat weights. precision None: exact
+    fp32 (the closed form); a name: the kernel's bf16 passes on every hidden
+    and head product, forward and backward (`emulated_psi_streams`)."""
     flat = flat.detach().requires_grad_(True)
     with torch.enable_grad():
-        streams = plain_psi_streams(flat, sizes, x)
+        if precision is None:
+            streams = plain_psi_streams(flat, sizes, x)
+        else:
+            streams = emulated_psi_streams(unflatten_params(flat, sizes), x, PARTS[precision])
     return torch.autograd.grad(streams, [flat], list(cts))[0]
 
 
@@ -109,15 +207,19 @@ def plain_psi_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Ten
 def _lib() -> ctypes.CDLL:
     lib = _build.load("psi_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
-    common = [p, p, i, i, i, i, i, i]
-    lib.nsf_psi_streams_fwd.argtypes = common + [ctypes.POINTER(p), p]
+    common = [p, p, i, i, i, i]
+    lib.nsf_psi_streams_fwd.argtypes = common + [i, i, ctypes.POINTER(p), p]
     lib.nsf_psi_streams_fwd.restype = i
-    lib.nsf_psi_streams_bwd.argtypes = common + [ctypes.POINTER(p), p, p, p, p]
+    lib.nsf_psi_streams_bwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p, p, p, p]
     lib.nsf_psi_streams_bwd.restype = i
     lib.nsf_psi_streams_smem_bytes.argtypes = [i, i, i]
     lib.nsf_psi_streams_smem_bytes.restype = i
-    lib.nsf_psi_streams_scratch_floats.argtypes = [i, i, i]
-    lib.nsf_psi_streams_scratch_floats.restype = ctypes.c_long
+    lib.nsf_psi_streams_bwd_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.nsf_psi_streams_bwd_smem_bytes.restype = i
+    lib.nsf_psi_streams_tape_floats.argtypes = [i, i, i]
+    lib.nsf_psi_streams_tape_floats.restype = ctypes.c_long
+    lib.nsf_psi_streams_weight_bytes.argtypes = [i, i, i]
+    lib.nsf_psi_streams_weight_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -127,13 +229,14 @@ def _pointers(tensors):
 
 def psi_fwd(flat: torch.Tensor, sizes: Sequence[int],
             x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Kernel 5: the thirteen raw [N,K] streams."""
-    n, tile = _check_inputs(flat, sizes, x, pick_tile=pick_tile)
+    """Kernel 5: the thirteen raw [N,K] streams (exact fp32)."""
+    n = _check_inputs(flat, sizes, x)
+    tile = pick_tile(sizes[1], sizes[-1])
     out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=x.device)
                 for _ in range(N_PSI_STREAMS))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _lib().nsf_psi_streams_fwd(*_launch_args(flat, sizes, x, tile),
+        code = _lib().nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), tile, PARTIAL_BLOCKS,
                                           _pointers(out), stream)
     _raise_on(code, "psi streams forward")
     launch_counts["psi_streams_fwd"] += 1
@@ -141,45 +244,52 @@ def psi_fwd(flat: torch.Tensor, sizes: Sequence[int],
 
 
 def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-            cts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Kernel 6: the gradient wrt the flat weights from thirteen [N,K] cotangents."""
+            cts: Sequence[torch.Tensor], precision: str = "high") -> torch.Tensor:
+    """Kernel 6: the gradient wrt the flat weights from thirteen [N,K]
+    cotangents, at the name's bf16 passes."""
     if len(cts) != N_PSI_STREAMS:
         raise ValueError(f"need the {N_PSI_STREAMS} streams' cotangents, got {len(cts)}")
-    n, tile = _check_inputs(flat, sizes, x, cts, pick_tile)
-    p, dev = param_count(sizes), x.device
-    block_floats = _lib().nsf_psi_streams_scratch_floats(tile, sizes[1], len(sizes) - 2)
-    scratch = torch.empty(PARTIAL_BLOCKS * block_floats, dtype=torch.float32, device=dev)
-    dpart = torch.empty(PARTIAL_BLOCKS * p, dtype=torch.float32, device=dev)
+    _check_precision(precision)
+    n = _check_inputs(flat, sizes, x, cts)
+    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+    tile, panel = pick_bwd_tile(h, precision, k)
+    parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
+    tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(tile, h, n_hidden),
+                       dtype=torch.float32, device=dev)
+    wsplit = torch.empty(lib.nsf_psi_streams_weight_bytes(n_hidden, h, parts), dtype=torch.uint8,
+                         device=dev)
+    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _lib().nsf_psi_streams_bwd(*_launch_args(flat, sizes, x, tile), _pointers(cts),
-                                          scratch.data_ptr(), dpart.data_ptr(),
-                                          dflat.data_ptr(), stream)
+        code = lib.nsf_psi_streams_bwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
+                                       parts, wsplit.data_ptr(), _pointers(cts), tape.data_ptr(),
+                                       dpart.data_ptr(), dflat.data_ptr(), stream)
     _raise_on(code, "psi streams backward")
     launch_counts["psi_streams_bwd"] += 1
     return dflat
 
 
 class _PsiStreams(torch.autograd.Function):
-    """Kernel 5 forward, kernel 6 backward (the custom_vjp of
-    pallas_psi.py:360-371). Gradients flow to flat only. The bundle never
-    reads a_p and a_m, and p has no second or third derivatives, so several
-    cotangents arrive as zeros (autograd materialises them) or scattered
-    from column slices: each is made contiguous fp32 before the kernel
-    reads it."""
+    """Kernel 5 forward, kernel 6 backward at the precision name (the
+    custom_vjp of pallas_psi.py:360-371). Gradients flow to flat only. The
+    bundle never reads a_p and a_m, and p has no second or third
+    derivatives, so several cotangents arrive as zeros (autograd
+    materialises them) or scattered from column slices: each is made
+    contiguous fp32 before the kernel reads it."""
 
     @staticmethod
-    def forward(ctx, flat, x, sizes):
+    def forward(ctx, flat, x, sizes, precision):
         ctx.save_for_backward(flat, x)
-        ctx.sizes = sizes
+        ctx.meta = (sizes, precision)
         return psi_fwd(flat, sizes, x)
 
     @staticmethod
     def backward(ctx, *cts):
         flat, x = ctx.saved_tensors
+        sizes, precision = ctx.meta
         cts = [c.to(torch.float32).contiguous() for c in cts]
-        return psi_bwd(flat, ctx.sizes, x, cts), None, None
+        return psi_bwd(flat, sizes, x, cts, precision), None, None, None
 
 
 def psi_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -188,13 +298,13 @@ def psi_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     the (psi, p) MLP whose flat weights are `flat` (models/mlp.py layout,
     `sizes` its layer sizes, K = 2): the contract of mlp_psi_derivatives_2d.
     Differentiable wrt `flat` only. On a card the batch must be padded to
-    ROW_ALIGN rows."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    ROW_ALIGN rows and the backward runs the bf16 passes of `precision`; on
+    the CPU the plain version computes exact fp32."""
+    _check_precision(precision)
     if sizes[-1] != 2:
         raise ValueError(f"the streamfunction bundle needs a (psi, p) head, got K = {sizes[-1]}")
     if x.device.type == "cpu":
         raw = plain_psi_streams(flat, sizes, x.detach())
     else:
-        raw = _PsiStreams.apply(flat, x, tuple(sizes))
+        raw = _PsiStreams.apply(flat, x, tuple(sizes), precision)
     return assemble_psi_bundle(raw, uv_scale)

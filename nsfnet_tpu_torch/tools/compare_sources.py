@@ -6,19 +6,21 @@
 Builds the libraries from this checkout's csrc/ and from the given directory
 (for example the csrc/ of an earlier commit, unpacked with `git archive`),
 runs the chosen kernels from both builds on the same seeded inputs on the
-card and compares their outputs:
+card and compares their outputs, at 6x80 / N = 120,000 and 4x120 /
+N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 at
+6x80 with EVM only):
 
-  * kernels 3-6 (the five-stream and order-3 engines) must be bitwise equal
-    (torch.equal), at 6x80 / N = 120,000 and 4x120 / N = 40,000 (K = 3 for
-    kernels 3+4, K = 2 for kernels 5+6);
-  * kernels 1+2 (the fused residual-loss pair, 6x80 / N = 120,000 with EVM)
-    are reported as the largest relative difference, max|a - b| / max|b|
-    per output, at the precision name "high". A copy of the sources from
-    before the tensor-core pair (its C interface has no tile panel and no
-    precision) computes exact fp32 and is called through that interface.
+  * a kernel whose design is the same in both copies must be bitwise equal
+    (torch.equal); the tensor-core kernels (1, 2, 4, 6) run at the
+    precision name "high";
+  * a kernel of the other copy from before its tensor-core design (kernels
+    1+2 before the tensor-core pair, kernels 4 and 6 before the tensor-core
+    backwards: exact fp32 on the CUDA cores, called through their old C
+    interfaces) is reported as the largest relative difference,
+    max|a - b| / max|b| per output.
 
-Exits 1 when a kernel of 3-6 differs. Use it after touching a header the
-kernels share.
+Exits 1 when a kernel that must be bitwise equal differs. Use it after
+touching a header the kernels share.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from nsfnet_tpu_torch.ops import mlp_streams as ms
 from nsfnet_tpu_torch.ops import psi_streams as psi
 
 CASES = {"6x80": 120_000, "4x120": 40_000}
-LEGACY_BLOCKS = 264  # the CUDA-core pair's fixed grid
+LEGACY_BLOCKS = 264  # the CUDA-core kernels' fixed grid
 
 
 def _inputs(sizes, n, dev):
@@ -75,8 +77,45 @@ def _legacy_pair(lib, flat, sizes, x, e, vis_t, eq_w, re, ct):
     return [sums], [dflat, g_e]
 
 
+def _legacy_engine(lib, prefix, flat, sizes, x, cts, tile):
+    """Forward and backward of a stream engine (prefix nsf_mlp_streams or
+    nsf_psi_streams) whose backward predates the tensor cores: the forward
+    through the interface it still has, the CUDA-core backward (exact fp32,
+    264 blocks, block-private scratch) through its old one."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n, dev, nparam = x.shape[0], x.device, param_count(sizes)
+    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+    psi_engine = prefix == "nsf_psi_streams"
+    ptrs = (lambda ts: [(p * len(ts))(*(t.data_ptr() for t in ts))]) if psi_engine else \
+        (lambda ts: [t.data_ptr() for t in ts])
+    ptr_types = [ctypes.POINTER(p)] if psi_engine else [p] * len(cts)
+    fwd, bwd = getattr(lib, prefix + "_fwd"), getattr(lib, prefix + "_bwd")
+    floats = getattr(lib, prefix + "_scratch_floats")
+    common = [p, p, i, i, i, i, i, i]
+    fwd.argtypes = common + ptr_types + [p]
+    bwd.argtypes = common + ptr_types + [p, p, p, p]
+    floats.argtypes, floats.restype = [i, i, i], ctypes.c_long
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [x.data_ptr(), flat.data_ptr(), n, n_hidden, h, k, tile, LEGACY_BLOCKS]
+    outs = [torch.empty((n, k), device=dev) for _ in cts]
+    scratch = torch.empty(LEGACY_BLOCKS * floats(tile, h, n_hidden), device=dev)
+    dpart, dflat = torch.empty(LEGACY_BLOCKS * nparam, device=dev), torch.empty(nparam, device=dev)
+    codes = (fwd(*args, *ptrs(outs), stream),
+             bwd(*args, *ptrs(cts), scratch.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
+                 stream))
+    if any(codes):
+        raise RuntimeError(f"legacy {prefix}: CUDA errors {codes}")
+    return outs, [dflat]
+
+
+def _modern(csrc: Path, source: str, header: str) -> bool:
+    return f'"{header}"' in (csrc / source).read_text()
+
+
 def run_kernels(csrc: Path, kernels) -> dict:
-    """Outputs of the chosen kernels built from `csrc`, by case and kernel."""
+    """Outputs of the chosen kernels built from `csrc`, by case and kernel:
+    (name, tensors, bitwise) with bitwise False for a design from before the
+    tensor cores."""
     _build.CSRC = Path(csrc).resolve()
     _build._loaded.clear()
     for mod in (fr, ms, psi):
@@ -90,29 +129,37 @@ def run_kernels(csrc: Path, kernels) -> dict:
         vis_t = (0.01 * torch.rand((n, 1), generator=g)).to(dev)
         eq_w = (0.2 + torch.rand((n, 1), generator=g)).to(dev)
         ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev) / n
-        if "tc_mlp.cuh" in (_build.CSRC / "fused_residual.cu").read_text():
+        modern = _modern(_build.CSRC, "fused_residual.cu", "tc_mlp.cuh")
+        if modern:
             args = (flat, sizes, x, e, vis_t, eq_w, 2000.0)
             fwd = [fr.fused_fwd(*args, 1.0, True, "high")]
             bwd = list(fr.fused_bwd(*args, ct, 1.0, True, "high"))
         else:
             fwd, bwd = _legacy_pair(_build.load("fused_residual"), flat, sizes, x, e, vis_t,
                                     eq_w, 2000.0, ct)
-        out["6x80"] = {1: ("fused_residual_fwd", fwd), 2: ("fused_residual_bwd", bwd)}
+        out["6x80"] = {1: ("fused_residual_fwd", fwd, modern),
+                       2: ("fused_residual_bwd", bwd, modern)}
+    engines = ((3, 4, 3, 5, "mlp_streams", ms.streams_fwd, ms.streams_bwd, ms.pick_tile,
+                "tc_mlp.cuh"),
+               (5, 6, 2, 13, "psi_streams", psi.psi_fwd, psi.psi_bwd, psi.pick_tile,
+                "tc_psi.cuh"))
     for case, n in CASES.items():
         got = out.setdefault(case, {})
         depth, width = (6, 80) if case == "6x80" else (4, 120)
-        if kernels & {3, 4}:
-            sizes = layer_sizes(2, 3, depth, width)
+        for kf, kb, k, n_streams, name, fwd, bwd, pick_tile, header in engines:
+            if not kernels & {kf, kb}:
+                continue
+            sizes = layer_sizes(2, k, depth, width)
             g, flat, x = _inputs(sizes, n, dev)
-            cts = [torch.randn((n, 3), generator=g).to(dev) for _ in range(5)]
-            got[3] = ("mlp_streams_fwd", list(ms.streams_fwd(flat, sizes, x)))
-            got[4] = ("mlp_streams_bwd", [ms.streams_bwd(flat, sizes, x, cts)])
-        if kernels & {5, 6}:
-            sizes = layer_sizes(2, 2, depth, width)
-            g, flat, x = _inputs(sizes, n, dev)
-            cts = [torch.randn((n, 2), generator=g).to(dev) for _ in range(13)]
-            got[5] = ("psi_streams_fwd", list(psi.psi_fwd(flat, sizes, x)))
-            got[6] = ("psi_streams_bwd", [psi.psi_bwd(flat, sizes, x, cts)])
+            cts = [torch.randn((n, k), generator=g).to(dev) for _ in range(n_streams)]
+            modern = _modern(_build.CSRC, f"{name}.cu", header)
+            if modern:
+                outs, grads = list(fwd(flat, sizes, x)), [bwd(flat, sizes, x, cts, "high")]
+            else:
+                outs, grads = _legacy_engine(_build.load(name), f"nsf_{name}", flat, sizes, x,
+                                             cts, pick_tile(width, k))
+            got[kf] = (f"{name}_fwd", outs, True)
+            got[kb] = (f"{name}_bwd", grads, modern)
     torch.cuda.synchronize()
     return {case: {k: v for k, v in got.items() if k in kernels} for case, got in out.items()}
 
@@ -139,13 +186,13 @@ def main(argv=None) -> int:
             mod._lib.cache_clear()
     same = True
     for case, got in mine.items():
-        for k, (name, tensors) in sorted(got.items()):
-            ref = theirs[case][k][1]
-            if k in (1, 2):
+        for k, (name, tensors, _) in sorted(got.items()):
+            _, ref, bitwise = theirs[case][k]
+            if not bitwise:
                 rel = max(((t - r).abs().max() / r.abs().max()).item()
                           for t, r in zip(tensors, ref))
                 print(f"{name} {case}: max relative difference from the build from "
-                      f"{a.csrc}: {rel:.3e}")
+                      f"{a.csrc} (its design predates the tensor cores): {rel:.3e}")
                 continue
             eq = all(torch.equal(t, r) for t, r in zip(tensors, ref))
             same = same and eq

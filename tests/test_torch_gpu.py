@@ -53,6 +53,11 @@ CASES = [((2, 16, 16, 3), 528, 2.0, 100.0, True),
 # plain version at the same name: only the order of fp32 sums differs, and at
 # "default" a one-ulp bf16 flip where an fp32 carry lies on a rounding edge
 TOL = {"highest": 2e-5, "high": 2e-5, "default": 1e-4}
+# kernels 4 and 6 against random cotangents: at "default" a carry on a bf16
+# rounding edge that flips moves the point's later carries by ~2^-8 and can
+# flip more of them, and random cotangents sum with cancellation, so a few
+# flipped points reach ~2e-4 of a gradient tensor's max (measured on the card)
+BWD_TOL = {**TOL, "default": 5e-4}
 
 
 def _rel(a, b):
@@ -173,6 +178,13 @@ def _stream_inputs(sizes, n, dev, seed=0):
     return flat, x, cts
 
 
+def _assert_grads_match_passes(dflat, ref, sizes, precision, tol=TOL):
+    """Per gradient tensor, max|diff| / max|plain| within tol[precision]."""
+    for (kw, kb), (pw, pb) in zip(unflatten_params(dflat, sizes), unflatten_params(ref, sizes)):
+        assert _rel(kw, pw) <= tol[precision] and _rel(kb, pb) <= tol[precision], \
+            (_rel(kw, pw), _rel(kb, pb))
+
+
 @pytest.mark.parametrize("sizes,n", STREAM_CASES)
 def test_stream_kernels_match_plain_version(cuda, sizes, n):
     flat, x, cts = _stream_inputs(sizes, n, cuda)
@@ -182,21 +194,41 @@ def test_stream_kernels_match_plain_version(cuda, sizes, n):
     for g, r in zip(got, ref):
         # fp32 products summed in another order (the CPU bar against JAX)
         torch.testing.assert_close(g, r, rtol=2e-5, atol=1e-6)
-    dflat = ms.streams_bwd(flat, sizes, x, cts)
-    ref = ms.plain_mlp_streams_bwd(flat, sizes, x, cts)
-    for (gw, gb), (rw, rb) in zip(unflatten_params(dflat, sizes), unflatten_params(ref, sizes)):
-        # n-point sums of O(1) terms: the floor is relative to each tensor's size
-        tol = 1e-5 * max(rw.abs().max().item(), 1.0)
-        torch.testing.assert_close(gw, rw, rtol=5e-4, atol=tol)
-        torch.testing.assert_close(gb, rb, rtol=5e-4, atol=tol)
+    dflat = ms.streams_bwd(flat, sizes, x, cts, "high")
+    _assert_grads_match_passes(dflat, ms.plain_mlp_streams_bwd(flat, sizes, x, cts, "high"),
+                               sizes, "high")
 
 
-def test_stream_kernels_are_bitwise_deterministic(cuda):
+# Kernel 4 at each name: widths 16 / 24 / 40 / 80 / 120, K = 1, 2, 3 and 5
+# (a width without its own template), a one-hidden-layer net; n = 528, 1040
+# and 272 leave a ragged last tile after the 32-point tiles.
+STREAM_BWD_CASES = [((2, 16, 16, 3), 528), ((2, 24, 24, 2), 512), ((2, 40, 40, 40, 1), 272),
+                    ((2, 80, 80, 80, 3), 1040), ((2, 120, 120, 120, 3), 528), ((2, 16, 3), 272),
+                    ((2, 32, 32, 5), 512)]
+
+
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+@pytest.mark.parametrize("sizes,n", STREAM_BWD_CASES)
+def test_stream_backward_matches_plain_passes(cuda, sizes, n, precision):
+    flat, x, cts = _stream_inputs(sizes, n, cuda, seed=5)
+    dflat = ms.streams_bwd(flat, sizes, x, cts, precision)
+    _assert_grads_match_passes(dflat, ms.plain_mlp_streams_bwd(flat, sizes, x, cts, precision),
+                               sizes, precision, BWD_TOL)
+    if precision == "high":  # and within the smoke's bar of exact fp32
+        exact = ms.plain_mlp_streams_bwd(flat, sizes, x, cts)
+        for (kw, kb), (pw, pb) in zip(unflatten_params(dflat, sizes),
+                                      unflatten_params(exact, sizes)):
+            assert _rel(kw, pw) <= 1e-4 and _rel(kb, pb) <= 1e-4
+
+
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+def test_stream_kernels_are_bitwise_deterministic(cuda, precision):
     sizes = (2, 120, 120, 120, 3)
     flat, x, cts = _stream_inputs(sizes, 8192, cuda, seed=1)
     a, b = ms.streams_fwd(flat, sizes, x), ms.streams_fwd(flat, sizes, x)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
-    assert torch.equal(ms.streams_bwd(flat, sizes, x, cts), ms.streams_bwd(flat, sizes, x, cts))
+    assert torch.equal(ms.streams_bwd(flat, sizes, x, cts, precision),
+                       ms.streams_bwd(flat, sizes, x, cts, precision))
 
 
 def test_stream_autograd_takes_partial_and_strided_cotangents(cuda):
@@ -209,10 +241,31 @@ def test_stream_autograd_takes_partial_and_strided_cotangents(cuda):
     ms.reset_launch_counts()
     (g,) = torch.autograd.grad(loss(ms.mlp_streams(flat, sizes, x)), [flat])
     assert ms.launch_counts == {"mlp_streams_fwd": 1, "mlp_streams_bwd": 1}
-    (ref,) = torch.autograd.grad(loss(ms.plain_mlp_streams(flat, sizes, x)), [flat])
+    # the plain version at the entry point's name, "high"; the forward is exact
+    # fp32 on both sides, so only the backward's passes are emulated
+    (ref,) = torch.autograd.grad(
+        loss(fr.emulated_derivatives(unflatten_params(flat, sizes), x, fr.PARTS["high"])), [flat])
     torch.testing.assert_close(g, ref, rtol=5e-4, atol=2e-6)
     with pytest.raises(ValueError):  # unpadded batch: refused, no plain fallback
         ms.mlp_streams(flat, sizes, x[:250])
+
+
+def test_precision_name_reaches_the_backward_kernels(cuda):
+    """Through autograd, the entry points hand their name to kernels 4 and
+    6: one bf16 pass is not the three of "high"."""
+    for mod, engine, sizes in ((ms, ms.mlp_streams, (2, 16, 16, 3)),
+                               (psi, psi.psi_streams, (2, 16, 16, 2))):
+        flat, x, _ = _stream_inputs(sizes, 256, cuda, seed=3)
+        flat.requires_grad_(True)
+        grads = {}
+        for name in ("default", "high"):
+            mod.reset_launch_counts()
+            bundle = engine(flat, sizes, x, precision=name)
+            (grads[name],) = torch.autograd.grad(sum((b ** 2).sum() for b in bundle), [flat])
+            assert all(v == 1 for v in mod.launch_counts.values()), mod.launch_counts
+        assert not torch.equal(grads["default"], grads["high"])
+        with pytest.raises(ValueError, match="precision"):
+            engine(flat, sizes, x, precision="fp64")
 
 
 def _cavity_run(dev, **kw):
@@ -231,7 +284,7 @@ def _cavity_run(dev, **kw):
 def test_unfused_engine_matches_fused_loss_on_the_card(cuda, monkeypatch):
     """N_f = 500 pads to 512: kernels 3+4 -> residuals -> masked sums
     against kernels 1+2, the same four Adam steps, both about exact fp32
-    (kernels 3+4 compute fp32 at every name; kernels 1+2 at "highest")."""
+    (kernel 3 computes fp32 at every name; kernels 1, 2 and 4 at "highest")."""
     monkeypatch.delenv("NSFNET_FUSED_LOSS", raising=False)
     fr.reset_launch_counts()
     fused, p_fused = _cavity_run("cuda", engine="pallas", matmul_precision="highest")
@@ -270,14 +323,6 @@ def _psi_inputs(sizes, n, dev, seed=0):
     return flat, x, cts
 
 
-def _assert_grads_close(dflat, ref, sizes):
-    for (gw, gb), (rw, rb) in zip(unflatten_params(dflat, sizes), unflatten_params(ref, sizes)):
-        # n-point sums of O(1) terms: the floor is relative to each tensor's size
-        tol = 1e-5 * max(rw.abs().max().item(), 1.0)
-        torch.testing.assert_close(gw, rw, rtol=5e-4, atol=tol)
-        torch.testing.assert_close(gb, rb, rtol=5e-4, atol=tol)
-
-
 @pytest.mark.parametrize("sizes,n", PSI_CASES)
 def test_psi_kernels_match_plain_version(cuda, sizes, n):
     flat, x, cts = _psi_inputs(sizes, n, cuda)
@@ -289,8 +334,31 @@ def test_psi_kernels_match_plain_version(cuda, sizes, n):
         # fp32 products summed in another order; third-order streams are
         # O(10) here, so the floor is relative to each stream's size
         torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-6 * max(r.abs().max().item(), 1.0))
-    _assert_grads_close(psi.psi_bwd(flat, sizes, x, cts),
-                        psi.plain_psi_streams_bwd(flat, sizes, x, cts), sizes)
+    _assert_grads_match_passes(psi.psi_bwd(flat, sizes, x, cts, "high"),
+                               psi.plain_psi_streams_bwd(flat, sizes, x, cts, "high"), sizes,
+                               "high")
+
+
+# Kernel 6 at each name: widths 16 / 24 / 40 / 80 / 120 (16- and 8-point
+# tiles, whole weights and panels), K = 2 and K = 1, 3 (no template of
+# their own), a one-hidden-layer net.
+PSI_BWD_CASES = [((2, 16, 16, 2), 256), ((2, 24, 24, 24, 2), 512), ((2, 40, 40, 40, 2), 512),
+                 ((2, 80, 80, 80, 2), 528), ((2, 120, 120, 120, 2), 1040), ((2, 16, 2), 256),
+                 ((2, 32, 32, 1), 272), ((2, 32, 32, 3), 256)]
+
+
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+@pytest.mark.parametrize("sizes,n", PSI_BWD_CASES)
+def test_psi_backward_matches_plain_passes(cuda, sizes, n, precision):
+    flat, x, cts = _psi_inputs(sizes, n, cuda, seed=5)
+    dflat = psi.psi_bwd(flat, sizes, x, cts, precision)
+    _assert_grads_match_passes(dflat, psi.plain_psi_streams_bwd(flat, sizes, x, cts, precision),
+                               sizes, precision, BWD_TOL)
+    if precision == "high":  # and within the smoke's bar of exact fp32
+        exact = psi.plain_psi_streams_bwd(flat, sizes, x, cts)
+        for (kw, kb), (pw, pb) in zip(unflatten_params(dflat, sizes),
+                                      unflatten_params(exact, sizes)):
+            assert _rel(kw, pw) <= 1e-4 and _rel(kb, pb) <= 1e-4
 
 
 def test_psi_kernels_take_zero_cotangents(cuda):
@@ -299,20 +367,69 @@ def test_psi_kernels_take_zero_cotangents(cuda):
     sizes, n = (2, 32, 32, 32, 2), 512
     flat, x, cts = _psi_inputs(sizes, n, cuda, seed=4)
     cts[3], cts[4] = torch.zeros_like(cts[3]), torch.zeros_like(cts[4])
-    _assert_grads_close(psi.psi_bwd(flat, sizes, x, cts),
-                        psi.plain_psi_streams_bwd(flat, sizes, x, cts), sizes)
+    _assert_grads_match_passes(psi.psi_bwd(flat, sizes, x, cts, "high"),
+                               psi.plain_psi_streams_bwd(flat, sizes, x, cts, "high"), sizes,
+                               "high")
     only = [torch.zeros_like(c) for c in cts]
     only[11] = cts[11]
-    _assert_grads_close(psi.psi_bwd(flat, sizes, x, only),
-                        psi.plain_psi_streams_bwd(flat, sizes, x, only), sizes)
+    _assert_grads_match_passes(psi.psi_bwd(flat, sizes, x, only, "high"),
+                               psi.plain_psi_streams_bwd(flat, sizes, x, only, "high"), sizes,
+                               "high")
 
 
-def test_psi_kernels_are_bitwise_deterministic(cuda):
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+def test_psi_kernels_are_bitwise_deterministic(cuda, precision):
     sizes = (2, 80, 80, 80, 2)
     flat, x, cts = _psi_inputs(sizes, 8192, cuda, seed=1)
     a, b = psi.psi_fwd(flat, sizes, x), psi.psi_fwd(flat, sizes, x)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
-    assert torch.equal(psi.psi_bwd(flat, sizes, x, cts), psi.psi_bwd(flat, sizes, x, cts))
+    assert torch.equal(psi.psi_bwd(flat, sizes, x, cts, precision),
+                       psi.psi_bwd(flat, sizes, x, cts, precision))
+
+
+@pytest.mark.parametrize("h", [16, 40, 80, 120, 128, 160, 192])
+def test_backward_tile_choice_agrees_with_the_library(cuda, h):
+    """Kernels 4 and 6 size their blocks without the libraries; the sources
+    own the layouts (tc_smem, psi_smem)."""
+    hp = -(-h // 16) * 16
+    panels = [p for p in range(16, hp + 1, 16) if hp % p == 0]
+    for parts in (1, 2, 3):
+        for k in (1, 2, 3):
+            for panel in panels:
+                for tile in fr.LOSS_TILES:
+                    assert (ms._lib().nsf_mlp_streams_bwd_smem_bytes(tile, panel, h, k, parts)
+                            == fr.loss_smem_bytes(tile, panel, h, parts, k))
+                for tile in psi.PSI_BWD_TILES:
+                    assert (psi._lib().nsf_psi_streams_bwd_smem_bytes(tile, panel, h, k, parts)
+                            == psi.bwd_smem_bytes(tile, panel, h, parts, k))
+    for name in fr.PRECISIONS:
+        for k in (2, 3):
+            for pick, count in ((ms.pick_bwd_tile, fr.loss_smem_bytes),
+                                (psi.pick_bwd_tile, psi.bwd_smem_bytes)):
+                try:
+                    tile, panel = pick(h, name, k)
+                except ValueError:
+                    continue
+                assert count(tile, panel, h, fr.PARTS[name], k) <= fr._MAX_SMEM
+
+
+def test_backward_widths_and_names(cuda):
+    """Every name launches kernels 4 and 6 at the configs' widths (4x40,
+    6x80, 4x120); a width and name that fits no layout raises, naming both."""
+    for h in (40, 80, 120):
+        for name in fr.PRECISIONS:
+            ms.pick_bwd_tile(h, name)
+            psi.pick_bwd_tile(h, name)
+    assert psi.pick_bwd_tile(80, "high") == (16, 80)
+    assert psi.pick_bwd_tile(80, "highest")[0] == psi.pick_bwd_tile(120, "high")[0] == 8
+    sizes = (2, 160, 160, 2)
+    flat, x, cts = _psi_inputs(sizes, 256, cuda)
+    with pytest.raises(ValueError, match=r"160 at precision 'highest'"):
+        psi.psi_bwd(flat, sizes, x, cts, "highest")
+    sizes = (2, 208, 208, 3)
+    flat, x, cts = _stream_inputs(sizes, 256, cuda)
+    with pytest.raises(ValueError, match=r"208 at precision 'highest'"):
+        ms.streams_bwd(flat, sizes, x, cts, "highest")
 
 
 @pytest.mark.parametrize("h", [16, 40, 80, 109, 110, 120, 128])
@@ -348,7 +465,11 @@ def test_psi_autograd_takes_the_bundle_cotangents(cuda):
     ref_bundle = mlp_psi_derivatives_2d(unflatten_params(flat, sizes), x, 2.0)
     for got, ref in zip(bundle, ref_bundle):
         torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6 * max(ref.abs().max().item(), 1.0))
-    (ref,) = torch.autograd.grad(_momentum_loss(ref_bundle), [flat])
+    # the gradient against the plain version at the entry point's name, "high"
+    from nsfnet_tpu_torch.ops.derivatives import assemble_psi_bundle
+    emulated = assemble_psi_bundle(
+        psi.emulated_psi_streams(unflatten_params(flat, sizes), x, fr.PARTS["high"]), 2.0)
+    (ref,) = torch.autograd.grad(_momentum_loss(emulated), [flat])
     torch.testing.assert_close(g, ref, rtol=5e-4, atol=5e-6)
     with pytest.raises(ValueError):  # unpadded batch: refused, no plain fallback
         psi.psi_streams(flat, sizes, x[:250])
