@@ -9,10 +9,10 @@ Phases (any failure exits non-zero before the result line):
      process per source, all at once), and show ptxas's registers / shared
      memory / spills;
   3. hold each kernel against its plain PyTorch version on the card at full
-     width, and check that two runs are bitwise equal. Every tensor-core
-     kernel (1, 2, 4, 6) runs at each precision name against the plain
-     version's bf16 passes at the same name, and at "high" also against the
-     exact fp32 plain version: the fused residual-loss pair (kernels 1+2) at
+     width, and check that two runs are bitwise equal. Every kernel runs at
+     each precision name against the plain version's bf16 passes at the
+     same name, and at "high" also against the exact fp32 plain version:
+     the fused residual-loss pair (kernels 1+2) at
      the flagship width (6x80 MLP, N_f = 120,000 SDF-weighted points, EVM
      on, Re = 2000); the five-stream engine (kernels 3+4) at that width and
      at the vanilla NSFnet width (4x120 MLP, N_f = 40,000), with random
@@ -43,10 +43,10 @@ Phases (any failure exits non-zero before the result line):
            on a small input;
      metrics must be finite, the loss must fall, and each path must have
      launched its kernels once per step and the other pairs not at all;
-  5. times: each kernel, its plain version and its bound (the tensor-core
-     kernels 1, 2, 4, 6 at each precision name, bound at that name's bf16
-     pass count beside the fp32 bound; the tape and partial bytes of kernels
-     2 and 6 per launch), and the step time and collocation points/s of the
+  5. times: each kernel, its plain version and its bound (every kernel at
+     each precision name, bound at that name's bf16 pass count beside the
+     fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
+     and the step time and collocation points/s of the
      three paths, beside the card's name and power limit; the profiler's
      table for each path's step.
 Prints a `kernels` JSON line, then, last, the device JSON line. Also writes
@@ -77,6 +77,9 @@ BWD_TOL = 1e-4   # max |diff| / max |plain| of each gradient tensor and of g_e
 # kernels 4 and 6 at "default" against the plain version's one pass: rounding-
 # edge cascades under random cotangents (PERF.md, section 6)
 DEFAULT_BWD_TOL = 1e-3
+# kernels 3 and 5: at "default" per stream norm-wise against the plain
+# version's one pass, and at "high" their separation from exact fp32, take
+# the bars of nsfnet_tpu_torch/ops/pass_checks.py (PERF.md, section 6)
 SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
 UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
 ENGINE_TOL = 1e-4   # streamfunction step, kernel engine vs closed form: metrics, gradient tensors
@@ -171,12 +174,19 @@ def profile_steps(torch, solver, card, what, n_steps=5):
     if not rows:
         print(f"profile {what}: no device time in the trace (not measured)")
         return None
+    # every launch of kernels 1-6 splits the hidden weights first (split_weights)
+    split = [ev for ev in prof.key_averages() if "split_weights" in ev.key
+             and ev.device_type == torch.autograd.DeviceType.CUDA]
+    split_ms = sum(dev_us(ev) for ev in split) / 1e3 / n_steps
+    split_n = sum(ev.count for ev in split) / n_steps
     print(f"profile {what} ({n_steps} steps, under the profiler): "
           f"{wall_ms / n_steps:.3f} ms/step wall, device busy {busy:.3f} ms/step "
           f"({100 * busy * n_steps / wall_ms:.1f}%) — {card}")
     for name, ms in rows[:10]:
         print(f"  {ms:9.4f} ms/step  {name[:90]}")
+    print(f"  split_weights: {split_n:g} launches/step, {1e3 * split_ms:.2f} us/step")
     return {"wall_ms_per_step": wall_ms / n_steps, "busy_ms_per_step": busy,
+            "split_weights_per_step": split_n, "split_weights_ms_per_step": split_ms,
             "top": rows[:20]}
 
 
@@ -223,6 +233,7 @@ def main() -> int:
     from nsfnet_tpu_torch.ops import _build
     from nsfnet_tpu_torch.ops import fused_residual as fr
     from nsfnet_tpu_torch.ops import mlp_streams as ms
+    from nsfnet_tpu_torch.ops import pass_checks as pc
     from nsfnet_tpu_torch.ops import psi_streams as psi
     from nsfnet_tpu_torch.ops.derivatives import assemble_psi_bundle
     from nsfnet_tpu_torch.train import build_data, build_solver, unsupported
@@ -272,18 +283,12 @@ def main() -> int:
     sizes = layer_sizes(2, 3, 6, 80)
     sizes_v1 = layer_sizes(2, 3, 4, 120)
     for h in (80, 120):
-        tile = ms.pick_tile(h)
-        smem = ms.smem_bytes(tile, h)
-        assert ms._lib().nsf_mlp_streams_smem_bytes(tile, h, 3) == smem
-        print(f"width {h}, kernel 3: tile {tile} points, {smem} B shared memory per block, "
-              f"{fr.PARTIAL_BLOCKS} blocks")
         for name in fr.PRECISIONS:
             tile, panel = ms.pick_bwd_tile(h, name)
             smem = fr.loss_smem_bytes(tile, panel, h, fr.PARTS[name])
-            assert ms._lib().nsf_mlp_streams_bwd_smem_bytes(tile, panel, h, 3,
-                                                             fr.PARTS[name]) == smem
-            print(f"width {h}, kernel 4 at {name!r}: tile {tile} points, weight panel {panel}, "
-                  f"{smem} B shared memory per block, {fr.LOSS_BLOCKS} blocks")
+            assert ms._lib().nsf_mlp_streams_smem_bytes(tile, panel, h, 3, fr.PARTS[name]) == smem
+            print(f"width {h}, kernels 3+4 at {name!r}: tile {tile} points, weight panel "
+                  f"{panel}, {smem} B shared memory per block, {fr.LOSS_BLOCKS} blocks")
     for h in (80, 160):
         for name in fr.PRECISIONS:
             tile, panel = fr.pick_loss_tile(h, name)
@@ -292,17 +297,12 @@ def main() -> int:
             print(f"width {h}, kernels 1+2 at {name!r}: tile {tile} points, weight panel "
                   f"{panel}, {smem} B shared memory per block, {fr.LOSS_BLOCKS} blocks")
     for h in (40, 80, 120):
-        tile = psi.pick_tile(h)
-        smem = psi.smem_bytes(tile, h)
-        assert psi._lib().nsf_psi_streams_smem_bytes(tile, h, 2) == smem
-        print(f"width {h}, kernel 5: tile {tile} points, {smem} B shared memory per block")
         for name in fr.PRECISIONS:
             tile, panel = psi.pick_bwd_tile(h, name)
             smem = psi.bwd_smem_bytes(tile, panel, h, fr.PARTS[name])
-            assert psi._lib().nsf_psi_streams_bwd_smem_bytes(tile, panel, h, 2,
-                                                              fr.PARTS[name]) == smem
-            print(f"width {h}, kernel 6 at {name!r}: tile {tile} points, weight panel {panel}, "
-                  f"{smem} B shared memory per block, {fr.LOSS_BLOCKS} blocks")
+            assert psi._lib().nsf_psi_streams_smem_bytes(tile, panel, h, 2, fr.PARTS[name]) == smem
+            print(f"width {h}, kernels 5+6 at {name!r}: tile {tile} points, weight panel "
+                  f"{panel}, {smem} B shared memory per block, {fr.LOSS_BLOCKS} blocks")
 
     # ---- 3. kernel checks at full width
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,6 +395,72 @@ def main() -> int:
                        "plain_high_vs_exact": plain_hi, "n": n, "pad": pad}
     del exact, sums_k, dflat_k, ge_k
 
+    def check_forward(what, name, run, plain, exact, bundle=None):
+        """A forward at `name` against the plain version's passes at that
+        name (`plain(name)`), per stream, two runs bitwise; both against
+        exact fp32; with `bundle`, also the streams assembled from the
+        kernel's and the plain version's outputs. "default" is held
+        norm-wise and "high" also by its separation from exact fp32, at the
+        bars of ops/pass_checks.py, each checked to tell the name from the
+        next. The witness beside them: the plain version with its sums
+        rounded once, its distance from the plain version, and the carries
+        whose bf16 parts differ between the two."""
+        out_k, out_k2 = run(), run()
+        with torch.no_grad():
+            wit = pc.carry_flips(lambda: plain(name), exact[0].shape[0])
+            out_p = wit["fp32"]
+            outs = {"": (out_k, out_p)}
+            if bundle is not None:
+                outs["bundle_"] = (bundle(out_k), bundle(out_p))
+            other = {"high": "highest", "default": "high"}.get(name)
+            other = None if other is None else plain(other)
+        torch.cuda.synchronize()
+        f = {"abs": max((a - b).abs().max().item() for a, b in zip(out_k, out_p)),
+             "det": all(torch.equal(a, b) for a, b in zip(out_k, out_k2)),
+             "exact_rel": max(rel_max(a, b) for a, b in zip(out_k, exact)),
+             "plain_exact_rel": max(rel_max(a, b) for a, b in zip(out_p, exact)),
+             "plain_exact_norm_rel": max(pc.norm_rels(out_p, exact)),
+             "witness_norm_rel": wit["norm_rel"],
+             "kernel_witness_norm_rel": max(pc.norm_rels(out_k, wit["rounded_once"])),
+             "witness_flips": wit["flips"], "witness_points": wit["points"],
+             "witness_share": wit["share"]}
+        for tag, (ks, ps) in outs.items():
+            f[tag + "rel"] = max(rel_max(a, b) for a, b in zip(ks, ps))
+            f[tag + "norm_rel"] = max(pc.norm_rels(ks, ps))
+        gate, tol = ("norm_rel", pc.DEFAULT_NORM_TOL) if name == "default" else ("rel", FWD_TOL)
+        print(f"kernel {what} {name!r}: max rel diff {f['rel']:.3e}, norm-wise "
+              f"{f['norm_rel']:.3e}"
+              + (f"; assembled bundle {f['bundle_rel']:.3e}, norm-wise {f['bundle_norm_rel']:.3e}"
+                 if bundle is not None else "")
+              + f" (tolerance {tol:g} per stream at the same name, "
+              f"{'||diff||/||plain||' if gate == 'norm_rel' else 'max|diff|/max|plain|'}), max "
+              f"abs {f['abs']:.3e}, bitwise equal across runs: {f['det']}; against exact fp32 "
+              f"{f['exact_rel']:.3e} (the plain version's own passes {f['plain_exact_rel']:.3e}, "
+              f"norm-wise {f['plain_exact_norm_rel']:.3e})")
+        print(f"  witness, the plain version with its sums rounded once: {f['witness_norm_rel']:.3e} "
+              f"norm-wise from the plain version, the kernel {f['kernel_witness_norm_rel']:.3e} "
+              f"from it; carries whose bf16 parts differ, per product {f['witness_flips']}, on "
+              f"{f['witness_points']} of {len(exact[0])} points, which hold "
+              f"{100 * f['witness_share']:.4f}% of the squared distance")
+        ok = (all(f[tag + gate] <= tol for tag in outs) and f["det"]
+              and (name != "high" or f["exact_rel"] <= FWD_TOL))
+        if name == "high":
+            f["separation"] = pc.separation(out_k, out_p, exact)
+            f["witness_separation"] = pc.separation(wit["rounded_once"], out_p, exact)
+            f["highest_separation"] = pc.separation(other, out_p, exact)
+            print(f"  separation from exact fp32 (||. - plain|| / ||exact - plain||, rms over "
+                  f"the streams): kernel {f['separation']:.4f} (bar {pc.HIGH_SEP:g}), witness "
+                  f"{f['witness_separation']:.4f}; the plain 'highest' passes "
+                  f"{f['highest_separation']:.4f} and exact fp32 1 must miss it")
+            ok = (ok and f["separation"] <= pc.HIGH_SEP
+                  and f["highest_separation"] > pc.HIGH_SEP)
+        if name == "default":
+            f["high_vs_default_norm_rel"] = max(pc.norm_rels(other, out_p))
+            print(f"  the plain 'high' passes sit {f['high_vs_default_norm_rel']:.3e} norm-wise "
+                  f"from the plain one pass (must miss the bar {pc.DEFAULT_NORM_TOL:g})")
+            ok = ok and f["high_vs_default_norm_rel"] > pc.DEFAULT_NORM_TOL
+        return f, ok
+
     def check_backward(what, name, run, plain, sz, exact):
         """A tensor-core backward at `name` against the plain version's
         passes at that name, two runs bitwise; both against exact fp32."""
@@ -418,7 +484,7 @@ def main() -> int:
               and (name != "high" or b["exact_rel"] <= BWD_TOL))
         return b, ok
 
-    # 3b. kernels 3+4 at both widths; kernel 4 at each precision name
+    # 3b. kernels 3+4 at both widths, at each precision name
     _, n_v1, x_v1 = padded_points(ConfigManager.from_dict(V1).config, N_F_V1)
     flat_v1 = flatten_params(init_mlp(sizes_v1, torch.Generator().manual_seed(1)))
     x_v1, flat_v1 = x_v1.to(dev).contiguous(), flat_v1.to(dev)
@@ -428,19 +494,16 @@ def main() -> int:
         g = torch.Generator().manual_seed(2)
         cts = [torch.randn((xx.shape[0], 3), generator=g).to(dev) for _ in range(5)]
         stream_cts[name] = cts
-        out_k, out_k2 = ms.streams_fwd(fl, sz, xx), ms.streams_fwd(fl, sz, xx)
+        c = {"n": xx.shape[0], "fwd": {}, "bwd": {}}
         with torch.no_grad():
-            out_p = ms.plain_mlp_streams(fl, sz, xx)
-        torch.cuda.synchronize()
-        c = {"n": xx.shape[0],
-             "fwd_rel": max(rel_max(a, b) for a, b in zip(out_k, out_p)),
-             "fwd_abs": max((a - b).abs().max().item() for a, b in zip(out_k, out_p)),
-             "fwd_det": all(torch.equal(a, b) for a, b in zip(out_k, out_k2)), "bwd": {}}
-        del out_k, out_k2, out_p
-        print(f"kernel mlp_streams_fwd {name} N={c['n']}: max rel diff {c['fwd_rel']:.3e} "
-              f"(tolerance {FWD_TOL:g}, per stream max|diff|/max|plain|), max abs "
-              f"{c['fwd_abs']:.3e}, bitwise equal across runs: {c['fwd_det']}")
-        ok_check = ok_check and c["fwd_rel"] <= FWD_TOL and c["fwd_det"]
+            exact = ms.plain_mlp_streams(fl, sz, xx)
+        for prec in ("high", "highest", "default"):
+            tile, panel = ms.pick_bwd_tile(sz[1], prec)
+            c["fwd"][prec], ok = check_forward(
+                f"mlp_streams_fwd {name} N={c['n']} tile {tile} panel {panel}", prec,
+                lambda: ms.streams_fwd(fl, sz, xx, prec),
+                lambda at: ms.plain_mlp_streams(fl, sz, xx, at), exact)
+            ok_check = ok_check and ok
         exact = ms.plain_mlp_streams_bwd(fl, sz, xx, cts)
         for prec in ("high", "highest", "default"):
             c["bwd"][prec], ok = check_backward(
@@ -453,8 +516,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     record["check_streams"] = stream_chk
 
-    # 3c. kernels 5+6: raw streams, bundle, gradient (streams 3-4 zero / non-zero)
-    # at each precision name
+    # 3c. kernels 5+6 at each precision name: raw streams, bundle, gradient
+    # (streams 3-4 zero / non-zero)
     sizes_sf = layer_sizes(2, 2, 6, 80)
     sizes_sf_small, sizes_sf_wide = layer_sizes(2, 2, 4, 40), layer_sizes(2, 2, 4, 120)
     g = torch.Generator().manual_seed(3)
@@ -470,22 +533,19 @@ def main() -> int:
         cts = [torch.randn((xx.shape[0], 2), generator=g).to(dev) for _ in range(13)]
         cts_used = [torch.zeros_like(c) if q in (3, 4) else c for q, c in enumerate(cts)]
         psi_cts[name] = cts
-        out_k, out_k2 = psi.psi_fwd(fl, sz, xx), psi.psi_fwd(fl, sz, xx)
+        c = {"n": xx.shape[0], "fwd": {}, "bwd": {}}
         with torch.no_grad():
-            out_p = psi.plain_psi_streams(fl, sz, xx)
-            bun_k, bun_p = assemble_psi_bundle(out_k, 1.0), assemble_psi_bundle(out_p, 1.0)
-        c = {"n": xx.shape[0], "tile": psi.pick_tile(sz[1]),
-             "fwd_rel": max(rel_max(a, b) for a, b in zip(out_k, out_p)),
-             "fwd_abs": max((a - b).abs().max().item() for a, b in zip(out_k, out_p)),
-             "bundle_rel": max(rel_max(a, b) for a, b in zip(bun_k, bun_p)),
-             "fwd_det": all(torch.equal(a, b) for a, b in zip(out_k, out_k2)), "bwd": {}}
-        del out_k, out_k2, out_p, bun_k, bun_p
-        print(f"kernel psi_streams_fwd {name} N={c['n']} tile {c['tile']}: raw streams max rel "
-              f"diff {c['fwd_rel']:.3e}, assembled bundle {c['bundle_rel']:.3e} (tolerance "
-              f"{FWD_TOL:g}, per stream max|diff|/max|plain|), max abs {c['fwd_abs']:.3e}, "
-              f"bitwise equal across runs: {c['fwd_det']}")
-        ok_check = (ok_check and c["fwd_rel"] <= FWD_TOL and c["bundle_rel"] <= FWD_TOL
-                    and c["fwd_det"])
+            exact = psi.plain_psi_streams(fl, sz, xx)
+        for prec in ("high", "highest", "default"):
+            tile, panel = psi.pick_bwd_tile(sz[1], prec)
+            c["fwd"][prec], ok = check_forward(
+                f"psi_streams_fwd {name} N={c['n']} tile {tile} panel {panel}", prec,
+                lambda: psi.psi_fwd(fl, sz, xx, prec),
+                lambda at: psi.plain_psi_streams(fl, sz, xx, at), exact,
+                bundle=lambda raw: assemble_psi_bundle(raw, 1.0))
+            ok_check = ok_check and ok
+        del exact
+        torch.cuda.empty_cache()
         for tag, cc in (("all13", cts), ("zero34", cts_used)):
             exact = psi.plain_psi_streams_bwd(fl, sz, xx, cc)
             for prec in ("high", "highest", "default"):
@@ -644,11 +704,11 @@ def main() -> int:
     kernels, work = [], {}
 
     def add_kernel(name, source, line, launched, ms_, plain_ms, err, rel, flops, nbytes, shape,
-                   passes=None, keep=True):
+                   passes, keep=True):
         """One row: the bound at `passes` bf16 tensor-core products per fp32
-        product (kernels 1, 2, 4, 6), or at the fp32 CUDA-core peak (3, 5)."""
+        product (every kernel runs the name's passes), the fp32 bound beside it."""
         t_fp32, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-        t_ops = passes * flops / BF16_PEAK if passes else t_fp32
+        t_ops = passes * flops / BF16_PEAK
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": line,
             "launches": launched, "max_abs_err": err, "max_rel_err": rel, "ms": ms_,
@@ -657,16 +717,13 @@ def main() -> int:
             "library_ms": None, "shape": shape}
         if keep:
             kernels.append(row)
-        achieved = (passes or 1) * flops / ms_ / 1e9
+        achieved = passes * flops / ms_ / 1e9
         print(f"time {name} [{shape}]: {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{1e3 * max(t_ops, t_bytes):.4f} ms ("
-              + (f"{passes} bf16 passes at {BF16_PEAK / 1e12:g} TFLOP/s; fp32 bound "
-                 f"{1e3 * t_fp32:.4f} ms" if passes else
-                 f"fp32 {FP32_PEAK / 1e12:g} TFLOP/s; TF32 {1e3 * flops / TF32_PEAK:.4f} ms, "
-                 f"bf16 {1e3 * flops / BF16_PEAK:.4f} ms")
-              + f"; bytes {1e3 * t_bytes:.4f} ms), {achieved:.1f} TFLOP/s achieved — {card}")
+              f"{1e3 * max(t_ops, t_bytes):.4f} ms ({passes} bf16 passes at "
+              f"{BF16_PEAK / 1e12:g} TFLOP/s; fp32 bound {1e3 * t_fp32:.4f} ms; bytes "
+              f"{1e3 * t_bytes:.4f} ms), {achieved:.1f} TFLOP/s achieved — {card}")
         # worked out from the shapes, not measured: kept out of the kernels line
-        return {"flops": flops, "passes": passes or 1, "bytes": nbytes,
+        return {"flops": flops, "passes": passes, "bytes": nbytes,
                 "bound_fp32_ms": 1e3 * t_fp32, "bound_tf32_ms": 1e3 * flops / TF32_PEAK,
                 "bound_bf16_ms": 1e3 * flops / BF16_PEAK, "row": row}
 
@@ -705,9 +762,8 @@ def main() -> int:
           f"partial {traffic['cuda_core_partial_rmw'] / 1e9:.3f} GB")
     work["fused_residual_bwd_traffic"] = traffic
 
-    # kernels 3+4: the `kernels` line carries the v1 path's shape and, for
-    # kernel 4, its name "high"; the flagship width and the other names are
-    # timed beside them
+    # kernels 3+4: the `kernels` line carries the v1 path's shape at its name
+    # "high"; the flagship width and the other names are timed beside them
     src = "nsfnet_tpu_torch/csrc/mlp_streams.cu"
     stream_times = {}
     for name, (fl, sz, xx) in stream_cases.items():
@@ -715,14 +771,19 @@ def main() -> int:
         main = name == "4x120"
         flops, nbytes = ms.flop_counts(sz, xx.shape[0]), ms.byte_counts(sz, xx.shape[0])
         shape = f"{name}, N={xx.shape[0]}"
-        k3_ms = cuda_ms(torch, lambda: ms.streams_fwd(fl, sz, xx), 20)
-        with torch.no_grad():
-            p3_ms = cuda_ms(torch, lambda: ms.plain_mlp_streams(fl, sz, xx), 10)
-        w3 = add_kernel("mlp_streams_fwd", src, "nsfnet_tpu/ops/pallas_mlp.py:183",
-                        launches_v1["mlp_streams_fwd"], k3_ms, p3_ms, c["fwd_abs"],
-                        c["fwd_rel"], flops[0], nbytes[0], shape, keep=main)
-        rows = [w3.pop("row")]
-        work["mlp_streams_fwd" if main else f"mlp_streams_fwd@{name}"] = w3
+        rows = []
+        for prec in ("high", "highest", "default"):
+            f = c["fwd"][prec]
+            tile, panel = ms.pick_bwd_tile(sz[1], prec)
+            k3_ms = cuda_ms(torch, lambda: ms.streams_fwd(fl, sz, xx, prec), 20)
+            with torch.no_grad():
+                p3_ms = cuda_ms(torch, lambda: ms.plain_mlp_streams(fl, sz, xx, prec), 10)
+            w3 = add_kernel("mlp_streams_fwd", src, "nsfnet_tpu/ops/pallas_mlp.py:183",
+                            launches_v1["mlp_streams_fwd"], k3_ms, p3_ms, f["abs"], f["rel"],
+                            flops[0], nbytes[0], f"{shape}, {prec!r}, tile {tile}, panel {panel}",
+                            fr.passes(prec), keep=main and prec == "high")
+            rows.append(w3.pop("row"))
+            work[f"mlp_streams_fwd@{name}/{prec}"] = w3
         for prec in ("high", "highest", "default"):
             b = c["bwd"][prec]
             k4_ms = cuda_ms(torch, lambda: ms.streams_bwd(fl, sz, xx, cts, prec), 10)
@@ -738,7 +799,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # kernels 5+6: the `kernels` line carries the streamfunction path's shape
-    # and, for kernel 6, its name "high"
+    # at its name "high"
     src = "nsfnet_tpu_torch/csrc/psi_streams.cu"
     psi_times = {}
     for name, (fl, sz, xx) in psi_cases.items():
@@ -746,15 +807,21 @@ def main() -> int:
         main = name == "6x80"
         flops, nbytes = psi.flop_counts(sz, xx.shape[0]), psi.byte_counts(sz, xx.shape[0])
         shape = f"{name} K=2, N={xx.shape[0]}"
-        k5_ms = cuda_ms(torch, lambda: psi.psi_fwd(fl, sz, xx), 10)
-        with torch.no_grad():
-            p5_ms = cuda_ms(torch, lambda: psi.plain_psi_streams(fl, sz, xx), 5)
-        w5 = add_kernel("psi_streams_fwd", src, "nsfnet_tpu/ops/pallas_psi.py:176",
-                        launches_sf["psi_streams_fwd"], k5_ms, p5_ms, c["fwd_abs"],
-                        max(c["fwd_rel"], c["bundle_rel"]), flops[0], nbytes[0],
-                        f"{shape}, tile {c['tile']}", keep=main)
-        rows = [w5.pop("row")]
-        work["psi_streams_fwd" if main else f"psi_streams_fwd@{name}"] = w5
+        rows = []
+        for prec in ("high", "highest", "default"):
+            f = c["fwd"][prec]
+            tile, panel = psi.pick_bwd_tile(sz[1], prec)
+            k5_ms = cuda_ms(torch, lambda: psi.psi_fwd(fl, sz, xx, prec), 10)
+            with torch.no_grad():
+                p5_ms = cuda_ms(torch, lambda: psi.plain_psi_streams(fl, sz, xx, prec), 5)
+            w5 = add_kernel("psi_streams_fwd", src, "nsfnet_tpu/ops/pallas_psi.py:176",
+                            launches_sf["psi_streams_fwd"], k5_ms, p5_ms, f["abs"],
+                            max(f["rel"], f["bundle_rel"]), flops[0], nbytes[0],
+                            f"{shape}, {prec!r}, tile {tile}, panel {panel}", fr.passes(prec),
+                            keep=main and prec == "high")
+            rows.append(w5.pop("row"))
+            work[f"psi_streams_fwd@{name}/{prec}"] = w5
+            torch.cuda.empty_cache()
         for prec in ("high", "highest", "default"):
             b1, b2 = c["bwd"][f"{prec}/all13"], c["bwd"][f"{prec}/zero34"]
             tile, panel = psi.pick_bwd_tile(sz[1], prec)
@@ -775,8 +842,7 @@ def main() -> int:
     print("kernel 6 traffic per launch at 'high', 6x80 (from the shapes): tape written "
           f"{traffic6['tape_written'] / 1e9:.3f} GB, read {traffic6['tape_read'] / 1e9:.3f} GB, "
           f"gradient partial read+written {traffic6['partial_rmw'] / 1e9:.3f} GB; the CUDA-core "
-          f"design's scratch {traffic6['cuda_core_scratch_written'] / 1e9:.3f} GB each way, "
-          f"partial {traffic6['cuda_core_partial_rmw'] / 1e9:.3f} GB")
+          f"design's scratch {traffic6['cuda_core_scratch_written'] / 1e9:.3f} GB each way")
     work["psi_streams_bwd_traffic"] = traffic6
 
     def time_steps(s, what, n_f):
@@ -804,6 +870,14 @@ def main() -> int:
     record["profile"] = profile_steps(torch, solver, card, "flagship step")
     record["profile_v1"] = profile_steps(torch, solver_v1, card, "v1 L2 step")
     record["profile_sf"] = profile_steps(torch, solver_sf, card, "streamfunction step")
+    # the host side of each launch's weight split: its workspace allocation
+    lib, reps = ms._lib(), 1000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ms._weight_split(lib, sizes_v1, fr.PARTS["high"], dev)
+    alloc_us = 1e6 * (time.perf_counter() - t0) / reps
+    print(f"split workspace allocation (host, caching allocator): {alloc_us:.2f} us per launch")
+    record["split_alloc_us"] = alloc_us
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,39 +1,41 @@
-// Five-stream derivative engine for Hopper (sm_90a): the forward in fp32 on
-// the CUDA cores, the backward on the tensor cores.
+// Five-stream derivative engine for Hopper (sm_90a), the hidden-layer
+// products of both kernels on the tensor cores.
 //
 // Replaces the TPU kernels of nsfnet_tpu/ops/pallas_mlp.py:
-//   streams_fwd_kernel     <- _fwd_kernel (:183, launched by _fwd_pallas, pallas_call at :218)
-//   streams_bwd_kernel<NP> <- _bwd_kernel (:313, launched by _bwd_pallas, pallas_call at :352)
+//   streams_fwd_kernel<NP, K> <- _fwd_kernel (:183, launched by _fwd_pallas, pallas_call at :218)
+//   streams_bwd_kernel<NP, K> <- _bwd_kernel (:313, launched by _bwd_pallas, pallas_call at :352)
 //
-// What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points x[N,2]:
+// What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points
+// x[N,2], at a precision name (NP bf16 parts per operand, the passes
+// i + j < NP: "default" 1, "high" 3 = JAX's bf16x3, "highest" 6):
 //   forward : the packed value + 4 Taylor streams through every layer, then
 //             the five [N,K] head streams (value, d/dx, d/dy, d2/dx2, d2/dy2)
 //             of every output, written row-major to global memory, the value
-//             stream with the head bias. Exact fp32 at every precision name.
+//             stream with the head bias.
 //   backward: recompute the forward keeping the tape, read the five [N,K]
 //             cotangent streams, run the packed reverse sweep -> dW / db of
-//             every layer in the flat parameter layout of models/mlp.py, at
-//             the precision name's bf16 passes (NP parts: "default" 1 pass,
-//             "high" 3 = JAX's bf16x3, "highest" 6). x gets no cotangent:
-//             collocation points are constants.
+//             every layer in the flat parameter layout of models/mlp.py. x
+//             gets no cotangent: collocation points are constants.
 //
 // What bounds them on this card: operations. Per point the forward does
 // 5 streams x 2*H*H FLOP per product layer (0.43 MFLOP at 4x120, 0.32 at
-// 6x80) and the backward three times that, against 8 B read and 20*K B
-// written (forward) or read (backward) per point: both sit far above the
-// ridge point.
+// 6x80) and the backward three times that, each times the pass count,
+// against 8 B read and 20*K B written (forward) or read (backward) per
+// point: both sit far above the ridge point.
 //
-// The forward runs packed_mlp.cuh's CUDA-core design (one thread per
-// (point, unit), fp32 FMAs). The backward is the fused residual-loss backward
-// (fused_residual.cu loss_bwd_kernel) without the residual algebra, as the
-// TPU kernel is _recompute_forward + _packed_reverse_sweep: the hidden
-// weights split once per launch (split_weights), tc_forward with the tape,
-// the tile's five cotangent rows loaded as the head's cotangents and split
-// into bf16 parts, tc_head_backward and tc_reverse (tc_mlp.cuh, which says
-// how each part works), 132 persistent blocks of 32-point tiles (16 where
-// 32 do not fit) with one partial each, added in block order. The tile and
-// the weight panel come from tc_smem, as for the pair. The backward does not
-// run the head product: the head's output is not an input of its own
+// Both run tc_mlp.cuh's sweep, which says how each part works, as the fused
+// residual-loss pair does (fused_residual.cu): the hidden weights split once
+// per launch (split_weights), 132 persistent blocks of 32-point tiles (16
+// where 32 do not fit; the tile and the weight panel from tc_smem, the rule
+// of the pair), a ragged last tile read as zero points and never written.
+// The forward is loss_fwd_kernel with the tile's [5][T][K] head block
+// written out in place of the residual algebra: tc_forward without the tape,
+// then tc_head. The backward is loss_bwd_kernel without the residual
+// algebra, as the TPU kernel is _recompute_forward + _packed_reverse_sweep:
+// tc_forward with the tape, the tile's five cotangent rows loaded as the
+// head's cotangents and split into bf16 parts, tc_head_backward and
+// tc_reverse, one partial per block, added in block order. The backward does
+// not run the head product: the head's output is not an input of its own
 // gradient, only the last carry and the cotangents are.
 
 #include "tc_mlp.cuh"
@@ -48,29 +50,30 @@ struct ConstStreams {
   const float* s[5];
 };
 
-__global__ void __launch_bounds__(kThreads)
-streams_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int n,
-                   Shapes sh, Streams out) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, S = T * h, TK = T * k;
-  float* buf_a = smem;
-  float* buf_b = buf_a + 5 * S;
-  float* ws = buf_b + 5 * S;
-  float* hb = ws + h * (h + 1) + 4 * T;
-  const long wh = head_off(sh.n_hidden, h);
+// K, the head width, is a constant so that the head's loops unroll (3, the
+// velocity head); K = 0 takes any width from sh.k.
+template <int NP, int K>
+__global__ void __launch_bounds__(kTcThreads, 1)
+streams_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
+                   const bf16* __restrict__ wsplit, int n, TcShapes sh, Streams out) {
+  extern __shared__ __align__(16) unsigned char tc_buf[];
+  const TcRegions R = carve(tc_buf, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const int T = sh.tile, h = sh.h;
+  const int k = K > 0 ? K : sh.k, TK = T * k;
+  const long wh = head_off(sh.n_hidden, h), nk = (long)n * k;
+  stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
-    __syncthreads();  // the previous tile's readers of buf_a / hb are done
-    float* cur = forward_tile(x, flat, n0, sh, buf_a, buf_b, ws);
+    __syncthreads();  // the previous tile's readers of the buffers and hb are done
+    const bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, nullptr);
+    tc_head<NP, K>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
-    head_layer(cur, flat + wh, flat + wh + (long)h * k, hb, T, h, k);
-    __syncthreads();
-    // a tile's rows are contiguous in each [N, K] stream
+    // a tile's rows are contiguous in each [N, K] stream; rows >= n are not written
     for (int idx = threadIdx.x; idx < 5 * TK; idx += blockDim.x) {
-      int q = idx / TK, r = idx - q * TK;
-      out.s[q][n0 * k + r] = hb[idx];
+      const int q = idx / TK, r = idx - q * TK;
+      if (n0 * k + r < nk) out.s[q][n0 * k + r] = R.hb[idx];
     }
   }
 }
@@ -82,7 +85,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                    const bf16* __restrict__ wsplit, int n, TcShapes sh, ConstStreams ct,
                    float* scratch, float* dpart) {
-  extern __shared__ __align__(16) unsigned char tc_buf[];  // the forward's smem is float
+  extern __shared__ __align__(16) unsigned char tc_buf[];
   const TcRegions R = carve(tc_buf, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
   const int T = sh.tile, h = sh.h, L = sh.n_hidden, rows = 5 * T;
   const int k = K > 0 ? K : sh.k, TK = T * k;
@@ -119,6 +122,25 @@ streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
 }
 
 template <int NP, int K>
+int launch_fwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh, int n_blocks,
+               Streams out, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(streams_fwd_kernel<NP, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  streams_fwd_kernel<NP, K><<<n_blocks, kTcThreads, smem, s>>>(x, flat, wsplit, n, sh, out);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_fwd_k(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
+                 int n_blocks, Streams out, size_t smem, cudaStream_t s) {
+  return sh.k == 3 ? launch_fwd<NP, 3>(x, flat, wsplit, n, sh, n_blocks, out, smem, s)
+                   : launch_fwd<NP, 0>(x, flat, wsplit, n, sh, n_blocks, out, smem, s);
+}
+
+template <int NP, int K>
 int launch_bwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
                int n_blocks, ConstStreams ct, float* scratch, float* dpart, size_t smem,
                cudaStream_t s) {
@@ -142,17 +164,23 @@ int launch_bwd_k(const float* x, const float* flat, bf16* wsplit, int n, TcShape
                                        smem, s);
 }
 
+// What both kernels take: a tile of 16 or 32 (a ragged last tile is
+// allowed), a panel that tiles the padded width, 1-3 parts, a block that fits.
+int check_args(int n, int h, int k, int tile, int panel, int n_hidden, int n_blocks, int parts,
+               size_t smem) {
+  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
+      (tile != 16 && tile != 32) || panel <= 0 || panel % 16 != 0 || pad16(h) % panel != 0 ||
+      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of the forward uses, in bytes.
-int nsf_mlp_streams_smem_bytes(int tile, int h, int k) {
-  return (int)(smem_floats(tile, h, k) * sizeof(float));
-}
-
-// Shared memory one block of the backward uses, in bytes (tc_smem).
-int nsf_mlp_streams_bwd_smem_bytes(int tile, int panel, int h, int k, int parts) {
+// Shared memory one block of either kernel uses, in bytes (tc_smem).
+int nsf_mlp_streams_smem_bytes(int tile, int panel, int h, int k, int parts) {
   return (int)tc_smem(tile, panel, pad16(h), k, parts).total();
 }
 
@@ -161,36 +189,36 @@ long nsf_mlp_streams_tape_floats(int tile, int h, int n_hidden) {
   return tc_scratch_floats(tile, pad16(h), n_hidden);
 }
 
-// Bytes of the backward's split copy of the hidden weights.
+// Bytes of either kernel's split copy of the hidden weights.
 long nsf_mlp_streams_weight_bytes(int n_hidden, int h, int parts) {
   return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
 }
 
-// Forward: o, ox, oy, oxx, oyy <- the five [n, k] streams.
+// Forward: o, ox, oy, oxx, oyy <- the five [n, k] streams, at `parts` bf16
+// parts per operand (1-3). tile 16 or 32, panel a multiple of 16 dividing
+// the padded width; wsplit: nsf_mlp_streams_weight_bytes of scratch.
 // Returns a cudaError_t code (0 = launched).
 int nsf_mlp_streams_fwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
-                        int tile, int n_blocks, float* o, float* ox, float* oy, float* oxx,
-                        float* oyy, void* stream) {
-  const size_t smem = smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_launch_args(n, h, k, tile, n_hidden, n_blocks, smem);
+                        int tile, int panel, int n_blocks, int parts, void* wsplit, float* o,
+                        float* ox, float* oy, float* oxx, float* oyy, void* stream) {
+  const int hp = pad16(h);
+  const size_t smem = tc_smem(tile, panel, hp, k, parts).total();
+  int bad = check_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(streams_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Shapes sh{n_hidden, h, k, tile};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TcShapes sh{n_hidden, h, hp, k, tile, panel};
   Streams out{{o, ox, oy, oxx, oyy}};
-  streams_fwd_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, flat, n, sh, out);
-  return (int)cudaGetLastError();
+  bf16* ws = static_cast<bf16*>(wsplit);
+  return parts == 1   ? launch_fwd_k<1>(x, flat, ws, n, sh, n_blocks, out, smem, s)
+         : parts == 2 ? launch_fwd_k<2>(x, flat, ws, n, sh, n_blocks, out, smem, s)
+                      : launch_fwd_k<3>(x, flat, ws, n, sh, n_blocks, out, smem, s);
 }
 
 // Backward: dflat = sum over the five streams of <cotangent, d stream / d params>,
 // in the flat layout, at `parts` bf16 parts per operand (1-3). g*: the
-// [n, k] cotangents of o, ox, oy, oxx, oyy. tile 16 or 32 (a ragged last
-// tile is allowed), panel a multiple of 16 dividing the padded width;
-// wsplit: nsf_mlp_streams_weight_bytes of scratch; scratch: [n_blocks,
-// nsf_mlp_streams_tape_floats]; dpart: [n_blocks, n_params].
-// Returns a cudaError_t code (0 = launched).
+// [n, k] cotangents of o, ox, oy, oxx, oyy. tile, panel and wsplit as for
+// the forward; scratch: [n_blocks, nsf_mlp_streams_tape_floats]; dpart:
+// [n_blocks, n_params]. Returns a cudaError_t code (0 = launched).
 int nsf_mlp_streams_bwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
                         int tile, int panel, int n_blocks, int parts, void* wsplit,
                         const float* g, const float* gx, const float* gy, const float* gxx,
@@ -198,10 +226,8 @@ int nsf_mlp_streams_bwd(const float* x, const float* flat, int n, int n_hidden, 
                         void* stream) {
   const int hp = pad16(h);
   const size_t smem = tc_smem(tile, panel, hp, k, parts).total();
-  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
-      (tile != 16 && tile != 32) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
-      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
+  int bad = check_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
+  if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TcShapes sh{n_hidden, h, hp, k, tile, panel};
   ConstStreams ct{{g, gx, gy, gxx, gyy}};

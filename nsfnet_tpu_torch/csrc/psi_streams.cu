@@ -1,40 +1,44 @@
-// Order-3 streamfunction derivative engine for Hopper (sm_90a): the forward
-// in fp32 on the CUDA cores, the backward on the tensor cores.
+// Order-3 streamfunction derivative engine for Hopper (sm_90a), the
+// hidden-layer products of both kernels on the tensor cores.
 //
 // Replaces the TPU kernels of nsfnet_tpu/ops/pallas_psi.py:
-//   psi_fwd_kernel        <- _fwd_kernel (:176, launched by _fwd_pallas, pallas_call at :204)
-//   psi_bwd_kernel<NP, T> <- _bwd_kernel (:223, launched by _bwd_pallas, pallas_call at :330)
+//   psi_fwd_kernel<NP, T, K> <- _fwd_kernel (:176, launched by _fwd_pallas, pallas_call at :204)
+//   psi_bwd_kernel<NP, T, K> <- _bwd_kernel (:223, launched by _bwd_pallas, pallas_call at :330)
 //
-// What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points x[N,2]:
+// What they compute, for a tanh MLP 2 -> H (x n_hidden) -> K and points
+// x[N,2], at a precision name (NP bf16 parts per operand, the passes
+// i + j < NP: "default" 1, "high" 3 = JAX's bf16x3, "highest" 6):
 //   forward : the packed value + 12 Taylor streams (orders 1-3 along e_x,
 //             e_y, (1,1), (1,-1)) through every layer, then the thirteen
 //             [N,K] head streams, written row-major to global memory, the
-//             value stream with the head bias. Exact fp32 at every name.
+//             value stream with the head bias.
 //   backward: recompute the forward keeping the tape, read the thirteen
 //             [N,K] cotangent streams, run the packed order-3 reverse sweep
 //             -> dW / db of every layer in the flat parameter layout of
-//             models/mlp.py, at the precision name's bf16 passes (NP parts:
-//             "default" 1 pass, "high" 3 = JAX's bf16x3, "highest" 6). x
-//             gets no cotangent: collocation points are constants.
+//             models/mlp.py. x gets no cotangent: collocation points are
+//             constants.
 // The (u, v, p) bundle is assembled from the raw streams outside, in plain
 // PyTorch (ops/derivatives.assemble_psi_bundle), as the JAX package does.
 //
 // What bounds them on this card: operations. Per point the forward does
 // 13 streams x 2*H*H FLOP per product layer (0.83 MFLOP at 6x80) and the
-// backward three times that, against 8 B read and 52*K B written (forward)
-// or read (backward) per point: both sit far above the ridge point.
+// backward three times that, each times the pass count, against 8 B read
+// and 52*K B written (forward) or read (backward) per point: both sit far
+// above the ridge point.
 //
-// The forward runs the CUDA-core design (packed_psi.cuh over packed_mlp.cuh: one
-// thread per (point, unit), fp32 FMAs, the tile from psi_smem_floats). The
-// backward runs tc_psi.cuh's sweep, which says how each part works: the
-// hidden weights split once per launch (split_weights), the recompute with
-// a tape of t and the 12 tangents, the tile's thirteen cotangent rows split
-// into the head's cotangent parts, the head backward on the CUDA cores, the
-// reverse sweep with the three products per layer on the tensor cores; 132
-// persistent blocks with one partial each, added in block order, no float
-// atomics. Its tile (16 or 8 points) and weight panel come from psi_smem
-// (nsf_psi_streams_bwd_smem_bytes), chosen by the wrapper. The backward does
-// not run the head product: the head's output is not an input of its own
+// Both run tc_psi.cuh's sweep, which says how each part works: the hidden
+// weights split once per launch (split_weights), 132 persistent blocks of
+// 16- or 8-point tiles with the weight panel from psi_smem (one rule for
+// both, chosen by the wrapper), a ragged last tile read as zero points. The
+// forward is the backward's recompute without the tape (psi_tc_forward
+// with TAPE = false) and psi_head, the 13-stream head on the CUDA cores at
+// the same passes, with the tile's [13][T][K] head block written out; rows
+// >= n are not written. The backward recomputes with the tape of t and the
+// 12 tangents, splits the tile's thirteen cotangent rows into the head's
+// cotangent parts, runs the head backward on the CUDA cores and the reverse
+// sweep with the three products per layer on the tensor cores, one partial
+// per block, added in block order, no float atomics. The backward does not
+// run the head product: the head's output is not an input of its own
 // gradient, only the last carry and the cotangents are.
 
 #include "tc_psi.cuh"
@@ -49,29 +53,33 @@ struct PsiCt {
   const float* s[kPsi];
 };
 
-__global__ void __launch_bounds__(kPsiThreads)
-psi_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat, int n, Shapes sh,
-               PsiOut out) {
-  extern __shared__ float smem[];
-  const int T = sh.tile, h = sh.h, k = sh.k, S = T * h, TK = T * k;
-  float* buf_a = smem;
-  float* buf_b = buf_a + kPsi * S;
-  float* ws = buf_b + kPsi * S;
-  float* hb = ws + h * (h + 1);
-  const long wh = head_off(sh.n_hidden, h);
+// K, the head width, is a constant so that the head's loops unroll (2, the
+// (psi, p) head); K = 0 takes any width from sh.k.
+template <int NP, int T, int K>
+__global__ void __launch_bounds__(kTcThreads, 1)
+psi_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
+               const bf16* __restrict__ wsplit, int n, TcShapes sh, PsiOut out) {
+  extern __shared__ __align__(16) unsigned char tc_buf[];
+  const PsiRegions R = psi_carve(tc_buf, psi_smem(T, sh.panel, sh.hp, sh.k, NP));
+  const int h = sh.h, hp = sh.hp;
+  const int k = K > 0 ? K : sh.k, TK = T * k;
+  const long wh = head_off(sh.n_hidden, h), nk = (long)n * k;
+  stage_head<NP>(R.whs, flat + wh, h, hp, k);
+  zero_pad_stream<NP, T>(R.buf_a, hp);
+  zero_pad_stream<NP, T>(R.buf_b, hp);
 
-  const int n_tiles = n / T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
-    __syncthreads();  // the previous tile's readers of buf_a / hb are done
-    float* cur = psi_forward_tile(x, flat, n0, sh, buf_a, buf_b, ws);
+    __syncthreads();  // the previous tile's readers of the buffers and hb are done
+    const bf16* cur = psi_tc_forward<NP, T, false>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b,
+                                                   R.wb, nullptr);
+    psi_head<NP, T, K>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
-    psi_head_layer(cur, flat + wh, flat + wh + (long)h * k, hb, T, h, k);
-    __syncthreads();
-    // a tile's rows are contiguous in each [N, K] stream
+    // a tile's rows are contiguous in each [N, K] stream; rows >= n are not written
     for (int idx = threadIdx.x; idx < kPsi * TK; idx += blockDim.x) {
-      int q = idx / TK, r = idx - q * TK;
-      out.s[q][n0 * k + r] = hb[idx];
+      const int q = idx / TK, r = idx - q * TK;
+      if (n0 * k + r < nk) out.s[q][n0 * k + r] = R.hb[idx];
     }
   }
 }
@@ -83,7 +91,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 psi_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                const bf16* __restrict__ wsplit, int n, TcShapes sh, PsiCt ct, float* scratch,
                float* dpart) {
-  extern __shared__ __align__(16) unsigned char tc_buf[];  // the forward's smem is float
+  extern __shared__ __align__(16) unsigned char tc_buf[];
   const PsiRegions R = psi_carve(tc_buf, psi_smem(T, sh.panel, sh.hp, sh.k, NP));
   const int h = sh.h, hp = sh.hp, L = sh.n_hidden;
   const int k = K > 0 ? K : sh.k, TK = T * k;
@@ -123,6 +131,28 @@ psi_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
 }
 
 template <int NP, int T, int K>
+int launch_fwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh, int n_blocks,
+               const PsiOut& out, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(psi_fwd_kernel<NP, T, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int bad = launch_split<NP>(flat, sh, wsplit, s);
+  if (bad) return bad;
+  psi_fwd_kernel<NP, T, K><<<n_blocks, kTcThreads, smem, s>>>(x, flat, wsplit, n, sh, out);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_fwd_np(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh,
+                  int n_blocks, const PsiOut& out, size_t smem, cudaStream_t s) {
+  if (sh.tile == 16)
+    return sh.k == 2 ? launch_fwd<NP, 16, 2>(x, flat, wsplit, n, sh, n_blocks, out, smem, s)
+                     : launch_fwd<NP, 16, 0>(x, flat, wsplit, n, sh, n_blocks, out, smem, s);
+  return sh.k == 2 ? launch_fwd<NP, 8, 2>(x, flat, wsplit, n, sh, n_blocks, out, smem, s)
+                   : launch_fwd<NP, 8, 0>(x, flat, wsplit, n, sh, n_blocks, out, smem, s);
+}
+
+template <int NP, int T, int K>
 int launch_bwd(const float* x, const float* flat, bf16* wsplit, int n, TcShapes sh, int n_blocks,
                const PsiCt& ct, float* scratch, float* dpart, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(psi_bwd_kernel<NP, T, K>,
@@ -150,17 +180,23 @@ int launch_bwd_np(const float* x, const float* flat, bf16* wsplit, int n, TcShap
                                           smem, s);
 }
 
+// What both kernels take: a tile of 16 or 8 (a ragged last tile is
+// allowed), a panel that tiles the padded width, 1-3 parts, a block that fits.
+int check_args(int n, int h, int k, int tile, int panel, int n_hidden, int n_blocks, int parts,
+               size_t smem) {
+  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
+      (tile != 16 && tile != 8) || panel <= 0 || panel % 16 != 0 || pad16(h) % panel != 0 ||
+      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of the forward uses, in bytes.
-int nsf_psi_streams_smem_bytes(int tile, int h, int k) {
-  return (int)(psi_smem_floats(tile, h, k) * sizeof(float));
-}
-
-// Shared memory one block of the backward uses, in bytes (psi_smem).
-int nsf_psi_streams_bwd_smem_bytes(int tile, int panel, int h, int k, int parts) {
+// Shared memory one block of either kernel uses, in bytes (psi_smem).
+int nsf_psi_streams_smem_bytes(int tile, int panel, int h, int k, int parts) {
   return (int)psi_smem(tile, panel, pad16(h), k, parts).total();
 }
 
@@ -169,34 +205,36 @@ long nsf_psi_streams_tape_floats(int tile, int h, int n_hidden) {
   return psi_tape_floats(tile, pad16(h), n_hidden);
 }
 
-// Bytes of the backward's split copy of the hidden weights.
+// Bytes of either kernel's split copy of the hidden weights.
 long nsf_psi_streams_weight_bytes(int n_hidden, int h, int parts) {
   return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
 }
 
 // Forward: outs[0..12] <- the thirteen [n, k] streams (outs is a host array
-// of device pointers). Returns a cudaError_t code (0 = launched).
+// of device pointers), at `parts` bf16 parts per operand (1-3). tile 16 or
+// 8, panel a multiple of 16 dividing the padded width; wsplit:
+// nsf_psi_streams_weight_bytes of scratch. Returns a cudaError_t code (0 = launched).
 int nsf_psi_streams_fwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
-                        int tile, int n_blocks, float* const* outs, void* stream) {
-  const size_t smem = psi_smem_floats(tile, h, k) * sizeof(float);
-  int bad = check_launch_args(n, h, k, tile, n_hidden, n_blocks, smem);
+                        int tile, int panel, int n_blocks, int parts, void* wsplit,
+                        float* const* outs, void* stream) {
+  const int hp = pad16(h);
+  const size_t smem = psi_smem(tile, panel, hp, k, parts).total();
+  int bad = check_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
   if (bad) return bad;
-  cudaError_t err = cudaFuncSetAttribute(psi_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Shapes sh{n_hidden, h, k, tile};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TcShapes sh{n_hidden, h, hp, k, tile, panel};
   PsiOut out;
   for (int q = 0; q < kPsi; ++q) out.s[q] = outs[q];
-  psi_fwd_kernel<<<n_blocks, kPsiThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, flat, n, sh, out);
-  return (int)cudaGetLastError();
+  bf16* ws = static_cast<bf16*>(wsplit);
+  return parts == 1   ? launch_fwd_np<1>(x, flat, ws, n, sh, n_blocks, out, smem, s)
+         : parts == 2 ? launch_fwd_np<2>(x, flat, ws, n, sh, n_blocks, out, smem, s)
+                      : launch_fwd_np<3>(x, flat, ws, n, sh, n_blocks, out, smem, s);
 }
 
 // Backward: dflat = sum over the thirteen streams of <cotangent, d stream / d params>,
 // in the flat layout, at `parts` bf16 parts per operand (1-3). cts[0..12]:
-// the [n, k] cotangents (a host array of device pointers). tile 16 or 8, panel
-// a multiple of 16 dividing the padded width; wsplit:
-// nsf_psi_streams_weight_bytes of scratch; scratch: [n_blocks,
+// the [n, k] cotangents (a host array of device pointers). tile, panel and
+// wsplit as for the forward; scratch: [n_blocks,
 // nsf_psi_streams_tape_floats]; dpart: [n_blocks, n_params].
 // Returns a cudaError_t code (0 = launched).
 int nsf_psi_streams_bwd(const float* x, const float* flat, int n, int n_hidden, int h, int k,
@@ -205,10 +243,8 @@ int nsf_psi_streams_bwd(const float* x, const float* flat, int n, int n_hidden, 
                         void* stream) {
   const int hp = pad16(h);
   const size_t smem = psi_smem(tile, panel, hp, k, parts).total();
-  if (n <= 0 || h <= 0 || k <= 0 || n_hidden < 1 || n_blocks <= 0 ||
-      (tile != 16 && tile != 8) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
-      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
+  int bad = check_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
+  if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TcShapes sh{n_hidden, h, hp, k, tile, panel};
   PsiCt ct;

@@ -1,7 +1,7 @@
 // Tensor-core packed-MLP sweep for Hopper (sm_90a): the device code of the
 // fused residual-loss pair (fused_residual.cu) and of the five-stream
-// engine's backward (mlp_streams.cu streams_bwd_kernel); the order-3
-// backward (tc_psi.cuh) builds on its primitives. It ports the parts of
+// engine's pair (mlp_streams.cu); the order-3 engine's pair (tc_psi.cuh)
+// builds on its primitives. It ports the parts of
 // nsfnet_tpu/ops/pallas_mlp.py that the TPU kernels inline
 // (_first_layer_packed, _layer_packed, _forward_streams, _recompute_forward,
 // _packed_reverse_sweep) with every matrix product of a hidden layer on the
@@ -537,12 +537,13 @@ __device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict
 }
 
 // Head on the last carry (CUDA cores, the same passes) -> hb [5][T][K].
-// K, the head width, is a constant so that its loops unroll.
+// K, the head width, is a constant so that its loops unroll; K = 0 reads
+// the width from sh.k.
 template <int NP, int K>
 __device__ void tc_head(const bf16* cur, const bf16* whs, const float* __restrict__ bh,
                         float* hb, const TcShapes& sh) {
   const int T = sh.tile, hp = sh.hp, ld = hp + 8, rows = 5 * T;
-  constexpr int k = K;
+  const int k = K > 0 ? K : sh.k;
   for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {
     const int r = idx / k, kk = idx - r * k;
     float a = 0.f;

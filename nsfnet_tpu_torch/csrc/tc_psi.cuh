@@ -1,10 +1,11 @@
 // Tensor-core order-3 sweep for Hopper (sm_90a): the device code of the
-// order-3 engine's backward (psi_streams.cu psi_bwd_kernel), the 13-stream
-// counterpart of tc_mlp.cuh's five-stream sweep. It ports the parts of
-// nsfnet_tpu/ops/pallas_psi.py that _bwd_kernel inlines: _first_layer_packed
-// (:138), _layer_packed (:152) and the hand-derived order-3 adjoint
-// (:251-307), with every hidden-layer product on the tensor cores at the
-// precision name's bf16 passes. From tc_mlp.cuh it takes the bf16 parts
+// order-3 engine's pair (psi_streams.cu psi_fwd_kernel, psi_bwd_kernel),
+// the 13-stream counterpart of tc_mlp.cuh's five-stream sweep. It ports the
+// parts of nsfnet_tpu/ops/pallas_psi.py that _fwd_kernel and _bwd_kernel
+// inline: _first_layer_packed (:138), _layer_packed (:152), the head (:186)
+// and the hand-derived order-3 adjoint (:251-307), with every hidden-layer
+// product on the tensor cores at the precision name's bf16 passes. From
+// tc_mlp.cuh it takes the bf16 parts
 // (split_pair / split_one, store_pair / store_one), ldmatrix and mma_passes,
 // split_weights, stage_panel, stage_head, dw_product, sum_over_rows and
 // flush_sums; read that header first.
@@ -35,10 +36,12 @@
 // of a row product is the tile's rows x 8 columns, acc[13 or 7][4]: 52 or
 // 28 accumulators, and H / 8 units per product (10 at H = 80, one per warp).
 //
-// Tape. Per product layer, t and the 12 pre-activation tangents (fp32,
-// [13][T][Hp]); t alone for the analytic first layer. The reverse sweep
-// rebuilds the carry P_{l-1} from them with the forward's own rounded
-// arithmetic (psi_carry), bit for bit, instead of storing the 13-row carry.
+// Tape (the backward's recompute only; a template flag of the forward, so
+// that the forward kernel carries no branch for it). Per product layer, t
+// and the 12 pre-activation tangents (fp32, [13][T][Hp]); t alone for the
+// analytic first layer. The reverse sweep rebuilds the carry P_{l-1} from
+// them with the forward's own rounded arithmetic (psi_carry), bit for bit,
+// instead of storing the 13-row carry.
 //
 // The first layer stays the analytic broadcast of the direction rows, never
 // a K = 2 product; its dW0 gets the direct terms (r_p adds into both rows,
@@ -277,8 +280,9 @@ __device__ void zero_pad_stream(bf16* buf, int hp) {
   }
 }
 
-// Analytic first layer of tile n0 -> carry parts in buf (t0 kept in tape[0]).
-template <int NP, int T>
+// Analytic first layer of tile n0 -> carry parts in buf (with TAPE, t0
+// kept in tape[0]).
+template <int NP, int T, bool TAPE>
 __device__ void psi_first_layer_tc(const float* __restrict__ x, long n0, int n,
                                    const float* __restrict__ w0, const float* __restrict__ b0,
                                    bf16* buf, float* tape, const TcShapes& sh) {
@@ -297,14 +301,15 @@ __device__ void psi_first_layer_tc(const float* __restrict__ x, long n0, int n,
     dir_rows(wx, wy, r);
     psi_first_carry(t, r, v);
     store_one<NP, kPsi, PsiTile<T>::S>(buf, T, hp, p, j, v);
-    tape[idx] = t;
+    if constexpr (TAPE) tape[idx] = t;
   }
 }
 
 // Packed forward of tile n0 through the hidden layers, with the product
-// layers on the tensor cores, keeping t and the tangents of every layer in
-// the tape. Returns the buffer that holds the last carry.
-template <int NP, int T>
+// layers on the tensor cores; with TAPE (the backward's recompute) keeping
+// t and the tangents of every layer in the tape. Returns the buffer that
+// holds the last carry.
+template <int NP, int T, bool TAPE = true>
 __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __restrict__ flat,
                                 const bf16* __restrict__ wsplit, long n0, int n,
                                 const TcShapes& sh, bf16* buf_a, bf16* buf_b, bf16* wb,
@@ -312,13 +317,13 @@ __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __rest
   constexpr int MT = PsiTile<T>::MT, S = PsiTile<T>::S;
   const int h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
-  psi_first_layer_tc<NP, T>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
+  psi_first_layer_tc<NP, T, TAPE>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
   bf16* cur = buf_a;
   bf16* nxt = buf_b;
   for (int l = 1; l < L; ++l) {
     const float* bias = flat + hidden_off(l, h) + (long)h * h;
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
-    float* lt = tape + psi_tape_off(l, T, hp);
+    float* lt = TAPE ? tape + psi_tape_off(l, T, hp) : nullptr;
     for (int c0 = 0; c0 < hp; c0 += nc) {
       __syncthreads();  // readers of the previous panel / writers of cur are done
       stage_panel<NP>(wb, wl, hp, 0, hp, c0, nc);
@@ -343,10 +348,12 @@ __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __rest
           psi_carry(t0, z0, v0);
           psi_carry(t1, z1, v1);
           store_pair<NP, kPsi, S>(nxt, T, hp, p, col, v0, v1);
-          st2(lt + (long)p * hp + col, t0, t1);
+          if constexpr (TAPE) {
+            st2(lt + (long)p * hp + col, t0, t1);
 #pragma unroll
-          for (int q = 1; q < kPsi; ++q)
-            st2(lt + ((long)q * T + p) * hp + col, z0[q - 1], z1[q - 1]);
+            for (int q = 1; q < kPsi; ++q)
+              st2(lt + ((long)q * T + p) * hp + col, z0[q - 1], z1[q - 1]);
+          }
         }
       }
     }
@@ -356,6 +363,33 @@ __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __rest
   }
   __syncthreads();
   return cur;
+}
+
+// Head on the last carry (CUDA cores, the same passes) -> hb [13][T][K]:
+// rows q T + p (q < 13) of the carry layout, so the padding stream of
+// 8-point tiles is never read. The value rows get the head bias. K, the
+// head width, is a constant so that its loops unroll; K = 0 reads it from
+// sh.k.
+template <int NP, int T, int K>
+__device__ void psi_head(const bf16* cur, const bf16* whs, const float* __restrict__ bh,
+                         float* hb, const TcShapes& sh) {
+  constexpr int R = kPsi * T, rows = PsiTile<T>::S * T;
+  const int hp = sh.hp, ld = hp + 8;
+  const int k = K > 0 ? K : sh.k;
+  for (int idx = threadIdx.x; idx < R * k; idx += blockDim.x) {
+    const int r = idx / k, kk = idx - r * k;
+    float a = 0.f;
+    for (int m = 0; m < hp; ++m) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const float pv = __bfloat162float(cur[((long)i * rows + r) * ld + m]);
+#pragma unroll
+        for (int j = 0; j + i < NP; ++j) a += pv * __bfloat162float(whs[((long)j * hp + m) * k + kk]);
+      }
+    }
+    if (r < T) a += bh[kk];
+    hb[idx] = a;
+  }
 }
 
 // ------------------------------------------------------------ reverse sweep

@@ -37,6 +37,7 @@ the stage Reynolds number).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Dict, Optional, Sequence, Tuple
@@ -54,14 +55,9 @@ PARTS = {"highest": 3, "high": 2, "default": 1}  # bf16 parts of each operand
 ROW_ALIGN = 16         # batches are padded to this; every tile size divides it
 _MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
 
-# The CUDA-core forwards of the five-stream and order-3 engines (kernels 3, 5):
-# their fixed grid and tiles.
-PARTIAL_BLOCKS = 264
-_TILES = (16, 8, 4, 2, 1)
-
-# The tensor-core kernels (1, 2, 4, 6): one persistent block per SM of an
-# H100 (a constant, not read from the card: the number of partials fixes the
-# summation order); kernels 1, 2, 4 take 32-point tiles where they fit, else 16.
+# Every kernel: one persistent block per SM of an H100 (a constant, not read
+# from the card: the number of partials fixes the summation order); kernels
+# 1-4 take 32-point tiles where they fit, else 16 (kernels 5+6: 16 or 8).
 LOSS_BLOCKS = 132
 LOSS_TILES = (32, 16)
 
@@ -172,10 +168,30 @@ def bf16_split(a: torch.Tensor, parts: int) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
+# Set by `sums_rounded_once`: the plain passes sum in fp64, a witness of the
+# order of their fp32 sums.
+_round_sums_once = False
+
+
 def _passes_mm(a: torch.Tensor, b: torch.Tensor, parts: int) -> torch.Tensor:
     sa, sb = bf16_split(a, parts), bf16_split(b, parts)
     # a bf16 x bf16 product is exact in fp32: the fp32 matmul only sums
-    return sum(sa[i] @ sb[j] for i in range(parts) for j in range(parts - i))
+    acc = torch.float64 if _round_sums_once else a.dtype
+    return sum(sa[i].to(acc) @ sb[j].to(acc)
+               for i in range(parts) for j in range(parts - i)).to(a.dtype)
+
+
+@contextlib.contextmanager
+def sums_rounded_once():
+    """The plain versions with every pass product summed in fp64 and rounded
+    to fp32 once: the same bf16 products as `pass_dot`, another rounding of
+    their sums (ops/pass_checks.py uses it as a witness)."""
+    global _round_sums_once
+    _round_sums_once = True
+    try:
+        yield
+    finally:
+        _round_sums_once = False
 
 
 class _PassDot(torch.autograd.Function):

@@ -6,8 +6,8 @@ The port of nsfnet_tpu/ops/pallas_mlp.py. One call computes, for a tanh MLP
 (out, d/dx, d/dy, d2/dx2, d2/dy2) of every output, and its backward turns
 five [N,K] cotangents into the gradient wrt the flat weights:
 
-  * kernel 3, `streams_fwd`: csrc/mlp_streams.cu streams_fwd_kernel, which
-    replaces `_fwd_kernel` (pallas_mlp.py:183);
+  * kernel 3, `streams_fwd`: csrc/mlp_streams.cu streams_fwd_kernel<NP, K>,
+    which replaces `_fwd_kernel` (pallas_mlp.py:183);
   * kernel 4, `streams_bwd`: streams_bwd_kernel<NP, K>, which replaces
     `_bwd_kernel` (pallas_mlp.py:313).
 
@@ -17,26 +17,24 @@ off: every `loss_mode: L2` run, and MSE runs with NSFNET_FUSED_LOSS=0.
 
 `mlp_streams` is the entry point. On a CPU tensor it runs
 `plain_mlp_streams` (the closed-form engine, differentiated by autograd) in
-exact fp32 at every name; on a CUDA tensor it launches the kernel pair
-through `_MlpStreams`, or raises. x gets no gradient: collocation points
+exact fp32 at every name; on a CUDA tensor it launches the kernel pair at
+the name through `_MlpStreams`, or raises. x gets no gradient: collocation points
 are optimization constants (pallas_mlp.py:415-431).
 
-Precision. Kernel 4 runs every hidden-layer and head product on bf16 parts
-of its operands at the name's passes, as the JAX backward does: "default"
-one pass, "high" three (JAX's bf16x3, pallas_mlp.py:111-129), "highest"
-six; the name reaches the kernel as the number of parts
-(`fused_residual.PARTS`). Kernel 3, the forward, computes exact fp32 at
-every name. So at "high" the gradient is that of JAX's bf16x3 backward,
-while the forward values are exact fp32 (within 1e-5 of JAX's "high").
-`plain_mlp_streams_bwd(..., precision=name)` applies the same passes
+Precision. Both kernels run every hidden-layer and head product on bf16
+parts of their operands at the name's passes, as the JAX kernels do:
+"default" one pass, "high" three (JAX's bf16x3, pallas_mlp.py:111-129),
+"highest" six; the name reaches the kernels as the number of parts
+(`fused_residual.PARTS`). `plain_mlp_streams(..., precision=name)` and
+`plain_mlp_streams_bwd(..., precision=name)` apply the same passes
 (`fused_residual.emulated_derivatives`); `precision=None` is exact fp32.
 
 Tiles come from this card's shared memory, not from the TPU kernel's
-TILE = 512: kernel 3's from `pick_tile` here, kernel 4's (tile and weight
-panel) from the tensor-core sweep's count (`pick_bwd_tile`, the rule of
-kernels 1+2). The TPU engine's `lane_pad` option (pallas_mlp.py:371-413)
-zero-pads hidden widths to the MXU's 128 lanes and changes no result; the
-kernels pad to their own granule, so it is not carried over.
+TILE = 512: both kernels take the tile and weight panel of the tensor-core
+sweep's count (`pick_bwd_tile`, the rule of kernels 1+2). The TPU engine's
+`lane_pad` option (pallas_mlp.py:371-413) zero-pads hidden widths to the
+MXU's 128 lanes and changes no result; the kernels pad to their own
+granule, so it is not carried over.
 """
 
 from __future__ import annotations
@@ -51,8 +49,8 @@ from nsfnet_tpu_torch.models.mlp import param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build
 from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
-from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, LOSS_BLOCKS, PARTIAL_BLOCKS,
-                                                 PARTS, PRECISIONS, ROW_ALIGN, _raise_on)
+from nsfnet_tpu_torch.ops.fused_residual import (LOSS_BLOCKS, PARTS, PRECISIONS, ROW_ALIGN,
+                                                 _raise_on)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
@@ -61,23 +59,6 @@ launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
-
-
-def smem_bytes(tile: int, h: int, k: int = 3) -> int:
-    """Shared memory of one block (two [5][T][H] carries, the staged weight,
-    the loss terms, the [5][T][K] head block), for choosing the tile without
-    the library; the source's nsf_mlp_streams_smem_bytes owns the layout and
-    must agree (tests/test_torch_gpu.py checks every tile)."""
-    return 4 * (10 * tile * h + h * (h + 1) + 4 * tile + 5 * tile * k)
-
-
-def pick_tile(h: int, k: int = 3) -> int:
-    """Largest tile (at most 16 points) whose block fits in shared memory.
-    At the flagship width 16 points take 78 KB: two blocks per SM."""
-    for t in _TILES:
-        if smem_bytes(t, h, k) <= _MAX_SMEM:
-            return t
-    raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
@@ -96,7 +77,7 @@ def flop_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, 
     and runs two more per layer (dW and the carry cotangent); the head has
     those two only. `n_streams` is the height of the packed carry: 5 here,
     13 in the order-3 engine (ops/psi_streams.py), which has the same shape
-    of work. One fp32 product each: kernel 4 runs `fused_residual.passes`
+    of work. One fp32 product each: the kernels run `fused_residual.passes`
     bf16 products per fp32 product."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
     hidden = (n_hidden - 1) * n_streams * 2 * h * h
@@ -113,10 +94,15 @@ def byte_counts(sizes: Sequence[int], n: int, n_streams: int = 5) -> Tuple[int, 
     return fwd, bwd
 
 
-def plain_mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor) -> Derivs:
-    """The plain PyTorch version of kernel 3: the closed-form engine on the
-    unflattened weights."""
-    return mlp_derivatives_2d(unflatten_params(flat, sizes), x)
+def plain_mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
+                      precision: Optional[str] = None) -> Derivs:
+    """The plain PyTorch version of kernel 3. precision None: the closed-form
+    engine on the unflattened weights, exact fp32; a name: the kernel's bf16
+    passes on every hidden and head product (`emulated_derivatives`)."""
+    params = unflatten_params(flat, sizes)
+    if precision is None:
+        return mlp_derivatives_2d(params, x)
+    return fr.emulated_derivatives(params, x, PARTS[precision])
 
 
 def plain_mlp_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -129,10 +115,7 @@ def plain_mlp_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Ten
     the cotangent too, as JAX's _dot_tn / _dot_nt do)."""
     flat = flat.detach().requires_grad_(True)
     with torch.enable_grad():
-        if precision is None:
-            streams = plain_mlp_streams(flat, sizes, x)
-        else:
-            streams = fr.emulated_derivatives(unflatten_params(flat, sizes), x, PARTS[precision])
+        streams = plain_mlp_streams(flat, sizes, x, precision)
     return torch.autograd.grad(streams, [flat], list(cts))[0]
 
 
@@ -141,14 +124,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mlp_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
     common = [p, p, i, i, i, i]
-    lib.nsf_mlp_streams_fwd.argtypes = common + [i, i] + [p] * 6
+    lib.nsf_mlp_streams_fwd.argtypes = common + [i, i, i, i] + [p] * 7
     lib.nsf_mlp_streams_fwd.restype = i
     lib.nsf_mlp_streams_bwd.argtypes = common + [i, i, i, i] + [p] * 10
     lib.nsf_mlp_streams_bwd.restype = i
-    lib.nsf_mlp_streams_smem_bytes.argtypes = [i, i, i]
+    lib.nsf_mlp_streams_smem_bytes.argtypes = [i, i, i, i, i]
     lib.nsf_mlp_streams_smem_bytes.restype = i
-    lib.nsf_mlp_streams_bwd_smem_bytes.argtypes = [i, i, i, i, i]
-    lib.nsf_mlp_streams_bwd_smem_bytes.restype = i
     lib.nsf_mlp_streams_tape_floats.argtypes = [i, i, i]
     lib.nsf_mlp_streams_tape_floats.restype = ctypes.c_long
     lib.nsf_mlp_streams_weight_bytes.argtypes = [i, i, i]
@@ -182,16 +163,26 @@ def _launch_args(flat, sizes, x):
     return [x.data_ptr(), flat.data_ptr(), x.shape[0], len(sizes) - 2, sizes[1], sizes[-1]]
 
 
-def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor) -> Derivs:
-    """Kernel 3: the five [N,K] streams (exact fp32)."""
+def _weight_split(lib, sizes, parts, dev) -> torch.Tensor:
+    """Workspace for the launch's split copy of the hidden weights."""
+    nbytes = lib.nsf_mlp_streams_weight_bytes(len(sizes) - 2, sizes[1], parts)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
+                precision: str = "high") -> Derivs:
+    """Kernel 3: the five [N,K] streams, at the name's bf16 passes."""
+    _check_precision(precision)
     n = _check_inputs(flat, sizes, x)
-    tile = pick_tile(sizes[1], sizes[-1])
-    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=x.device)
-                for _ in range(5))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _lib().nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), tile, PARTIAL_BLOCKS,
-                                          *(o.data_ptr() for o in out), stream)
+    tile, panel = pick_bwd_tile(sizes[1], precision, sizes[-1])
+    parts, dev, lib = PARTS[precision], x.device, _lib()
+    wsplit = _weight_split(lib, sizes, parts, dev)
+    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev) for _ in range(5))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
+                                       parts, wsplit.data_ptr(), *(o.data_ptr() for o in out),
+                                       stream)
     _raise_on(code, "mlp streams forward")
     launch_counts["mlp_streams_fwd"] += 1
     return out
@@ -210,8 +201,7 @@ def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
     tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(tile, h, n_hidden),
                        dtype=torch.float32, device=dev)
-    wsplit = torch.empty(lib.nsf_mlp_streams_weight_bytes(n_hidden, h, parts), dtype=torch.uint8,
-                         device=dev)
+    wsplit = _weight_split(lib, sizes, parts, dev)
     dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -226,7 +216,7 @@ def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
 
 
 class _MlpStreams(torch.autograd.Function):
-    """Kernel 3 forward, kernel 4 backward at the precision name (the
+    """Kernel 3 forward, kernel 4 backward, both at the precision name (the
     custom_vjp of pallas_mlp.py:415-431). Gradients flow to flat only. A
     stream the loss does not use arrives as zeros (autograd materialises
     it), and a cotangent scattered from column slices may be strided: each
@@ -236,7 +226,7 @@ class _MlpStreams(torch.autograd.Function):
     def forward(ctx, flat, x, sizes, precision):
         ctx.save_for_backward(flat, x)
         ctx.meta = (sizes, precision)
-        return streams_fwd(flat, sizes, x)
+        return streams_fwd(flat, sizes, x, precision)
 
     @staticmethod
     def backward(ctx, *cts):
@@ -251,7 +241,7 @@ def mlp_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     """(out, d/dx, d/dy, d2/dx2, d2/dy2), each [N,K], of the MLP whose flat
     weights are `flat` (models/mlp.py layout, `sizes` its layer sizes).
     Differentiable wrt `flat` only. On a card the batch must be padded to
-    ROW_ALIGN rows and the backward runs the bf16 passes of `precision`; on
+    ROW_ALIGN rows and both kernels run the bf16 passes of `precision`; on
     the CPU the plain version computes exact fp32."""
     _check_precision(precision)
     if x.device.type == "cpu":

@@ -10,10 +10,10 @@ and points x[N,2], one call computes the thirteen raw [N,K] Taylor streams
 (1,1), (1,-1)), and its backward turns thirteen [N,K] cotangents into the
 gradient wrt the flat weights:
 
-  * kernel 5, `psi_fwd`: csrc/psi_streams.cu psi_fwd_kernel, which replaces
-    `_fwd_kernel` (pallas_psi.py:176);
-  * kernel 6, `psi_bwd`: psi_bwd_kernel<NP, T, K> over csrc/tc_psi.cuh,
-    which replaces `_bwd_kernel` (pallas_psi.py:223).
+  * kernel 5, `psi_fwd`: csrc/psi_streams.cu psi_fwd_kernel<NP, T, K>,
+    which replaces `_fwd_kernel` (pallas_psi.py:176);
+  * kernel 6, `psi_bwd`: psi_bwd_kernel<NP, T, K>, which replaces
+    `_bwd_kernel` (pallas_psi.py:223); both over csrc/tc_psi.cuh.
 
 `psi_streams` is the entry point of the streamfunction formulation (the net
 outputs (psi, p); u = psi_y, v = -psi_x, continuity exact): it returns the
@@ -21,25 +21,23 @@ outputs (psi, p); u = psi_y, v = -psi_x, continuity exact): it returns the
 outside the kernel, as the JAX package does (pallas_psi.py:373-380). On a
 CPU tensor it runs `plain_psi_streams` (the closed-form engine,
 differentiated by autograd) in exact fp32 at every name; on anything else it
-launches the kernel pair through `_PsiStreams`, or raises. x gets no
-gradient: collocation points are optimization constants
+launches the kernel pair at the name through `_PsiStreams`, or raises. x gets
+no gradient: collocation points are optimization constants
 (pallas_psi.py:367-369).
 
-Precision. Kernel 6 runs every hidden-layer and head product on bf16 parts
-of its operands at the name's passes, as the JAX backward does: "default"
-one pass, "high" three (JAX's bf16x3), "highest" six; the name reaches the
-kernel as the number of parts (`fused_residual.PARTS`). Kernel 5, the
-forward, computes exact fp32 at every name. So at "high" the gradient is
-that of JAX's bf16x3 backward, while the forward values are exact fp32
-(within 1e-5 of JAX's "high"). `plain_psi_streams_bwd(..., precision=name)`
-applies the same passes (`emulated_psi_streams`); `precision=None` is exact
-fp32.
+Precision. Both kernels run every hidden-layer and head product on bf16
+parts of their operands at the name's passes, as the JAX kernels do:
+"default" one pass, "high" three (JAX's bf16x3), "highest" six; the name
+reaches the kernels as the number of parts (`fused_residual.PARTS`).
+`plain_psi_streams(..., precision=name)` and
+`plain_psi_streams_bwd(..., precision=name)` apply the same passes
+(`emulated_psi_streams`); `precision=None` is exact fp32.
 
 Tiles come from this card's shared memory, not from the TPU kernels' VMEM
 budgets (`fwd_tile_for_psi` / `bwd_tile_for_psi`) or their
-NSFNET_PALLAS_PSI_*_TILE knobs: kernel 5's from `pick_tile`, kernel 6's
-(16 or 8 points and a weight panel) from `pick_bwd_tile`. Every tile
-divides ROW_ALIGN, so the solver's padding is that of the other engines.
+NSFNET_PALLAS_PSI_*_TILE knobs: both kernels take kernel 6's rule (16 or 8
+points and a weight panel, `pick_bwd_tile`). Every tile divides ROW_ALIGN,
+so the solver's padding is that of the other engines.
 """
 
 from __future__ import annotations
@@ -54,11 +52,11 @@ from nsfnet_tpu_torch.models.mlp import Params, param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build, mlp_streams
 from nsfnet_tpu_torch.ops.derivatives import (N_PSI_STREAMS, Derivs, assemble_psi_bundle,
                                               mlp_psi_streams, tanh_chain)
-from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, _TILES, LOSS_BLOCKS, PARTIAL_BLOCKS,
-                                                 PARTS, _pad16, _raise_on, _round16, pass_dot)
+from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, LOSS_BLOCKS, PARTS, _pad16,
+                                                 _raise_on, _round16, pass_dot)
 from nsfnet_tpu_torch.ops.mlp_streams import _check_inputs, _check_precision, _launch_args
 
-# Kernel 6: 16-point tiles where they fit, else 8 (the 13 streams padded to 14)
+# Kernels 5+6: 16-point tiles where they fit, else 8 (the 13 streams padded to 14)
 PSI_BWD_TILES = (16, 8)
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
@@ -70,27 +68,9 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def smem_bytes(tile: int, h: int, k: int = 2) -> int:
-    """Shared memory of one block of kernel 5 (two [13][T][H] carries, the
-    staged weight, the [13][T][K] head block), for choosing the tile without
-    the library; the source's nsf_psi_streams_smem_bytes owns the layout and
-    must agree (tests/test_torch_gpu.py checks every tile)."""
-    return 4 * (2 * N_PSI_STREAMS * tile * h + h * (h + 1) + N_PSI_STREAMS * tile * k)
-
-
-def pick_tile(h: int, k: int = 2) -> int:
-    """Kernel 5's tile: the largest (at most 16 points) whose block fits in
-    shared memory: 16 points up to H = 109 (161 KB at H = 80: one block per
-    SM), 8 from H = 110 (159 KB at H = 120)."""
-    for t in _TILES:
-        if smem_bytes(t, h, k) <= _MAX_SMEM:
-            return t
-    raise ValueError(f"hidden width {h} does not fit the kernel's shared memory")
-
-
 def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2) -> int:
-    """Shared memory of one block of kernel 6, for choosing the tile without
-    the library; the source's psi_smem (nsf_psi_streams_bwd_smem_bytes)
+    """Shared memory of one block of kernel 5 or 6, for choosing the tile
+    without the library; the source's psi_smem (nsf_psi_streams_smem_bytes)
     owns the layout and must agree (tests/test_torch_gpu.py checks)."""
     hp = _pad16(h)
     streams = N_PSI_STREAMS if tile == 16 else N_PSI_STREAMS + 1
@@ -102,8 +82,8 @@ def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2) -> int
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 2) -> Tuple[int, int]:
-    """(tile, panel) of kernel 6: the largest tile of PSI_BWD_TILES, then the
-    widest weight panel (a multiple of 16 dividing the padded width), whose
+    """(tile, panel) of kernels 5 and 6: the largest tile of PSI_BWD_TILES,
+    then the widest weight panel (a multiple of 16 dividing the padded width), whose
     block fits in shared memory. 16 points and the whole weight at 4x40 and
     at 6x80 up to "high"; 8 points at 6x80 "highest" and at 4x120 "high" /
     "highest". A width and name that fits neither raises."""
@@ -113,7 +93,7 @@ def pick_bwd_tile(h: int, precision: str = "high", k: int = 2) -> Tuple[int, int
         for panel in panels:
             if bwd_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
                 return tile, panel
-    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit kernel 6's "
+    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit kernels 5+6's "
                      f"shared memory")
 
 
@@ -121,7 +101,7 @@ def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
     """Matrix-product FLOPs of kernel 5 and kernel 6 on n points: the
     five-stream engine's count with thirteen streams (the elementwise tanh
     algebra is left out, so these give lower bounds on the time). One fp32
-    product each: kernel 6 runs `fused_residual.passes` bf16 products per
+    product each: the kernels run `fused_residual.passes` bf16 products per
     fp32 product."""
     return mlp_streams.flop_counts(sizes, n, N_PSI_STREAMS)
 
@@ -136,9 +116,9 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     """Bytes per launch of kernel 6's own traffic beyond its inputs: the
     tape (written once by the recompute, read by the carry rebuild and by
     the epilogues) and the read-modify-write of the block's gradient partial
-    once per tile; beside them, the same counts for the CUDA-core design it
-    replaced (kernel 5's tile, every layer's 13-row carry and 12 tangent
-    rows stored, one partial read and written per tile)."""
+    once per tile; beside them, the scratch the CUDA-core design it replaced
+    stored (every layer's 13-row carry and 12 tangent rows, written once and
+    read once)."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
     p = param_count(sizes)
     tile, _ = pick_bwd_tile(h, precision, k)
@@ -149,20 +129,24 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     old = n * (25 * n_hidden - 12) * h * 4
     return {"tape_written": written, "tape_read": written + rebuilt,
             "partial_rmw": tiles * p * 4 * 2,
-            "cuda_core_scratch_written": old, "cuda_core_scratch_read": old,
-            "cuda_core_partial_rmw": (n // pick_tile(h, k)) * p * 4 * 2}
+            "cuda_core_scratch_written": old, "cuda_core_scratch_read": old}
 
 
-def plain_psi_streams(flat: torch.Tensor, sizes: Sequence[int],
-                      x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The plain PyTorch version of kernel 5: the thirteen raw streams by the
-    closed form on the unflattened weights."""
-    return mlp_psi_streams(unflatten_params(flat, sizes), x)
+def plain_psi_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
+                      precision: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+    """The plain PyTorch version of kernel 5: the thirteen raw streams.
+    precision None: the closed form on the unflattened weights, exact fp32;
+    a name: the kernel's bf16 passes on every hidden and head product
+    (`emulated_psi_streams`)."""
+    params = unflatten_params(flat, sizes)
+    if precision is None:
+        return mlp_psi_streams(params, x)
+    return emulated_psi_streams(params, x, PARTS[precision])
 
 
 def emulated_psi_streams(params: Params, x: torch.Tensor, parts: int) -> Tuple[torch.Tensor, ...]:
-    """mlp_psi_streams with every hidden and head product run as kernel 6
-    runs it: on the 13-row packed carry [13N, H] (_layer_packed,
+    """mlp_psi_streams with every hidden and head product run as kernels 5
+    and 6 run it: on the 13-row packed carry [13N, H] (_layer_packed,
     pallas_psi.py:152-171, and the head at :186), through `pass_dot` with
     `parts` bf16 parts of each operand. At 3 parts it is about exact fp32."""
     w0, b0 = params[0]
@@ -196,10 +180,7 @@ def plain_psi_streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Ten
     and head product, forward and backward (`emulated_psi_streams`)."""
     flat = flat.detach().requires_grad_(True)
     with torch.enable_grad():
-        if precision is None:
-            streams = plain_psi_streams(flat, sizes, x)
-        else:
-            streams = emulated_psi_streams(unflatten_params(flat, sizes), x, PARTS[precision])
+        streams = plain_psi_streams(flat, sizes, x, precision)
     return torch.autograd.grad(streams, [flat], list(cts))[0]
 
 
@@ -208,14 +189,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("psi_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
     common = [p, p, i, i, i, i]
-    lib.nsf_psi_streams_fwd.argtypes = common + [i, i, ctypes.POINTER(p), p]
+    lib.nsf_psi_streams_fwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p]
     lib.nsf_psi_streams_fwd.restype = i
     lib.nsf_psi_streams_bwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p, p, p, p]
     lib.nsf_psi_streams_bwd.restype = i
-    lib.nsf_psi_streams_smem_bytes.argtypes = [i, i, i]
+    lib.nsf_psi_streams_smem_bytes.argtypes = [i, i, i, i, i]
     lib.nsf_psi_streams_smem_bytes.restype = i
-    lib.nsf_psi_streams_bwd_smem_bytes.argtypes = [i, i, i, i, i]
-    lib.nsf_psi_streams_bwd_smem_bytes.restype = i
     lib.nsf_psi_streams_tape_floats.argtypes = [i, i, i]
     lib.nsf_psi_streams_tape_floats.restype = ctypes.c_long
     lib.nsf_psi_streams_weight_bytes.argtypes = [i, i, i]
@@ -227,17 +206,26 @@ def _pointers(tensors):
     return (ctypes.c_void_p * N_PSI_STREAMS)(*(t.data_ptr() for t in tensors))
 
 
-def psi_fwd(flat: torch.Tensor, sizes: Sequence[int],
-            x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Kernel 5: the thirteen raw [N,K] streams (exact fp32)."""
+def _weight_split(lib, sizes, parts, dev) -> torch.Tensor:
+    """Workspace for the launch's split copy of the hidden weights."""
+    nbytes = lib.nsf_psi_streams_weight_bytes(len(sizes) - 2, sizes[1], parts)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def psi_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
+            precision: str = "high") -> Tuple[torch.Tensor, ...]:
+    """Kernel 5: the thirteen raw [N,K] streams, at the name's bf16 passes."""
+    _check_precision(precision)
     n = _check_inputs(flat, sizes, x)
-    tile = pick_tile(sizes[1], sizes[-1])
-    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=x.device)
+    tile, panel = pick_bwd_tile(sizes[1], precision, sizes[-1])
+    parts, dev, lib = PARTS[precision], x.device, _lib()
+    wsplit = _weight_split(lib, sizes, parts, dev)
+    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev)
                 for _ in range(N_PSI_STREAMS))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _lib().nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), tile, PARTIAL_BLOCKS,
-                                          _pointers(out), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
+                                       parts, wsplit.data_ptr(), _pointers(out), stream)
     _raise_on(code, "psi streams forward")
     launch_counts["psi_streams_fwd"] += 1
     return out
@@ -256,8 +244,7 @@ def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
     tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(tile, h, n_hidden),
                        dtype=torch.float32, device=dev)
-    wsplit = torch.empty(lib.nsf_psi_streams_weight_bytes(n_hidden, h, parts), dtype=torch.uint8,
-                         device=dev)
+    wsplit = _weight_split(lib, sizes, parts, dev)
     dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -271,7 +258,7 @@ def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
 
 
 class _PsiStreams(torch.autograd.Function):
-    """Kernel 5 forward, kernel 6 backward at the precision name (the
+    """Kernel 5 forward, kernel 6 backward, both at the precision name (the
     custom_vjp of pallas_psi.py:360-371). Gradients flow to flat only. The
     bundle never reads a_p and a_m, and p has no second or third
     derivatives, so several cotangents arrive as zeros (autograd
@@ -282,7 +269,7 @@ class _PsiStreams(torch.autograd.Function):
     def forward(ctx, flat, x, sizes, precision):
         ctx.save_for_backward(flat, x)
         ctx.meta = (sizes, precision)
-        return psi_fwd(flat, sizes, x)
+        return psi_fwd(flat, sizes, x, precision)
 
     @staticmethod
     def backward(ctx, *cts):
@@ -298,7 +285,7 @@ def psi_streams(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     the (psi, p) MLP whose flat weights are `flat` (models/mlp.py layout,
     `sizes` its layer sizes, K = 2): the contract of mlp_psi_derivatives_2d.
     Differentiable wrt `flat` only. On a card the batch must be padded to
-    ROW_ALIGN rows and the backward runs the bf16 passes of `precision`; on
+    ROW_ALIGN rows and both kernels run the bf16 passes of `precision`; on
     the CPU the plain version computes exact fp32."""
     _check_precision(precision)
     if sizes[-1] != 2:

@@ -8,16 +8,15 @@ Builds the libraries from this checkout's csrc/ and from the given directory
 runs the chosen kernels from both builds on the same seeded inputs on the
 card and compares their outputs, at 6x80 / N = 120,000 and 4x120 /
 N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 at
-6x80 with EVM only):
+6x80 with EVM only), every kernel at the precision name "high":
 
   * a kernel whose design is the same in both copies must be bitwise equal
-    (torch.equal); the tensor-core kernels (1, 2, 4, 6) run at the
-    precision name "high";
-  * a kernel of the other copy from before its tensor-core design (kernels
+    (torch.equal);
+  * a kernel of the other copy from before its tensor-core design (exact
+    fp32 on the CUDA cores, called through its old C interface: kernels
     1+2 before the tensor-core pair, kernels 4 and 6 before the tensor-core
-    backwards: exact fp32 on the CUDA cores, called through their old C
-    interfaces) is reported as the largest relative difference,
-    max|a - b| / max|b| per output.
+    backwards, kernels 3 and 5 before the tensor-core forwards) is reported
+    as the largest relative difference, max|a - b| / max|b| per output.
 
 Exits 1 when a kernel that must be bitwise equal differs. Use it after
 touching a header the kernels share.
@@ -49,6 +48,19 @@ def _inputs(sizes, n, dev):
     return g, flat, x
 
 
+def _legacy_tile(h, k, n_streams):
+    """The tile of the CUDA-core kernels: the largest of 16, 8, 4, 2, 1
+    points whose block (two packed carries of n_streams rows, the weight at
+    row stride h+1, the head block, and the five-stream kernels' loss
+    terms) fits in shared memory."""
+    for t in (16, 8, 4, 2, 1):
+        floats = (2 * n_streams * t * h + h * (h + 1) + n_streams * t * k
+                  + (4 * t if n_streams == 5 else 0))
+        if 4 * floats <= fr._MAX_SMEM:
+            return t
+    raise ValueError(f"hidden width {h} does not fit the CUDA-core kernels")
+
+
 def _legacy_pair(lib, flat, sizes, x, e, vis_t, eq_w, re, ct):
     """Kernels 1+2 of a copy whose C interface predates the tensor-core pair."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,7 +70,7 @@ def _legacy_pair(lib, flat, sizes, x, e, vis_t, eq_w, re, ct):
     lib.nsf_fused_loss_scratch_floats.argtypes = [i, i, i]
     lib.nsf_fused_loss_scratch_floats.restype = ctypes.c_long
     n, dev, nparam = x.shape[0], x.device, param_count(sizes)
-    tile = ms.pick_tile(sizes[1])  # the CUDA-core pair shared kernels 3+4's tile rule
+    tile = _legacy_tile(sizes[1], 3, 5)  # the CUDA-core pair shared kernels 3+4's tile rule
     args = [x.data_ptr(), flat.data_ptr(), e.data_ptr(), vis_t.data_ptr(), eq_w.data_ptr(), n,
             len(sizes) - 2, sizes[1], sizes[-1], tile, LEGACY_BLOCKS, re, 1.0, 1]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -77,35 +89,52 @@ def _legacy_pair(lib, flat, sizes, x, e, vis_t, eq_w, re, ct):
     return [sums], [dflat, g_e]
 
 
-def _legacy_engine(lib, prefix, flat, sizes, x, cts, tile):
-    """Forward and backward of a stream engine (prefix nsf_mlp_streams or
-    nsf_psi_streams) whose backward predates the tensor cores: the forward
-    through the interface it still has, the CUDA-core backward (exact fp32,
-    264 blocks, block-private scratch) through its old one."""
+def _legacy_engine_args(prefix, flat, sizes, x, n_streams):
+    """What the CUDA-core forward and backward of a stream engine (prefix
+    nsf_mlp_streams or nsf_psi_streams) take first, and how its stream
+    pointers are passed: the five-stream engine one argument each, the
+    order-3 engine as a host array."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    n, dev, nparam = x.shape[0], x.device, param_count(sizes)
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    psi_engine = prefix == "nsf_psi_streams"
-    ptrs = (lambda ts: [(p * len(ts))(*(t.data_ptr() for t in ts))]) if psi_engine else \
-        (lambda ts: [t.data_ptr() for t in ts])
-    ptr_types = [ctypes.POINTER(p)] if psi_engine else [p] * len(cts)
-    fwd, bwd = getattr(lib, prefix + "_fwd"), getattr(lib, prefix + "_bwd")
-    floats = getattr(lib, prefix + "_scratch_floats")
-    common = [p, p, i, i, i, i, i, i]
-    fwd.argtypes = common + ptr_types + [p]
-    bwd.argtypes = common + ptr_types + [p, p, p, p]
-    floats.argtypes, floats.restype = [i, i, i], ctypes.c_long
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = [x.data_ptr(), flat.data_ptr(), n, n_hidden, h, k, tile, LEGACY_BLOCKS]
-    outs = [torch.empty((n, k), device=dev) for _ in cts]
-    scratch = torch.empty(LEGACY_BLOCKS * floats(tile, h, n_hidden), device=dev)
+    tile = _legacy_tile(h, k, 13 if prefix == "nsf_psi_streams" else 5)
+    if prefix == "nsf_psi_streams":
+        ptrs, types = (lambda ts: [(p * len(ts))(*(t.data_ptr() for t in ts))]), \
+            [ctypes.POINTER(p)]
+    else:
+        ptrs, types = (lambda ts: [t.data_ptr() for t in ts]), [p] * n_streams
+    args = [x.data_ptr(), flat.data_ptr(), x.shape[0], n_hidden, h, k, tile, LEGACY_BLOCKS]
+    return args, [p, p, i, i, i, i, i, i] + types, ptrs, tile
+
+
+def _legacy_fwd(lib, prefix, flat, sizes, x, n_streams):
+    """The CUDA-core forward of a stream engine (exact fp32, 264 blocks)
+    through its old C interface."""
+    args, types, ptrs, _ = _legacy_engine_args(prefix, flat, sizes, x, n_streams)
+    fwd = getattr(lib, prefix + "_fwd")
+    fwd.argtypes, fwd.restype = types + [ctypes.c_void_p], ctypes.c_int
+    outs = [torch.empty((x.shape[0], sizes[-1]), device=x.device) for _ in range(n_streams)]
+    code = fwd(*args, *ptrs(outs), torch.cuda.current_stream(x.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"legacy {prefix} forward: CUDA error {code}")
+    return outs
+
+
+def _legacy_bwd(lib, prefix, flat, sizes, x, cts):
+    """The CUDA-core backward of a stream engine (exact fp32, 264 blocks,
+    block-private scratch) through its old C interface."""
+    p = ctypes.c_void_p
+    args, types, ptrs, tile = _legacy_engine_args(prefix, flat, sizes, x, len(cts))
+    bwd, floats = getattr(lib, prefix + "_bwd"), getattr(lib, prefix + "_scratch_floats")
+    bwd.argtypes, bwd.restype = types + [p, p, p, p], ctypes.c_int
+    floats.argtypes, floats.restype = [ctypes.c_int] * 3, ctypes.c_long
+    dev, nparam = x.device, param_count(sizes)
+    scratch = torch.empty(LEGACY_BLOCKS * floats(tile, sizes[1], len(sizes) - 2), device=dev)
     dpart, dflat = torch.empty(LEGACY_BLOCKS * nparam, device=dev), torch.empty(nparam, device=dev)
-    codes = (fwd(*args, *ptrs(outs), stream),
-             bwd(*args, *ptrs(cts), scratch.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
-                 stream))
-    if any(codes):
-        raise RuntimeError(f"legacy {prefix}: CUDA errors {codes}")
-    return outs, [dflat]
+    code = bwd(*args, *ptrs(cts), scratch.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    if code:
+        raise RuntimeError(f"legacy {prefix} backward: CUDA error {code}")
+    return [dflat]
 
 
 def _modern(csrc: Path, source: str, header: str) -> bool:
@@ -139,27 +168,27 @@ def run_kernels(csrc: Path, kernels) -> dict:
                                     eq_w, 2000.0, ct)
         out["6x80"] = {1: ("fused_residual_fwd", fwd, modern),
                        2: ("fused_residual_bwd", bwd, modern)}
-    engines = ((3, 4, 3, 5, "mlp_streams", ms.streams_fwd, ms.streams_bwd, ms.pick_tile,
-                "tc_mlp.cuh"),
-               (5, 6, 2, 13, "psi_streams", psi.psi_fwd, psi.psi_bwd, psi.pick_tile,
-                "tc_psi.cuh"))
+    engines = ((3, 4, 3, 5, "mlp_streams", ms.streams_fwd, ms.streams_bwd, "tc_mlp.cuh"),
+               (5, 6, 2, 13, "psi_streams", psi.psi_fwd, psi.psi_bwd, "tc_psi.cuh"))
     for case, n in CASES.items():
         got = out.setdefault(case, {})
         depth, width = (6, 80) if case == "6x80" else (4, 120)
-        for kf, kb, k, n_streams, name, fwd, bwd, pick_tile, header in engines:
+        for kf, kb, k, n_streams, name, fwd, bwd, header in engines:
             if not kernels & {kf, kb}:
                 continue
             sizes = layer_sizes(2, k, depth, width)
             g, flat, x = _inputs(sizes, n, dev)
             cts = [torch.randn((n, k), generator=g).to(dev) for _ in range(n_streams)]
-            modern = _modern(_build.CSRC, f"{name}.cu", header)
-            if modern:
-                outs, grads = list(fwd(flat, sizes, x)), [bwd(flat, sizes, x, cts, "high")]
-            else:
-                outs, grads = _legacy_engine(_build.load(name), f"nsf_{name}", flat, sizes, x,
-                                             cts, pick_tile(width, k))
-            got[kf] = (f"{name}_fwd", outs, True)
-            got[kb] = (f"{name}_bwd", grads, modern)
+            # the CUDA-core forwards ran forward_tile / psi_forward_tile
+            fwd_modern = "forward_tile(" not in (_build.CSRC / f"{name}.cu").read_text()
+            bwd_modern = _modern(_build.CSRC, f"{name}.cu", header)
+            lib, prefix = _build.load(name), f"nsf_{name}"
+            outs = (list(fwd(flat, sizes, x, "high")) if fwd_modern
+                    else _legacy_fwd(lib, prefix, flat, sizes, x, n_streams))
+            grads = ([bwd(flat, sizes, x, cts, "high")] if bwd_modern
+                     else _legacy_bwd(lib, prefix, flat, sizes, x, cts))
+            got[kf] = (f"{name}_fwd", outs, fwd_modern)
+            got[kb] = (f"{name}_bwd", grads, bwd_modern)
     torch.cuda.synchronize()
     return {case: {k: v for k, v in got.items() if k in kernels} for case, got in out.items()}
 

@@ -5,8 +5,11 @@ Usage:
     python -m nsfnet_tpu_torch.train --config configs/re2000_ev.yaml [--dry-run] [--cpu]
 
 Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
--> final checkpoint. Runs on the CUDA card; `--cpu` runs on the CPU, and
-without a card and without `--cpu` it raises. Options of the JAX driver
+-> final checkpoint. With `training.enable_tensorboard` (the default) the
+logged scalars go to `<tb_log_dir>/<experiment>_<timestamp>/scalars.jsonl`
+(and to TensorBoard where it is installed); every checkpoint gets
+`eq_losses.mat` beside it. Runs on the CUDA card; `--cpu` runs on the CPU,
+and without a card and without `--cpu` it raises. Options of the JAX driver
 that this port does not run yet (resume, init-from, profiling, per-stage
 resampling, RAR, L-BFGS/LM stages, supervision, Fourier / KAN, ...) are refused in
 `unsupported()` rather than ignored.
@@ -16,11 +19,13 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.training.solver import PINNSolver
+from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
 
 def parse_args(argv=None):
@@ -132,20 +137,27 @@ def main(argv=None) -> int:
     stages = cfg.training.training_stages
     logger.info(f"training: total epochs={sum(st.epochs for st in stages):,} "
                 f"over {len(stages)} stages")
-    for st in stages:
-        logger.stage(st.name, st.alpha, st.epochs, st.lr)
-        solver.current_stage = st.name
-        solver.set_alpha_evm(st.alpha)
-        solver.train(num_epoch=st.epochs, lr=st.lr, Re=st.Re or None,
-                     bc_weight=st.bc_weight or None,
-                     advance_on_stall=st.advance_on_stall,
-                     stall_threshold=cfg.training.stall_threshold,
-                     stall_window=cfg.training.stall_window,
-                     stall_min_epochs=st.resolved_stall_min(),
-                     stall_metric=cfg.training.stall_metric)
-        if eval_fields:
-            solver.evaluate(*eval_fields)
-    path = solver.save("model_final.ckpt")
+    if cfg.training.enable_tensorboard:
+        run_name = f"{cfg.experiment_name}_{time.strftime('%Y%m%d_%H%M%S')}"
+        solver.tb_writer = ScalarWriter(os.path.join(cfg.training.tb_log_dir, run_name))
+    try:
+        for st in stages:
+            logger.stage(st.name, st.alpha, st.epochs, st.lr)
+            solver.current_stage = st.name
+            solver.set_alpha_evm(st.alpha)
+            solver.train(num_epoch=st.epochs, lr=st.lr, Re=st.Re or None,
+                         bc_weight=st.bc_weight or None,
+                         advance_on_stall=st.advance_on_stall,
+                         stall_threshold=cfg.training.stall_threshold,
+                         stall_window=cfg.training.stall_window,
+                         stall_min_epochs=st.resolved_stall_min(),
+                         stall_metric=cfg.training.stall_metric)
+            if eval_fields:
+                solver.evaluate(*eval_fields)
+        path = solver.save("model_final.ckpt")
+    finally:
+        if solver.tb_writer is not None:
+            solver.tb_writer.close()
     logger.info(f"final state: {path}")
     logger.header("Training Completed")
     return 0

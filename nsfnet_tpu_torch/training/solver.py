@@ -62,6 +62,7 @@ from nsfnet_tpu_torch.training.step import (
     make_loss_fn,
     make_train_step,
 )
+from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
 
 def resolve_device(device=None) -> torch.device:
@@ -185,6 +186,7 @@ class PINNSolver:
         )
         self.global_step = 0
         self.loss_history = []  # (global_step, StepMetrics of floats) per log
+        self.tb_writer: Optional[ScalarWriter] = None  # the driver attaches one
 
         self._bc = None
         self._eq = None
@@ -550,6 +552,16 @@ class PINNSolver:
         tmp = path + ".tmp"
         torch.save(blob, tmp)
         os.replace(tmp, path)
+        if self.loss_history:  # the logged losses so far, beside the checkpoint
+            import scipy.io
+
+            hist = np.asarray([(step, m.total, m.equation, m.boundary, m.eq1, m.eq2, m.eq3,
+                                m.eq4) for step, m in self.loss_history], dtype=np.float64)
+            scipy.io.savemat(
+                os.path.join(os.path.dirname(path), "eq_losses.mat"),
+                {"step": hist[:, 0], "total": hist[:, 1], "eq": hist[:, 2],
+                 "bc": hist[:, 3], "eq1": hist[:, 4], "eq2": hist[:, 5],
+                 "eq3": hist[:, 6], "eq4": hist[:, 7]})
         return path
 
     def load(self, path: str):
@@ -623,4 +635,20 @@ class PINNSolver:
         self.logger.info(
             f"  perf: throughput={throughput:,.0f} pts/s lr={lr:.2e} "
             f"Re_eff={re_eff:.1f} alpha_evm={self.alpha_evm}{mem}")
+        if self.tb_writer is not None:
+            w, s = self.tb_writer, self.global_step
+            w.add_scalar("loss/total", m.total, s)
+            w.add_scalar("loss/boundary", m.boundary, s)
+            w.add_scalar("loss/eq_total", m.equation, s)
+            w.add_scalar("loss/eq1", m.eq1, s)
+            w.add_scalar("loss/eq2", m.eq2, s)
+            w.add_scalar("loss/eq3", m.eq3, s)
+            w.add_scalar("loss/eq4_entropy", m.eq4, s)
+            w.add_scalar("loss/supervision", m.supervised, s)
+            w.add_scalar("physics/Re_eff", re_eff, s)
+            w.add_scalar("physics/alpha_evm", self.alpha_evm, s)
+            w.add_scalar("perf/throughput_pts_per_s", throughput, s)
+            w.add_scalar("perf/avg_iter_s", avg_it_s, s)
+            w.add_scalar("perf/interval_iter_s", interval_it_s, s)
+            w.add_scalar("lr", lr, s)
 

@@ -210,10 +210,14 @@ def test_never_falls_back_off_the_cpu(monkeypatch):
 
 def test_tile_and_bounds_accounting_at_the_flagship_width():
     sizes = layer_sizes(2, 2, 6, 80)
-    assert psi.pick_tile(80) == 16 and psi.smem_bytes(16, 80) == 160_704  # one block per SM
-    assert psi.pick_tile(120) == 8 and psi.smem_bytes(16, 120) > 232_448  # 259,424 B: too large
-    assert psi.smem_bytes(8, 120) == 158_752
-    assert all(16 % t == 0 for t in (psi.pick_tile(h) for h in range(8, 129, 8)))
+    # kernels 5 and 6 share one rule: 16 points and the whole weight at 6x80
+    # "high", 8 points where 16 do not fit
+    assert psi.pick_bwd_tile(80, "high") == (16, 80)
+    assert psi.bwd_smem_bytes(16, 80, 80, 2) == 182_144  # one block per SM
+    assert psi.pick_bwd_tile(120, "high") == (8, 128)
+    assert psi.bwd_smem_bytes(16, 16, 120, 2) > 232_448  # 16 points do not fit at any panel
+    assert psi.pick_bwd_tile(40, "high") == (16, 48)
+    assert all(16 % psi.pick_bwd_tile(h)[0] == 0 for h in range(8, 129, 8))
     assert param_count(sizes) == 32_802
     fwd, bwd = psi.flop_counts(sizes, 120_000)
     assert fwd == 120_000 * (13 * 2 * 80 * 80 * 5 + 13 * 2 * 80 * 2) == 100_339_200_000

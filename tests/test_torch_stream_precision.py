@@ -1,16 +1,16 @@
-"""PyTorch port: the precision names of the stream engines' backwards.
+"""PyTorch port: the precision names of the stream engines.
 
-Kernel 4 (the five-stream engine's backward) and kernel 6 (the order-3
-engine's backward) run every hidden and head product on bf16 parts of its
-operands at the name's passes, as the JAX backward kernels do. Their plain
-versions (`plain_mlp_streams_bwd(..., precision=name)`,
-`plain_psi_streams_bwd(..., precision=name)`) apply the same passes with
-torch bf16 casts; here they are held at "high" (bf16x3) against the JAX
-package's backward kernels, whose Pallas code runs in interpret mode as the
-JAX package's own tests run it. JAX's "default" and "highest" compute fp32
-in interpret mode on the CPU, so those two names are held to the kernels on
-the card only (tests/test_torch_gpu.py, chip_smoke.py). The forward kernels
-(3 and 5) and every CPU entry point compute exact fp32 at every name.
+Kernels 3 and 4 (the five-stream engine) and kernels 5 and 6 (the order-3
+engine) run every hidden and head product on bf16 parts of their operands
+at the name's passes, as the JAX kernels do. Their plain versions
+(`plain_mlp_streams` / `plain_mlp_streams_bwd(..., precision=name)`,
+`plain_psi_streams` / `plain_psi_streams_bwd(..., precision=name)`) apply
+the same passes with torch bf16 casts; here they are held at "high"
+(bf16x3) against the JAX package's kernels, whose Pallas code runs in
+interpret mode as the JAX package's own tests run it. JAX's "default" and
+"highest" compute fp32 in interpret mode on the CPU, so those two names are
+held to the kernels on the card only (tests/test_torch_gpu.py,
+chip_smoke.py). Every CPU entry point computes exact fp32 at every name.
 """
 
 import jax
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from nsfnet_tpu.models.mlp import init_mlp as jax_init_mlp
+from nsfnet_tpu.ops import pallas_mlp as JM
 from nsfnet_tpu.ops import pallas_psi as JP
 from nsfnet_tpu.ops.pallas_mlp import TILE, make_fused_mlp_derivatives
 from nsfnet_tpu_torch.models.convert import params_from_numpy
@@ -40,6 +41,18 @@ torch.set_num_threads(2)
 # fp32 misses each bar (2.0e-5 for the order-3 engine; asserted below), so
 # the bars tell bf16x3 from fp32.
 GRAD_TOL, PSI_GRAD_TOL = 2e-6, 4e-6
+# The forwards, per stream against JAX's "high" streams. The two sides run
+# the same bf16x3 products on inputs that differ by the last bits of tanh
+# (XLA's and torch's); where such a difference carries an operand across a
+# rounding edge of its low bf16 part, that point moves by up to ~2^-16 of
+# the term. So a point-wise bar only bounds those flips: FWD_MAX_TOL, 2e-5
+# (max|diff| / max|JAX|; measured 1.3e-5 .. 1.6e-5 here), which exact fp32
+# also meets at the margin (2.2e-5 .. 3.6e-5 on these nets, so it narrowly
+# misses). The flips are rare, and bf16x3's own truncation is everywhere:
+# norm-wise (||diff|| / ||JAX||) the plain "high" passes sit 1.9e-6 ..
+# 3.3e-6 from JAX and exact fp32 1.2e-5 .. 2.4e-5, so FWD_NORM_TOL, 5e-6,
+# tells bf16x3 from fp32 (asserted below).
+FWD_MAX_TOL, FWD_NORM_TOL = 2e-5, 5e-6
 N = TILE  # one JAX tile: 512 points
 
 MLP_NETS = {"k3": (2, 16, 16, 3), "k1": (2, 16, 16, 1)}
@@ -69,6 +82,33 @@ def _grad_errors(plain_bwd, flat, sizes, x, cts, jgrads):
                               for pa, pb in zip(unflatten_params(got, sizes), jgrads)
                               for a, b in zip(pa, pb))
     return errs
+
+
+def _fwd_errors(plain_fwd, flat, sizes, x, jstreams):
+    """Per-stream errors of the plain forward against JAX's streams, at
+    "high" and in exact fp32: (max-wise, norm-wise) worst over the streams."""
+    errs = {}
+    for precision in ("high", None):
+        got = plain_fwd(flat, sizes, torch.from_numpy(x), precision)
+        assert len(got) == len(jstreams)
+        pairs = [(a.numpy(), np.asarray(b)) for a, b in zip(got, jstreams)]
+        errs[precision] = (max(_rel(a, b) for a, b in pairs),
+                           max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                               for a, b in pairs))
+    return errs
+
+
+@pytest.mark.parametrize("engine,sizes", [("mlp", MLP_NETS["k3"]), ("mlp", MLP_NETS["k1"]),
+                                          ("psi", (2, 16, 16, 2))], ids=["k3", "k1", "psi"])
+def test_plain_forward_at_high_matches_jax(engine, sizes):
+    jp, flat, x, _ = _setup(sizes, 0, 15 if engine == "mlp" else 16)
+    jax_mod, plain = (JM, ms.plain_mlp_streams) if engine == "mlp" else \
+        (JP, psi.plain_psi_streams)
+    # the JAX forward kernel at "high" (interpret mode on the CPU)
+    jstreams = jax_mod._fwd_pallas(jp, jnp.asarray(x), "high")
+    errs = _fwd_errors(plain, flat, sizes, x, jstreams)
+    assert errs["high"][0] <= FWD_MAX_TOL and errs["high"][1] <= FWD_NORM_TOL, errs
+    assert errs[None][1] > FWD_NORM_TOL, errs  # the norm-wise bar discriminates
 
 
 @pytest.mark.parametrize("net", sorted(MLP_NETS))

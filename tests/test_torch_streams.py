@@ -154,8 +154,12 @@ def test_never_falls_back_off_the_cpu(monkeypatch):
 
 def test_tile_and_bounds_accounting_at_the_v1_width():
     sizes = layer_sizes(2, 3, 4, 120)
-    assert ms.pick_tile(120) == 16
-    assert ms.smem_bytes(16, 120) == 136_096  # one block per SM, where 6x80 has two
+    # kernels 3 and 4 take the rule of kernels 1+2: 32 points, two 64-unit
+    # weight panels per layer at "high"; the whole weight at 6x80
+    assert ms.pick_bwd_tile(120, "high") == fr.pick_loss_tile(120, "high") == (32, 64)
+    assert fr.loss_smem_bytes(32, 64, 120, 2) == 224_896  # one block per SM
+    assert ms.pick_bwd_tile(80, "high") == (32, 80)
+    assert ms.pick_bwd_tile(120, "high", 1) == fr.pick_loss_tile(120, "high", 1)
     assert param_count(sizes) == 44_283
     fwd, bwd = ms.flop_counts(sizes, 40_000)
     assert fwd == 40_000 * (3 * 5 * 2 * 120 * 120 + 5 * 2 * 120 * 3)  # 435,600 FLOP/point
