@@ -22,6 +22,9 @@ Phases (any failure exits non-zero before the result line):
      N = 10,000) and at 4x120 (N = 40,000, the smaller tiles): the thirteen
      raw streams and the assembled (u, v, p) bundle, and the gradient from
      seeded random cotangents with the two unused streams zero and non-zero;
+     3a'. kernels 1+2 at the h160 campaign width (6x160, the same 120,000
+     points, Re = 4000, "high": tile 16, panel 160) against the plain passes
+     and exact fp32, bitwise across runs, timed;
   4. the paths, each through ConfigManager.from_dict -> build_solver on cuda
      -> train(), with the launch counts set to 0 just before and read just
      after:
@@ -43,22 +46,42 @@ Phases (any failure exits non-zero before the result line):
            on a small input;
      metrics must be finite, the loss must fall, and each path must have
      launched its kernels once per step and the other pairs not at all;
+       4f. the campaign path through the driver's main(), every checkpoint in
+           a temporary directory: (i) --resume the committed JAX checkpoint
+           artifacts/live_re4000_r4b/latest.ckpt (step 1,240,000, mid-R2) on
+           configs/re4000_r4b.yaml with R2 ending 40 steps later and R3 cut
+           to 40: the mid-stage entry, R3's redraw, a finite loss, kernels
+           1+2 once per step and 3-6 never; checkpoint write and JAX read
+           times; (ii) a real SIGTERM to the driver in a child process after
+           its step-20 checkpoint (exit 3), then --resume, bitwise equal to
+           the uninterrupted run; (iii) --init-from
+           artifacts/re4000_gentle/final_state.ckpt on
+           configs/re4000_ev_polish_h160.yaml cut to P1 and P2 at 20 steps:
+           the widened h160 net within 1e-6 of the h80 donor on a 101x101
+           grid, P2's residual-aware redraw (480,000 scored, 60,000 kept,
+           timed), and a resume from P2's checkpoint that replays its points
+           bitwise without scoring and ends bitwise where the run ended;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
      and the step time and collocation points/s of the
-     three paths, beside the card's name and power limit; the profiler's
-     table for each path's step.
+     three paths and of the 6x160 campaign step, beside the card's name and
+     power limit; the profiler's table for each path's step.
 Prints a `kernels` JSON line, then, last, the device JSON line. Also writes
 everything to chiprun_out/chip_smoke.json.
 """
 
+import base64
 import contextlib
+import glob
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 FP32_PEAK = 67e12      # H100 SXM, fp32 outside the tensor cores (FLOP/s)
@@ -67,6 +90,7 @@ BF16_PEAK = 989e12
 HBM_RATE = 3.35e12     # bytes/s
 
 RE = 2000.0
+RE_CAMPAIGN = 4000.0   # configs/re4000_r4b.yaml, configs/re4000_ev_polish_h160.yaml
 N_F = 120_000
 N_F_V1 = 40_000
 N_B = 4 * 513          # boundary points of the cavity data
@@ -84,6 +108,7 @@ SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
 UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
 ENGINE_TOL = 1e-4   # streamfunction step, kernel engine vs closed form: metrics, gradient tensors
 DIV_TOL = 1e-5      # |u_x + v_y| of the streamfunction field on a grid
+WIDEN_TOL = 1e-6    # widened net against its donor (Net2Net: exact zeros out of new units)
 N_SF_SMALL = 10_000  # N_f of configs/re100_streamfunction.yaml
 
 FLAGSHIP = {
@@ -199,10 +224,17 @@ def rel_max(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
+def worst_per_param(unflatten, got, ref, sizes):
+    """(the worst rel_max over the (W, b) tensors of two flat gradients, the
+    name of that tensor: W<i> / b<i>, layer i from 0)."""
+    return max((rel_max(a, r), f"{'Wb'[j]}{i}")
+               for i, (pa, pr) in enumerate(zip(unflatten(got, sizes), unflatten(ref, sizes)))
+               for j, (a, r) in enumerate(zip(pa, pr)))
+
+
 def rel_per_param(unflatten, got, ref, sizes):
     """The worst rel_max over the (W, b) tensors of two flat gradients."""
-    return max(rel_max(a, r) for pa, pr in zip(unflatten(got, sizes), unflatten(ref, sizes))
-               for a, r in zip(pa, pr))
+    return worst_per_param(unflatten, got, ref, sizes)[0]
 
 
 @contextlib.contextmanager
@@ -221,6 +253,7 @@ def env_var(name, value):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -394,6 +427,67 @@ def main() -> int:
     record["check"] = {"by_precision": pair_chk, "high_vs_exact": hi_exact,
                        "plain_high_vs_exact": plain_hi, "n": n, "pad": pad}
     del exact, sums_k, dflat_k, ge_k
+
+    # 3a'. kernels 1+2 at the h160 campaign width (configs/re4000_r4b.yaml:
+    # 6x160, Re = 4000) on the flagship's 120,000 points at "high" (tile 16,
+    # panel 160): against the plain passes and exact fp32, bitwise across
+    # runs, and timed here (the plain version's graph is not kept)
+    sizes160 = layer_sizes(2, 3, 6, 160)
+    flat160 = flatten_params(init_mlp(sizes160, torch.Generator().manual_seed(5))).to(dev)
+    vis_t160 = vis_t.clamp(max=20.0 / RE_CAMPAIGN)
+    args160 = (flat160, sizes160, x, e, vis_t160, eq_w, RE_CAMPAIGN)
+    ref160 = {}
+    for name in ("high", None):
+        flat_r = flat160.clone().requires_grad_(True)
+        e_r = e.clone().requires_grad_(True)
+        sums_p = fr.plain_residual_sums(unflatten_params(flat_r, sizes160), x, e_r, vis_t160,
+                                        eq_w, RE_CAMPAIGN, 1.0, True, name)
+        grads = torch.autograd.grad(sums_p, [flat_r, e_r], ct, retain_graph=name == "high")
+        ref160[name] = (sums_p.detach(), *grads)
+        if name == "high":
+            p2_ms = cuda_ms(torch, lambda: torch.autograd.grad(sums_p, [flat_r, e_r], ct,
+                                                               retain_graph=True), 3)
+        del sums_p, flat_r, e_r
+    with torch.no_grad():
+        p1_ms = cuda_ms(torch, lambda: fr.plain_residual_sums(
+            unflatten_params(flat160, sizes160), x, e, vis_t160, eq_w, RE_CAMPAIGN, 1.0, True,
+            "high"), 3)
+    runs = [(fr.fused_fwd(*args160, 1.0, True, "high"),
+             *fr.fused_bwd(*args160, ct, 1.0, True, "high")) for _ in range(2)]
+    torch.cuda.synchronize()
+    (sums_k, dflat_k, ge_k), again = runs
+    c160 = {"tile_panel": fr.pick_loss_tile(160, "high"), "n": n}
+    for tag, (s_r, d_r, g_r) in (("", ref160["high"]), ("exact_", ref160[None])):
+        c160[tag + "fwd_rel"] = rel_sums(sums_k.tolist(), s_r.tolist())
+        c160[tag + "bwd_rel"], c160[tag + "bwd_worst"] = worst_per_param(
+            unflatten_params, dflat_k, d_r, sizes160)
+        c160[tag + "ge_rel"] = rel_max(ge_k, g_r)
+    # the plain 'high' passes' own distance from exact fp32: where it is the
+    # larger, the kernel-vs-plain distance is the plain passes' error
+    c160["plain_exact_bwd"], c160["plain_exact_bwd_worst"] = worst_per_param(
+        unflatten_params, ref160["high"][1], ref160[None][1], sizes160)
+    c160["plain_exact_fwd"] = rel_sums(ref160["high"][0].tolist(), ref160[None][0].tolist())
+    c160["fwd_abs"] = (sums_k - ref160["high"][0]).abs().max().item()
+    c160["bwd_abs"] = max((dflat_k - ref160["high"][1]).abs().max().item(),
+                          (ge_k - ref160["high"][2]).abs().max().item())
+    c160["det"] = all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    c160["k1_ms"] = cuda_ms(torch, lambda: fr.fused_fwd(*args160, 1.0, True, "high"), 20)
+    c160["k2_ms"] = cuda_ms(torch, lambda: fr.fused_bwd(*args160, ct, 1.0, True, "high"), 10)
+    c160["p1_ms"], c160["p2_ms"] = p1_ms, p2_ms
+    print(f"kernels 1+2 at 6x160, N={n}, Re {RE_CAMPAIGN:g}, 'high', tile/panel "
+          f"{c160['tile_panel']}: sums {c160['fwd_rel']:.3e}, dW/db {c160['bwd_rel']:.3e}, g_e "
+          f"{c160['ge_rel']:.3e} from the plain passes (tolerance {BWD_TOL:g}); from exact fp32 "
+          f"sums {c160['exact_fwd_rel']:.3e}, dW/db {c160['exact_bwd_rel']:.3e}, g_e "
+          f"{c160['exact_ge_rel']:.3e}; bitwise equal across runs: {c160['det']}")
+    print(f"  worst dW/db tensor: {c160['bwd_worst']} from the plain passes, "
+          f"{c160['exact_bwd_worst']} from exact fp32; the plain 'high' passes from exact fp32: "
+          f"sums {c160['plain_exact_fwd']:.3e}, dW/db {c160['plain_exact_bwd']:.3e} "
+          f"(worst {c160['plain_exact_bwd_worst']})")
+    ok_check = (ok_check and c160["det"]
+                and max(c160[k] for k in c160 if k.endswith("_rel")) <= BWD_TOL)
+    record["check_h160"] = c160
+    del ref160, runs, again, sums_k, dflat_k, ge_k
+    torch.cuda.empty_cache()
 
     def check_forward(what, name, run, plain, exact, bundle=None):
         """A forward at `name` against the plain version's passes at that
@@ -700,6 +794,215 @@ def main() -> int:
     del sides, s
     torch.cuda.empty_cache()
 
+    # ---- 4f. the campaign path: configs/re4000_r4b.yaml and
+    # configs/re4000_ev_polish_h160.yaml at their widths (6x160 + 4x40 EVM,
+    # N_f = 120,000, Re = 4000, "high") through the driver's main(), their
+    # stages cut, every checkpoint under a temporary directory
+    from nsfnet_tpu_torch import train as train_mod
+    from nsfnet_tpu_torch.data.cavity import CavityData
+    from nsfnet_tpu_torch.training import checkpoint as ckpt_mod
+    from nsfnet_tpu_torch.training.solver import PINNSolver
+
+    campaign_dir = tempfile.mkdtemp(prefix="chip_smoke_campaign_")
+    seen, timings = [], {"residuals_at": [], "rar": []}
+    orig = (PINNSolver.train, PINNSolver.residuals_at, CavityData.rar_training_data)
+
+    def spy_train(self, *a, **kw):
+        resume = kw.get("resume_in_stage", False)
+        seen.append({"solver": self, "stage": self.current_stage, "resume": resume,
+                     "entry": self.state.epoch_in_stage if resume else 0,
+                     "global_step": self.global_step, "x_f": self.eq_points()[0].copy()})
+        return orig[0](self, *a, **kw)
+
+    def spy_scores(self, x, y, chunk=32768):
+        t0 = time.perf_counter()
+        out = orig[1](self, x, y, chunk)  # returns host arrays: synchronised
+        timings["residuals_at"].append((len(out), time.perf_counter() - t0))
+        return out
+
+    def spy_rar(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig[2](self, *a, **kw)
+        timings["rar"].append(time.perf_counter() - t0)
+        return out
+
+    def campaign_config(src, name, stages, **training):
+        # eval_data stays: its DNS file is not in the repository, and the
+        # driver skips the evaluation with a warning
+        raw = ConfigManager.from_file(src).to_dict()
+        raw["training"].update(checkpoint_dir=os.path.join(campaign_dir, name), **training)
+        raw["training"]["training_stages"] = stages
+        path = os.path.join(campaign_dir, f"{name}.yaml")
+        with open(path, "w") as f:
+            json.dump(raw, f)  # YAML reads JSON
+        return path
+
+    def ckpt_in(name, pattern):
+        found = sorted(glob.glob(os.path.join(campaign_dir, name, "**", pattern),
+                                 recursive=True))
+        return found[-1] if found else None
+
+    def same_state(a, b):
+        sa, sb = (torch.load(p, map_location="cpu", weights_only=True) for p in (a, b))
+        return (all(torch.equal(sa[k], sb[k]) for k in ("params", "params_evm", "vis_t_minus"))
+                and all(torch.equal(sa[o][m], sb[o][m]) for o in ("opt_main", "opt_evm")
+                        for m in ("mu", "nu")))
+
+    r4b_cfg, polish_cfg = "configs/re4000_r4b.yaml", "configs/re4000_ev_polish_h160.yaml"
+    r4b_ckpt = "artifacts/live_re4000_r4b/latest.ckpt"
+    gentle_ckpt = "artifacts/re4000_gentle/final_state.ckpt"
+    camp = {}
+    PINNSolver.train, PINNSolver.residuals_at = spy_train, spy_scores
+    CavityData.rar_training_data = spy_rar
+    child = None
+    try:
+        # (i) --resume the committed JAX checkpoint (step 1,240,000, 410,000
+        # steps into R2): R2 ends 40 steps later, R3 (redrawn) is cut to 40
+        stages = ConfigManager.from_file(r4b_cfg).to_dict()["training"]["training_stages"]
+        stages[1]["epochs"] = 1_240_040 - stages[0]["epochs"]
+        stages[2]["epochs"] = 40
+        path = campaign_config(r4b_cfg, "r4b", stages)
+        reset_counts()
+        t0 = time.time()
+        rc = train_mod.main(["--config", path, "--resume", r4b_ckpt])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches_campaign = read_counts()
+        meta = ckpt_mod.load_metadata(ckpt_in("r4b", "model_final.ckpt")) or {}
+        solver_c = seen[-1]["solver"]
+        hist = [(st, m._asdict()) for st, m in solver_c.loss_history]
+        finite = bool(hist) and all(math.isfinite(v) for _, m in hist for v in m.values())
+        entries = [(e["stage"], e["resume"], e["entry"], e["global_step"]) for e in seen]
+        redrawn = len(seen) == 2 and not np.array_equal(seen[0]["x_f"], seen[1]["x_f"])
+        print(f"campaign (i) --resume {r4b_ckpt} through train.main: exit {rc} in {seconds:.1f} s; "
+              f"stage entries (stage, mid-stage, entry epoch, global step) {entries}; final "
+              f"step {meta.get('global_step')} stage {meta.get('stage')} sampler draws_next "
+              f"{meta.get('sampler', {}).get('draws_next')}; R3 redrawn {redrawn}; launches "
+              f"{launches_campaign}")
+        for st, m in hist:
+            print(f"  step {st}: " + " ".join(f"{k}={val:.4e}" for k, val in m.items()))
+        ok_i = (rc == 0 and finite and redrawn
+                and entries == [("R2", True, 410_000, 1_240_000), ("R3", False, 0, 1_240_040)]
+                and meta.get("global_step") == 1_240_080 and meta.get("stage") == "R3"
+                and meta.get("sampler", {}).get("draws_next") == 2
+                and launches_campaign == {**dict.fromkeys(launches_campaign, 0),
+                                          "fused_residual_fwd": 80, "fused_residual_bwd": 80})
+        t0 = time.perf_counter()
+        solver_c.save("write_timing.ckpt", directory=campaign_dir)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solver_c.load(r4b_ckpt)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        print(f"  checkpoint write (torch.save + sidecar + fsync, 6x160 + carry) {write_s:.3f} s; "
+              f"JAX checkpoint read ({os.path.getsize(r4b_ckpt):,} B, decode + install) "
+              f"{read_s:.3f} s — {card}")
+        camp["resume"] = {"rc": rc, "seconds": seconds, "entries": entries, "history": hist,
+                          "launches": launches_campaign, "final_meta": meta, "ok": ok_i,
+                          "write_s": write_s, "read_s": read_s}
+
+        # (ii) on the card: a real SIGTERM to the driver in a child process,
+        # then --resume, against the uninterrupted run (fresh weights, seed)
+        sig_stages = [{"alpha": 0.002, "epochs": 10**6, "lr": 1e-4, "name": "T1"}]
+        sig_kw = dict(log_interval=1, checkpoint_freq=20)
+        path = campaign_config(r4b_cfg, "sigterm", sig_stages, **sig_kw)
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(campaign_dir, "sigterm.log"), "w") as log:
+            child = subprocess.Popen([sys.executable, "-m", "nsfnet_tpu_torch.train",
+                                      "--config", path], cwd=campaign_dir, stdout=log,
+                                     stderr=subprocess.STDOUT,
+                                     env=dict(os.environ, PYTHONPATH=root))
+            deadline = time.time() + 300
+            while (not ckpt_in("sigterm", "model_cavity_loop20.ckpt")
+                   and child.poll() is None and time.time() < deadline):
+                time.sleep(0.02)
+            child.send_signal(signal.SIGTERM)
+            child_rc = child.wait(timeout=300)
+        if child_rc != 3:
+            with open(os.path.join(campaign_dir, "sigterm.log")) as log:
+                print("  the child's log ends:\n" + log.read()[-3000:])
+        stop = ckpt_in("sigterm", "sigterm_step*.ckpt")
+        stop_step = (ckpt_mod.load_metadata(stop) or {}).get("global_step", -1) if stop else -1
+        total = max(40, stop_step + 10)
+        finals = {}
+        for name, extra in (("sigterm_whole", []), ("sigterm_resumed", ["--resume", str(stop)])):
+            sig_stages[0]["epochs"] = total
+            rc_ = train_mod.main(["--config", campaign_config(r4b_cfg, name, sig_stages, **sig_kw),
+                                  *extra])
+            finals[name] = (rc_, ckpt_in(name, "model_final.ckpt"))
+        equal = all(rc_ == 0 and f for rc_, f in finals.values()) and same_state(
+            finals["sigterm_whole"][1], finals["sigterm_resumed"][1])
+        print(f"campaign (ii) SIGTERM to the driver after its step-20 checkpoint: exit "
+              f"{child_rc}, stopped at step {stop_step}; resumed to step {total} against "
+              f"{total} uninterrupted steps: params, Adam moments and carry bitwise equal: {equal}")
+        ok_ii = child_rc == 3 and stop_step >= 20 and equal
+        camp["sigterm"] = {"rc": child_rc, "stop_step": stop_step, "total": total,
+                           "equal": equal, "ok": ok_ii}
+
+        # (iii) --init-from the h80 JAX checkpoint on re4000_ev_polish_h160
+        # cut to P1 and P2 at 20 steps each: the widened net against the
+        # donor, then P2's entry redraws residual-aware (4 x 120,000 scored,
+        # 60,000 kept), and a resume from P2's checkpoint replays its points
+        pol_stages = ConfigManager.from_file(polish_cfg).to_dict()["training"]["training_stages"][:2]
+        for st in pol_stages:
+            st["epochs"] = 20
+        path = campaign_config(polish_cfg, "polish", pol_stages, checkpoint_freq=10)
+        pcfg = ConfigManager.from_file(path).config
+        wide, pdata = ready_solver(pcfg)
+        train_mod.warm_start(wide, pcfg, pdata, gentle_ckpt)
+        donor = PINNSolver(Re=4000, layers=6, layers_1=4, hidden_size=80, hidden_size_1=40,
+                           N_f=pcfg.training.N_f, device="cuda")
+        donor.load(gentle_ckpt)
+        g = np.linspace(0.0, 1.0, 101, dtype=np.float32)
+        gx, gy = (a.reshape(-1, 1) for a in np.meshgrid(g, g))
+        widen_err = max((a - b).abs().max().item()
+                        for a, b in zip(wide.predict((gx, gy)), donor.predict((gx, gy))))
+        del wide, donor
+        seen.clear()
+        timings["residuals_at"].clear()
+        rc = train_mod.main(["--config", path, "--init-from", gentle_ckpt])
+        meta = ckpt_mod.load_metadata(ckpt_in("polish", "model_final.ckpt")) or {}
+        rar = meta.get("sampler", {}).get("rar") or {}
+        kept = len(base64.b64decode(rar.get("keep_idx", ""))) // 4
+        scored = list(timings["residuals_at"])
+        p2_points = [e["x_f"] for e in seen if e["stage"] == "P2"]
+        p2_ckpt = next((c for c in glob.glob(os.path.join(campaign_dir, "polish", "**", "*.ckpt"),
+                                             recursive=True)
+                        if (ckpt_mod.load_metadata(c) or {}).get("global_step") == 30), None)
+        seen.clear()
+        timings["residuals_at"].clear()
+        rc2 = train_mod.main(["--config", campaign_config(polish_cfg, "polish_resumed",
+                                                          pol_stages, checkpoint_freq=10),
+                              "--resume", str(p2_ckpt)])
+        replayed = (len(p2_points) == 1 and len(seen) == 1 and seen[0]["stage"] == "P2"
+                    and np.array_equal(seen[0]["x_f"], p2_points[0]))
+        resumed_equal = rc2 == 0 and same_state(ckpt_in("polish", "model_final.ckpt"),
+                                                ckpt_in("polish_resumed", "model_final.ckpt"))
+        print(f"campaign (iii) --init-from {gentle_ckpt}: h80 -> h160 widened net against the "
+              f"donor on a 101x101 grid, max |diff| of u, v, p, e {widen_err:.3e} (tolerance "
+              f"{WIDEN_TOL:g}); exit {rc}; P2 entry scored {[n for n, _ in scored]} points in "
+              f"{[round(t, 4) for _, t in scored]} s (residuals_at), the whole RAR redraw "
+              f"{[round(t, 4) for t in timings['rar']]} s, kept {kept} (pool_mult "
+              f"{rar.get('pool_mult')}) — {card}")
+        print(f"  resume from the P2 checkpoint at step 30: exit {rc2}, P2's points replayed "
+              f"bitwise without scoring: {replayed} (residuals_at calls "
+              f"{len(timings['residuals_at'])}); final state bitwise equal: {resumed_equal}")
+        ok_iii = (widen_err <= WIDEN_TOL and rc == 0 and kept == 60_000
+                  and rar.get("pool_mult") == 4 and [n for n, _ in scored] == [480_000]
+                  and replayed and not timings["residuals_at"] and resumed_equal)
+        camp["init_from"] = {"widen_err": widen_err, "rc": rc, "scored": scored,
+                             "rar_s": list(timings["rar"]), "kept": kept, "rc_resume": rc2,
+                             "replayed": replayed, "resumed_equal": resumed_equal, "ok": ok_iii}
+    finally:
+        PINNSolver.train, PINNSolver.residuals_at, CavityData.rar_training_data = orig
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(campaign_dir, ignore_errors=True)
+    record["campaign"] = camp
+    ok_campaign = ok_i and ok_ii and ok_iii
+    torch.cuda.empty_cache()
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -754,6 +1057,20 @@ def main() -> int:
         pair_times[name] = [w1.pop("row"), w2.pop("row")]
         work[f"fused_residual_fwd@{name}"], work[f"fused_residual_bwd@{name}"] = w1, w2
         torch.cuda.empty_cache()
+    # kernels 1+2 at the campaign width, timed in phase 3a' (the launches:
+    # phase 4f (i)'s run)
+    flops, nbytes = fr.flop_counts(sizes160, n), fr.byte_counts(sizes160, n, True)
+    shape = f"6x160, N={n}, EVM, 'high', tile {c160['tile_panel'][0]}, panel {c160['tile_panel'][1]}"
+    w1 = add_kernel("fused_residual_fwd", src, "nsfnet_tpu/ops/pallas_residual.py:100",
+                    launches_campaign["fused_residual_fwd"], c160["k1_ms"], c160["p1_ms"],
+                    c160["fwd_abs"], c160["fwd_rel"], flops[0], nbytes[0], shape,
+                    fr.passes("high"), keep=False)
+    w2 = add_kernel("fused_residual_bwd", src, "nsfnet_tpu/ops/pallas_residual.py:128",
+                    launches_campaign["fused_residual_bwd"], c160["k2_ms"], c160["p2_ms"],
+                    c160["bwd_abs"], max(c160["bwd_rel"], c160["ge_rel"]), flops[1], nbytes[1],
+                    shape, fr.passes("high"), keep=False)
+    pair_times["h160/high"] = [w1.pop("row"), w2.pop("row")]
+    work["fused_residual_fwd@h160"], work["fused_residual_bwd@h160"] = w1, w2
     traffic = fr.bwd_traffic(sizes, n, "high")
     print("kernel 2 traffic per launch at 'high' (from the shapes): tape written "
           f"{traffic['tape_written'] / 1e9:.3f} GB, read {traffic['tape_read'] / 1e9:.3f} GB, "
@@ -860,16 +1177,20 @@ def main() -> int:
     step_ms, pts_s = time_steps(solver, "slice (flagship ev-NSFnet, kernels 1+2)", N_F)
     v1_ms, v1_pts = time_steps(solver_v1, "slice (v1 NSFnet L2, kernels 3+4)", N_F_V1)
     sf_ms, sf_pts = time_steps(solver_sf, "slice (streamfunction ev-NSFnet, kernels 5+6)", N_F)
+    camp_ms, camp_pts = time_steps(solver_c, "campaign (re4000_r4b 6x160 ev-NSFnet, kernels 1+2)",
+                                   N_F)
     record["times"] = {"kernels": kernels, "pair_by_precision": pair_times,
                        "streams_by_width": stream_times,
                        "psi_by_width": psi_times, "work": work,
                        "step_ms": step_ms, "points_per_s": pts_s,
                        "v1_step_ms": v1_ms, "v1_points_per_s": v1_pts,
                        "sf_step_ms": sf_ms, "sf_points_per_s": sf_pts,
+                       "campaign_step_ms": camp_ms, "campaign_points_per_s": camp_pts,
                        "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
     record["profile"] = profile_steps(torch, solver, card, "flagship step")
     record["profile_v1"] = profile_steps(torch, solver_v1, card, "v1 L2 step")
     record["profile_sf"] = profile_steps(torch, solver_sf, card, "streamfunction step")
+    record["profile_campaign"] = profile_steps(torch, solver_c, card, "campaign 6x160 step")
     # the host side of each launch's weight split: its workspace allocation
     lib, reps = ms._lib(), 1000
     t0 = time.perf_counter()
@@ -884,11 +1205,12 @@ def main() -> int:
         json.dump(record, f, indent=1)
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
-            and ok_engine):
+            and ok_engine and ok_campaign):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
-              f"{ok_engine})", file=sys.stderr)
+              f"{ok_engine}, campaign resume / SIGTERM / init-from {ok_i} / {ok_ii} / "
+              f"{ok_iii})", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

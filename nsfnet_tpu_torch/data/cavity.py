@@ -15,14 +15,17 @@ The port's copy of nsfnet_tpu/data/cavity.py on its numpy sampling path
   * DNS eval fields from .mat (X/Y/U/V/P_ref) (cavity_data.py:144-160).
 
 For the same seed it draws the same points as the JAX package's
-`CavityData(use_native=False)`. The native sampler, residual-aware
-resampling and sampler-state checkpointing come in a later slice.
+`CavityData(use_native=False)`, and the two exchange sampler states: a state
+written by either replays bit for bit in the other (`get_state` /
+`set_state`, residual-aware draws included). The native sampler
+(native/pointgen.cpp) is not ported yet: a state it wrote is refused.
 
 All outputs are float32 numpy arrays shaped [N, 1] per channel.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 from typing import Optional, Tuple
 
@@ -63,8 +66,76 @@ class CavityData:
         self.x_min, self.x_max = lo, hi
         self.y_min, self.y_max = lo, hi
         self._rng = np.random.default_rng(self.seed)
+        # recorded for the JAX package's native sampler, which keys its draws
+        # on it; drawn from the stream when no seed is given, as there
+        self._native_seed = (self.seed if self.seed is not None
+                             else int(self._rng.integers(2**63)))
+        self._draws = 0  # logical draws so far
         self.pts_bc: Optional[np.ndarray] = None
         self.sdf_weights: Optional[np.ndarray] = None
+        self._pre_draw_rng_state = self._rng.bit_generator.state
+        self._state_is_pre_draw = True  # no draw has consumed the state yet
+        self._last_rar: Optional[dict] = None    # the latest draw's RAR spec
+        self._rar_replay: Optional[dict] = None  # set_state's spec, replayed next
+
+    # ------------------------------------------------ sampler checkpointing
+
+    def get_state(self) -> dict:
+        """Sampler state as of the most recent draw, in the JAX package's
+        format (JSON-safe): after `set_state(s)` the next `training_data()`
+        reproduces that draw bit for bit and the stream continues as it
+        did. A residual-aware draw records its kept pool indices (base64
+        little-endian uint32), so it replays without scores."""
+        if self._state_is_pre_draw:
+            # between set_state() and the next draw: the counter and the rng
+            # already point AT the next draw
+            draws_next, rng_state = self._draws, self._rng.bit_generator.state
+            rar = self._rar_replay
+        else:
+            draws_next = max(self._draws - 1, 0)
+            rng_state = self._pre_draw_rng_state
+            rar = self._last_rar
+        s = {"draws_next": draws_next, "native_seed": int(self._native_seed),
+             "rng_state": rng_state, "native": False}
+        if rar is not None:
+            s["rar"] = {
+                "pool_mult": int(rar["pool_mult"]),
+                "top_frac": float(rar["top_frac"]),
+                "keep_idx": base64.b64encode(
+                    np.asarray(rar["keep_idx"], dtype="<u4").tobytes()).decode("ascii"),
+            }
+        return s
+
+    def set_state(self, s: dict) -> None:
+        """Install a state from `get_state` (this package's or the JAX
+        package's numpy path); the next draw replays the state's draw."""
+        if s.get("native"):
+            raise RuntimeError(
+                "sampler state was recorded on the JAX package's native sampling path "
+                "(native/libpointgen.so), which the PyTorch port does not run yet "
+                "(ROADMAP Queue 1 item 7): its numpy path would draw other points than "
+                "the checkpointed carry belongs to. --init-from reads no sampler state "
+                "and still takes such a checkpoint.")
+        self._draws = int(s["draws_next"])
+        self._native_seed = int(s["native_seed"])
+        if s.get("rng_state") is not None:
+            st = dict(s["rng_state"])
+            if isinstance(st.get("state"), dict):  # JSON gives ints back as ints
+                st["state"] = {k: int(v) if isinstance(v, (int, float)) else v
+                               for k, v in st["state"].items()}
+            self._rng.bit_generator.state = st
+            self._pre_draw_rng_state = st
+        self._state_is_pre_draw = True
+        r = s.get("rar")
+        self._rar_replay = None
+        if r is not None:
+            idx = r["keep_idx"]
+            if isinstance(idx, str):
+                idx = np.frombuffer(base64.b64decode(idx), dtype="<u4")
+            self._rar_replay = {"pool_mult": int(r["pool_mult"]),
+                                "top_frac": float(r["top_frac"]),
+                                "keep_idx": np.asarray(idx, dtype=np.int64)}
+        self._last_rar = None
 
     @property
     def coord_scale(self) -> float:
@@ -96,10 +167,76 @@ class CavityData:
     def training_data(self) -> Tuple[np.ndarray, np.ndarray]:
         """(x_f, y_f) interior Latin-Hypercube collocation points
         (cavity_data.py:96-116). Requires boundary_data() first (to fix the
-        coordinate frame), like the reference. Each call draws fresh points."""
+        coordinate frame), like the reference. Each call is a fresh draw;
+        right after set_state() of a residual-aware draw it rebuilds that
+        draw's mixed set from the stored indices, without scores."""
         if self.pts_bc is None:
             raise RuntimeError("load boundary data first (fixes the coordinate frame)")
-        xye = latin_hypercube(self.N_f, [[0.0, 1.0], [0.0, 1.0]], rng=self._rng)
+        self._pre_draw_rng_state = self._rng.bit_generator.state
+        self._state_is_pre_draw = False
+        if self._rar_replay is not None:
+            # the raw draws in rar_training_data's order (pool, then fill)
+            spec, self._rar_replay = self._rar_replay, None
+            keep_idx = np.asarray(spec["keep_idx"], dtype=np.int64)
+            pool = self._raw_draw(int(spec["pool_mult"]) * self.N_f)
+            fill = self._raw_draw(self.N_f - keep_idx.shape[0])
+            xye = np.concatenate([pool[keep_idx], fill], axis=0)
+            self._last_rar = spec
+        else:
+            xye = self._raw_draw(self.N_f)
+            self._last_rar = None
+        self._draws += 1
+        return self._finalize(xye)
+
+    def rar_training_data(self, score_fn, pool_mult: int = 4,
+                          top_frac: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+        """Residual-aware resample (RAR; nsfnet_tpu/data/cavity.py:236-286):
+        draw a pool_mult x N_f candidate pool, keep the top_frac x N_f points
+        with the largest `score_fn(x, y)` (solver.residuals_at), fill the
+        rest with a fresh uniform draw. One logical draw: the kept indices
+        ride in get_state().
+
+        The bookkeeping moves only after score_fn returns: a stop (SIGTERM)
+        while scoring leaves get_state() describing the previous draw."""
+        if self.pts_bc is None:
+            raise RuntimeError("load boundary data first (fixes the coordinate frame)")
+        pool_mult = int(pool_mult)
+        if pool_mult < 1:
+            raise ValueError(f"rar pool_mult must be >= 1, got {pool_mult}")
+        if not 0.0 < float(top_frac) <= 1.0:
+            raise ValueError(f"rar top_frac must be in (0, 1], got {top_frac}")
+        pre_state = self._rng.bit_generator.state
+        pool = self._raw_draw(pool_mult * self.N_f)
+        pts = self._to_centered(pool) if self.coord_transform else pool
+        scores = np.asarray(score_fn(pts[:, 0:1].astype(np.float32),
+                                     pts[:, 1:2].astype(np.float32))).reshape(-1)
+        if scores.shape[0] != pool.shape[0]:
+            raise ValueError(f"score_fn returned {scores.shape[0]} scores for "
+                             f"{pool.shape[0]} pool points")
+        keep_n = min(self.N_f, max(1, int(round(float(top_frac) * self.N_f))))
+        keep_idx = np.sort(np.argpartition(-scores, keep_n - 1)[:keep_n]).astype(np.int64)
+        fill = self._raw_draw(self.N_f - keep_n)
+        xye = np.concatenate([pool[keep_idx], fill], axis=0)
+        self._pre_draw_rng_state = pre_state
+        self._state_is_pre_draw = False
+        self._last_rar = {"pool_mult": pool_mult, "top_frac": float(top_frac),
+                          "keep_idx": keep_idx}
+        self._rar_replay = None
+        self._draws += 1
+        return self._finalize(xye)
+
+    def _raw_draw(self, n: int) -> np.ndarray:
+        """One raw Latin-Hypercube draw of n points on the unit square (the
+        generation frame); leaves the logical-draw bookkeeping to the caller.
+        (The JAX package's native path also takes a salt to key a second raw
+        draw within one logical draw; the numpy stream needs none.)"""
+        if n <= 0:
+            return np.zeros((0, 2), dtype=np.float64)
+        return latin_hypercube(n, [[0.0, 1.0], [0.0, 1.0]], rng=self._rng)
+
+    def _finalize(self, xye: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Generation-frame points -> training-frame columns: coordinate
+        transform, optional boundary-distance sort, SDF weights."""
         if self.coord_transform:
             xye = self._to_centered(xye)
         if self.sort_training_points:

@@ -54,6 +54,33 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ w + b
 
 
+def widen_mlp_params(params: Params, new_hidden: int, generator: torch.Generator,
+                     scale: float = 1e-2) -> Params:
+    """Function-preserving width increase (Net2Net; nsfnet_tpu/models/mlp.py:98).
+
+    The old blocks are copied; new hidden units get N(0, scale^2) incoming
+    weights drawn on the CPU from `generator` (so they carry distinct
+    activations from the first step) and exactly zero weights out to the
+    old units and the head (the [fi:, :fo] block), so the widened net
+    computes the donor's function. New biases are zero."""
+    out = []
+    for li, (w, b) in enumerate(params):
+        fi, fo = w.shape
+        nfi = fi if li == 0 else new_hidden
+        nfo = fo if li == len(params) - 1 else new_hidden
+        W = torch.zeros((nfi, nfo), dtype=w.dtype)
+        W[:fi, :fo] = w.detach().cpu()
+        if nfo > fo:
+            W[:fi, fo:] = scale * torch.randn((fi, nfo - fo), generator=generator, dtype=w.dtype)
+            if nfi > fi:
+                W[fi:, fo:] = scale * torch.randn((nfi - fi, nfo - fo), generator=generator,
+                                                  dtype=w.dtype)
+        B = torch.zeros((nfo,), dtype=b.dtype)
+        B[:fo] = b.detach().cpu()
+        out.append((W.to(w.device), B.to(b.device)))
+    return tuple(out)
+
+
 def param_count(sizes: Sequence[int]) -> int:
     return sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
 

@@ -314,9 +314,13 @@ def _launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precisi
             PARTS[precision], float(re), float(scale), int(evm)]
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C interface returned a CUDA error code."""
+
+
 def _raise_on(code: int, what: str):
     if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+        raise KernelLaunchError(f"{what}: CUDA error {code} at launch")
 
 
 def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,

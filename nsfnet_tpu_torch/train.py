@@ -3,29 +3,58 @@ ev-NSFnet/train.py:74-224).
 
 Usage:
     python -m nsfnet_tpu_torch.train --config configs/re2000_ev.yaml [--dry-run] [--cpu]
+        [--resume CKPT | --init-from CKPT]
 
 Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
--> final checkpoint. With `training.enable_tensorboard` (the default) the
-logged scalars go to `<tb_log_dir>/<experiment>_<timestamp>/scalars.jsonl`
-(and to TensorBoard where it is installed); every checkpoint gets
-`eq_losses.mat` beside it. Runs on the CUDA card; `--cpu` runs on the CPU,
-and without a card and without `--cpu` it raises. Options of the JAX driver
-that this port does not run yet (resume, init-from, profiling, per-stage
-resampling, RAR, L-BFGS/LM stages, supervision, Fourier / KAN, ...) are refused in
-`unsupported()` rather than ignored.
+-> final checkpoint. A long campaign runs as the JAX driver's does:
+  * `--resume CKPT` continues a full-state checkpoint, the port's or the
+    JAX package's: the sampler state in its sidecar replays the writer's
+    collocation points, stages the restored step has covered are skipped,
+    and the stage it stopped in goes on from its restored epoch;
+  * `--init-from CKPT` warm-starts from a finished run's networks only
+    (fresh optimizer, schedule from step 0), widened function-preservingly
+    (Net2Net) where the config is wider than the donor;
+  * `resample_each_stage` draws fresh points at each stage start, residual-
+    aware (RAR) where `rar_pool_mult` > 0 (`rar_schedule`: first | every);
+  * SIGTERM stops at a chunk boundary, writes `sigterm_step<N>.ckpt` and
+    exits with code 3, for a later `--resume`;
+  * a device error rolls back to the stage's last checkpoint (solver.train).
+With `training.enable_tensorboard` (the default) the logged scalars go to
+`<tb_log_dir>/<experiment>_<timestamp>/scalars.jsonl` (and to TensorBoard
+where it is installed); every checkpoint gets `eq_losses.mat` beside it.
+Runs on the CUDA card; `--cpu` runs on the CPU, and without a card and
+without `--cpu` it raises. Options of the JAX driver that this port does not
+run yet (profiling, L-BFGS/LM stages, supervision, adaptive bc weight,
+Fourier / KAN, ...) are refused in `unsupported()` rather than ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
+import signal
 import time
+
+import torch
 
 from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.logger import get_logger
+from nsfnet_tpu_torch.models.mlp import widen_mlp_params
+from nsfnet_tpu_torch.training import checkpoint as ckpt
 from nsfnet_tpu_torch.training.solver import PINNSolver
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
+
+
+class GracefulStop(Exception):
+    """Raised by the SIGTERM handler. The solver masks SIGTERM across each
+    chunk of steps and its step count, so this lands at a chunk boundary;
+    the driver checkpoints the state and exits with code 3."""
+
+
+def _on_sigterm(signum, frame):
+    raise GracefulStop()
 
 
 def parse_args(argv=None):
@@ -33,13 +62,20 @@ def parse_args(argv=None):
     p.add_argument("--config", type=str, default="configs/re5000_production.yaml")
     p.add_argument("--dry-run", action="store_true",
                    help="print config & stages then exit (ev-NSFnet/train.py:18)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="full-state checkpoint (this package's or the JAX package's) "
+                        "to resume from")
+    p.add_argument("--init-from", type=str, default=None,
+                   help="warm start: the network params only from this checkpoint "
+                        "(fresh optimizer, schedule from step 0), widened "
+                        "function-preservingly where the config is wider")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     return p.parse_args(argv)
 
 
 def unsupported(cfg) -> list:
-    """Config settings this slice of the port cannot honour."""
+    """Config settings this port cannot honour yet."""
     t, n = cfg.training, cfg.network
     out = []
     if cfg.model_variant not in ("nsfnet", "ev-nsfnet"):
@@ -48,8 +84,8 @@ def unsupported(cfg) -> list:
         out.append("only the plain MLP backbone (either formulation)")
     if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
         out.append("microbatches / mesh_devices > 1")
-    if t.resample_each_stage or t.rar_pool_mult or t.adaptive_bc_weight:
-        out.append("resample_each_stage / rar_pool_mult / adaptive_bc_weight")
+    if t.adaptive_bc_weight:
+        out.append("adaptive_bc_weight")
     if cfg.supervision.enabled:
         out.append("supervision")
     for st in t.training_stages:
@@ -80,6 +116,7 @@ def build_solver(cfg, device=None) -> PINNSolver:
         checkpoint_path=cfg.training.checkpoint_dir,
         loss_mode=cfg.training.loss_mode,
         formulation=cfg.network.formulation,
+        max_chunk=cfg.training.max_chunk,
         device=device,
     )
 
@@ -94,6 +131,55 @@ def build_data(cfg) -> CavityData:
         coord_transform=cfg.training.coordinate_transform,
         seed=cfg.training.seed,
     )
+
+
+def warm_start(solver: PINNSolver, cfg, data: CavityData, init_from: str) -> int:
+    """Install the networks of the checkpoint `init_from` into `solver`
+    (nsfnet_tpu/train.py:250-340): params only, a fresh optimizer and a carry
+    recomputed from the installed EVM net; the main net widened (Net2Net)
+    where the config is wider than the donor. The donor trains on the
+    solver's own draw (`eq_points`), so the sampler does not advance.
+    The donor's shapes come from peek_architecture (the JAX package's state
+    itself, the port's sidecar). Raises ValueError where they cannot be read
+    or the transfer would not be one: another depth, a narrower config,
+    another backbone or formulation, another EVM net.
+    Returns the donor's hidden size."""
+    net = cfg.network
+    meta = ckpt.load_metadata(init_from) or {}
+    arch = ckpt.peek_architecture(init_from)
+    if arch is None:
+        raise ValueError(f"--init-from: cannot read the network shapes of {init_from}")
+    donor_hidden, donor_layers = int(arch["hidden_size"]), int(arch["layers"])
+    if donor_layers != net.layers:
+        raise ValueError(f"--init-from: the donor has {donor_layers} layers, the config "
+                         f"{net.layers}; depth transfer is not supported")
+    if donor_hidden > net.hidden_size:
+        raise ValueError(f"--init-from: donor hidden_size {donor_hidden} exceeds the "
+                         f"config's {net.hidden_size}; widening only")
+    if meta.get("backbone", "mlp") != "mlp":
+        raise ValueError("--init-from supports the MLP backbone only")
+    if meta.get("formulation", "velocity") != net.formulation:
+        raise ValueError(f"--init-from: donor formulation "
+                         f"{meta.get('formulation', 'velocity')!r} != config "
+                         f"{net.formulation!r} (the heads predict different quantities)")
+    if cfg.model_variant == "ev-nsfnet":
+        donor_h1, donor_l1 = arch.get("hidden_size_1"), arch.get("layers_1")
+        if donor_h1 is not None and (donor_l1, donor_h1) != (net.layers_1, net.hidden_size_1):
+            raise ValueError(f"--init-from: the donor EVM net is {donor_l1}x{donor_h1}, the "
+                             f"config's {net.layers_1}x{net.hidden_size_1}; the EVM net "
+                             f"transfers only at an exact match")
+    dcfg = copy.deepcopy(cfg)
+    dcfg.network.hidden_size = donor_hidden
+    donor = build_solver(dcfg, device=solver.device)
+    donor.set_boundary_data(X=data.boundary_data())
+    donor.set_eq_training_data(X=solver.eq_points(), weights=data.sdf_weights)
+    donor.load(init_from)
+    params, params_evm = donor.params(), donor.params_evm()
+    if donor_hidden != net.hidden_size:
+        params = widen_mlp_params(params, net.hidden_size,
+                                  torch.Generator().manual_seed(cfg.training.seed))
+    solver.set_params(params, params_evm)
+    return donor_hidden
 
 
 def main(argv=None) -> int:
@@ -118,9 +204,13 @@ def main(argv=None) -> int:
     if problems:
         logger.error(f"invalid configuration ({len(problems)} problem(s) above); aborting")
         return 2
+    if args.init_from and args.resume:
+        logger.error("--init-from and --resume are mutually exclusive")
+        return 2
 
     solver = build_solver(cfg, device="cpu" if args.cpu else None)
     data = build_data(cfg)
+    solver.attach_dataset(data)
     solver.set_boundary_data(X=data.boundary_data())
     solver.set_eq_training_data(X=data.training_data(), weights=data.sdf_weights)
     solver.set_coordinate_transform(data.coord_scale)
@@ -134,6 +224,32 @@ def main(argv=None) -> int:
     elif cfg.eval_data:
         logger.warning(f"eval data {cfg.eval_data} missing; skipping evaluation")
 
+    if args.init_from:
+        try:
+            donor_hidden = warm_start(solver, cfg, data, args.init_from)
+        except ValueError as err:
+            logger.error(str(err))
+            return 2
+        if donor_hidden != cfg.network.hidden_size:
+            logger.info(f"warm-start: widened h{donor_hidden} -> h{cfg.network.hidden_size} "
+                        f"(function-preserving)")
+        logger.info(f"warm-start from {args.init_from}: params only; fresh optimizer, "
+                    f"schedule from step 0")
+
+    start_step, sampler_replayed = 0, False
+    if args.resume:
+        # the sampler first: the replayed points go in (set_eq_training_data
+        # resets the carry), then load() installs the carry that belongs to them
+        meta = ckpt.load_metadata(args.resume)
+        if meta and meta.get("sampler") is not None:
+            data.set_state(meta["sampler"])
+            solver.set_eq_training_data(X=data.training_data(), weights=data.sdf_weights)
+            sampler_replayed = True
+            logger.info("sampler state restored; collocation points replayed")
+        solver.load(args.resume)
+        start_step = solver.global_step
+        logger.info(f"resumed from {args.resume} at step {start_step}")
+
     stages = cfg.training.training_stages
     logger.info(f"training: total epochs={sum(st.epochs for st in stages):,} "
                 f"over {len(stages)} stages")
@@ -141,12 +257,47 @@ def main(argv=None) -> int:
         run_name = f"{cfg.experiment_name}_{time.strftime('%Y%m%d_%H%M%S')}"
         solver.tb_writer = ScalarWriter(os.path.join(cfg.training.tb_log_dir, run_name))
     try:
-        for st in stages:
-            logger.stage(st.name, st.alpha, st.epochs, st.lr)
+        old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        installed = True
+    except ValueError:  # not the main thread: SIGTERM keeps its default action
+        installed = False
+    try:
+        cum = 0
+        for i, st in enumerate(stages):
+            stage_start, stage_end = cum, cum + st.epochs
+            cum = stage_end
+            if start_step >= stage_end:
+                continue  # covered by the restored step
+            logger.stage(st.name, st.alpha, stage_end - max(start_step, stage_start), st.lr)
             solver.current_stage = st.name
             solver.set_alpha_evm(st.alpha)
+            # a mid-stage resume keeps the stage's points (replayed from the
+            # sampler state where the checkpoint has one)
+            mid_stage = bool(args.resume) and start_step > stage_start
+            if mid_stage and cfg.training.resample_each_stage and not sampler_replayed:
+                logger.warning("mid-stage resume without sampler metadata under "
+                               "resample_each_stage: the collocation points may differ "
+                               "from the writer's (approximate resume)")
+            if cfg.training.resample_each_stage and i > 0 and not mid_stage:
+                # rar_schedule "first": residual-aware only on the run's first
+                # redraw (stage 1); later redraws are uniform
+                use_rar = cfg.training.rar_pool_mult > 0 and (
+                    cfg.training.rar_schedule == "every" or i == 1)
+                if use_rar:
+                    X = data.rar_training_data(solver.residuals_at,
+                                               pool_mult=cfg.training.rar_pool_mult,
+                                               top_frac=cfg.training.rar_top_frac)
+                    logger.info(f"RAR resample: scored pool {cfg.training.rar_pool_mult}x"
+                                f"{cfg.training.N_f:,}, kept worst "
+                                f"{cfg.training.rar_top_frac:.0%}")
+                else:
+                    X = data.training_data()
+                solver.set_eq_training_data(X=X, weights=data.sdf_weights)
+            # a mid-stage resume runs the FULL stage from the restored
+            # epoch_in_stage, so the EVM gate's phase stays aligned
             solver.train(num_epoch=st.epochs, lr=st.lr, Re=st.Re or None,
                          bc_weight=st.bc_weight or None,
+                         resume_in_stage=mid_stage,
                          advance_on_stall=st.advance_on_stall,
                          stall_threshold=cfg.training.stall_threshold,
                          stall_window=cfg.training.stall_window,
@@ -155,7 +306,13 @@ def main(argv=None) -> int:
             if eval_fields:
                 solver.evaluate(*eval_fields)
         path = solver.save("model_final.ckpt")
+    except GracefulStop:
+        path = solver.save(f"sigterm_step{solver.global_step}.ckpt")
+        logger.info(f"SIGTERM: checkpointed {path}; exiting for --resume")
+        return 3
     finally:
+        if installed:
+            signal.signal(signal.SIGTERM, old_handler)
         if solver.tb_writer is not None:
             solver.tb_writer.close()
     logger.info(f"final state: {path}")

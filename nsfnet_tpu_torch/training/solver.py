@@ -4,13 +4,17 @@ nsfnet_tpu/training/solver.py, main path).
 API parity with the reference `PysicsInformedNeuralNetwork`
 (ev-NSFnet/pinn_solver.py:27-765): set_boundary_data, set_eq_training_data,
 set_coordinate_transform, set_alpha_evm, train, evaluate, predict, save,
-load. What differs from the reference, as in the JAX package:
+load; and the JAX package's campaign surface: attach_dataset, eq_points,
+refresh_vis_t, residuals_at, mid-stage resume, bounded chunks, a SIGTERM-safe
+step counter and the rollback after a device error. What differs from the
+reference, as in the JAX package:
   * point batches are padded with zero-weight rows; losses are exact means
     over the real points;
   * the EVM lag field vis_t is a device carry (no per-step host sync);
   * the EVM freeze schedule is a gated update (no optimizer rebuild, Adam
     moments kept);
-  * checkpoints hold the FULL train state for an exact resume.
+  * checkpoints hold the FULL train state for an exact resume; `load` also
+    reads the JAX package's checkpoints (training/checkpoint.py).
 
 The solver runs on `cuda` unless the caller asks for the CPU; with no card
 and no such request it raises. `engine` names the residual-engine backend
@@ -32,14 +36,15 @@ is never used. Under `auto`, NSFNET_PALLAS_PSI=0 keeps the closed form on a
 card; an explicit engine="pallas" wins.
 
 Left for later slices: L-BFGS / LM polish, microbatching, multi-GPU,
-supervised data, KAN / Fourier features, RAR and resampling, adaptive bc
-weight, .pth import/export.
+supervised data, KAN / Fourier features, adaptive bc weight, test(),
+.pth import/export.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import signal
 import time
 from typing import Optional
 
@@ -47,14 +52,16 @@ import numpy as np
 import torch
 
 from nsfnet_tpu_torch.logger import get_logger
+from nsfnet_tpu_torch.models import convert
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
 from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.ops.derivatives import (mlp_derivatives_2d, mlp_psi_derivatives_2d,
                                               psi_p_uv)
-from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, fused_residual_loss
+from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, KernelLaunchError, fused_residual_loss
 from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
 from nsfnet_tpu_torch.ops.psi_streams import psi_streams
 from nsfnet_tpu_torch.parallel import mesh as pmesh
+from nsfnet_tpu_torch.training import checkpoint as ckpt
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
 from nsfnet_tpu_torch.training.step import (
     StageScalars,
@@ -63,6 +70,42 @@ from nsfnet_tpu_torch.training.step import (
     make_train_step,
 )
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
+
+
+# Errors after which train() rolls back to its last checkpoint: a kernel's
+# launch error, the allocator running out, and torch's CUDA error. A sticky
+# error poisons the context, so the reload fails too and is raised: the
+# process ends, and --resume from the newest checkpoint takes over.
+DEVICE_ERRORS = (KernelLaunchError, torch.cuda.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
+@contextlib.contextmanager
+def _defer_sigterm():
+    """Defer SIGTERM across a chunk of steps and the step-counter increment
+    (the counterpart of nsfnet_tpu/training/solver.py:50-69). The chunk
+    runner advances the state in place one step at a time, so the driver's
+    GracefulStop raised inside it would checkpoint params ahead of
+    `global_step`. A thread mask cannot hold it off here (the kernel hands a
+    process-wide signal to a thread that does not block it, such as one of
+    torch's worker threads, and Python runs its handler in the main thread
+    all the same), so the region installs a handler that only records the
+    signal, and delivers it again to the driver's handler on the way out,
+    at a chunk boundary. An exception leaving the region wins."""
+    pending = []
+    try:
+        old = signal.signal(signal.SIGTERM, lambda signum, frame: pending.append(signum))
+    except ValueError:  # not the main thread: nothing to defer to
+        yield
+        return
+    try:
+        yield
+    except BaseException:
+        signal.signal(signal.SIGTERM, old)
+        raise
+    signal.signal(signal.SIGTERM, old)
+    if pending:
+        signal.raise_signal(signal.SIGTERM)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,9 +174,11 @@ class PINNSolver:
         engine: str = "auto",  # auto | pallas | xla — residual-engine backend
         loss_mode: str = "MSE",  # MSE | L2 (reference v1's un-normalized norms)
         formulation: str = "velocity",  # velocity | streamfunction (net outputs psi, p)
+        max_chunk: int = 2000,  # most steps queued between two host syncs
         device=None,
     ):
         self.device = resolve_device(device)
+        self.max_chunk = int(max_chunk)
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}; auto, pallas or xla")
         if loss_mode not in ("MSE", "L2"):
@@ -187,6 +232,7 @@ class PINNSolver:
         self.global_step = 0
         self.loss_history = []  # (global_step, StepMetrics of floats) per log
         self.tb_writer: Optional[ScalarWriter] = None  # the driver attaches one
+        self.dataset = None  # the sampler whose state rides in checkpoints
 
         self._bc = None
         self._eq = None
@@ -224,9 +270,7 @@ class PINNSolver:
         self.state.opt_main = AdamState.zeros_like(self.net.flat)
         if self.evm:
             self.state.opt_evm = AdamState.zeros_like(self.net_1.flat)
-            if self._eq is not None:
-                self._init_vis_t()
-                self._vis_stale = True
+        self.refresh_vis_t()
         self._dirty = True
 
     # ---------------------------------------------------------------- data
@@ -247,6 +291,26 @@ class PINNSolver:
         if self.evm:
             self._init_vis_t()
             self._vis_stale = True  # the carried vis_t belongs to the old points
+
+    def eq_points(self):
+        """The installed (x_f, y_f) columns: a second solver (the --init-from
+        donor) shares this draw without advancing the sampler."""
+        return self._eq
+
+    def attach_dataset(self, dataset) -> None:
+        """Register the collocation sampler (data/cavity.CavityData): its
+        state rides in every checkpoint's metadata, so a resume replays the
+        writer's points."""
+        self.dataset = dataset
+
+    def refresh_vis_t(self):
+        """Recompute the viscosity carry from the current EVM net (after new
+        weights are installed); a no-op without an EVM net or points."""
+        if not self.evm or self._eq is None:
+            return
+        self._init_vis_t()
+        self._vis_stale = True
+        self._dirty = True
 
     def _init_vis_t(self):
         """vis_t_minus := alpha_evm*|e(x_f)| with the current EVM net
@@ -378,13 +442,18 @@ class PINNSolver:
 
     def train(self, num_epoch: int = 1, lr: float = 1e-4,
               Re: Optional[float] = None, bc_weight: Optional[float] = None,
-              advance_on_stall: bool = False, stall_threshold: float = 0.02,
-              stall_window: int = 3, stall_min_epochs: int = 0,
-              stall_metric: str = "eq_loss"):
+              resume_in_stage: bool = False, advance_on_stall: bool = False,
+              stall_threshold: float = 0.02, stall_window: int = 3,
+              stall_min_epochs: int = 0, stall_metric: str = "eq_loss"):
         """One Adam stage: num_epoch full-batch steps at fixed lr
         (parity: ev-NSFnet/pinn_solver.py:430-487); Re / bc_weight override
         the physics for this stage. Syncs with the device only at log and
-        checkpoint boundaries.
+        checkpoint boundaries, and at least every `max_chunk` steps.
+
+        resume_in_stage continues a restored checkpoint mid-stage:
+        num_epoch is then the FULL stage length and training starts at the
+        restored epoch_in_stage, so the EVM gate's phase (epoch %
+        evm_update_freq) matches the uninterrupted run.
 
         advance_on_stall ends the stage early once the stall metric, read at
         the log boundaries, has failed to set a better minimum by
@@ -394,19 +463,24 @@ class PINNSolver:
         against the fields given to `attach_eval_data` (the equation loss if
         none are attached). An early end fast-forwards `global_step` to the
         stage's end and writes the stage-end checkpoint, so that train.py's
-        stage <-> step mapping lands on the next stage."""
+        stage <-> step mapping lands on the next stage.
+
+        A device error (DEVICE_ERRORS) rolls back to the stage's last
+        checkpoint and goes on, at most three times; before the stage's
+        first checkpoint it is raised."""
         self.current_re = float(Re) if Re is not None else self.Re
         self.current_alpha_b = (float(bc_weight) if bc_weight is not None
                                 else self.alpha_b)
         self.current_lr = lr
         self._ensure_ready()
-        self.state.epoch_in_stage = 0
+        if not resume_in_stage:
+            self.state.epoch_in_stage = 0
 
         if not hasattr(self, "cumulative_start_time"):
             self.cumulative_start_time = time.time()
         stage_start = time.time()
-        done = 0
-        last_log_t, last_log_e = stage_start, 0
+        done = first = self.state.epoch_in_stage
+        last_log_t, last_log_e = stage_start, done
         pts_per_step = int(self._batch.x_f.shape[0] + self._batch.x_b.shape[0])
         use_eval_track = (advance_on_stall and stall_metric == "eval_error"
                           and self._eval_fields is not None)
@@ -414,22 +488,37 @@ class PINNSolver:
             self.logger.warning("stall_metric='eval_error' but no eval data attached "
                                 "(attach_eval_data): tracking the equation loss instead")
         eq_track = []  # stall-metric values at log boundaries
+        last_ckpt: Optional[str] = None
+        crashes = 0
         while done < num_epoch:
             # first step alone (log parity with the reference's epoch 0),
             # then to the next log / checkpoint boundary
             if done == 0:
                 n = 1
             else:
-                n = min(((done // self.log_interval) + 1) * self.log_interval,
-                        ((done // self.checkpoint_freq) + 1) * self.checkpoint_freq,
-                        num_epoch) - done
-            metrics = self.run_steps(n, lr)
-            done += n
+                n = min(min(((done // self.log_interval) + 1) * self.log_interval,
+                            ((done // self.checkpoint_freq) + 1) * self.checkpoint_freq,
+                            num_epoch) - done, self.max_chunk)
+            with _defer_sigterm():
+                try:
+                    metrics = self.run_steps(n, lr)
+                except DEVICE_ERRORS as err:
+                    crashes += 1
+                    if last_ckpt is None or crashes > 3:
+                        raise
+                    self.logger.error(f"device error at stage-epoch {done} ({err}); rolling "
+                                      f"back to {last_ckpt} (crash {crashes}/3)")
+                    self._runner = None
+                    self._dirty = True
+                    self.load(last_ckpt)
+                    done = self.state.epoch_in_stage
+                    continue
+                done += n
             if done == 1 or done % self.log_interval == 0 or done == num_epoch:
                 m = metrics.to_host()
                 now = time.time()
                 interval_it_s = (done - last_log_e) / max(now - last_log_t, 1e-9)
-                avg_it_s = done / max(now - stage_start, 1e-9)
+                avg_it_s = (done - first) / max(now - stage_start, 1e-9)
                 self._print_log(m, done, num_epoch, avg_it_s, interval_it_s,
                                 pts_per_step, now - stage_start,
                                 now - self.cumulative_start_time, lr)
@@ -442,7 +531,7 @@ class PINNSolver:
                         eq_track.append(float(m.equation))
             if (done == 1 and num_epoch >= self.checkpoint_freq) \
                     or done % self.checkpoint_freq == 0:
-                self.save(f"model_cavity_loop{done}.ckpt")
+                last_ckpt = self.save(f"model_cavity_loop{done}.ckpt")
             if (advance_on_stall and done >= max(stall_min_epochs, 1)
                     and done < num_epoch and len(eq_track) > stall_window):
                 gain = stall_gain(eq_track, stall_window)
@@ -456,6 +545,35 @@ class PINNSolver:
                     self.save(f"model_cavity_loop{num_epoch}.ckpt")
                     break
         return self.state
+
+    def residuals_at(self, x, y, chunk: int = 32768) -> np.ndarray:
+        """Per-point PDE residual magnitude sqrt(eq1^2 + eq2^2 + eq3^2) at
+        host points under the current nets, the EVM viscosity included
+        (nsfnet_tpu/training/solver.py:978-1019): the score of residual-aware
+        resampling. Plain PyTorch in exact fp32 by the closed-form engine, in
+        fixed-size zero-padded chunks (one shape for every call)."""
+        xh = np.asarray(x, np.float32).reshape(-1)
+        yh = np.asarray(y, np.float32).reshape(-1)
+        n = xh.shape[0]
+        out = np.empty((n,), np.float32)
+        engine, re = self._engine("xla"), self.current_re
+        seg = torch.zeros((chunk, 2), dtype=torch.float32, device=self.device)
+        with torch.no_grad(), _exact_fp32():
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                seg.zero_()
+                seg[: hi - lo, 0] = torch.from_numpy(xh[lo:hi])
+                seg[: hi - lo, 1] = torch.from_numpy(yh[lo:hi])
+                derivs = engine(self.state.params, seg)
+                if self.evm:
+                    e = self.net_1(seg)[:, 0:1]
+                    vis_t = torch.clamp(self.alpha_evm * e.abs(), max=20.0 / re)
+                    r = R.ev_ns_residuals(derivs, e, vis_t, re, self.coord_scale)
+                else:
+                    r = R.ns_residuals(derivs, re, self.coord_scale)
+                score = torch.sqrt(r.eq1 ** 2 + r.eq2 ** 2 + r.eq3 ** 2)[:, 0]
+                out[lo:hi] = score[: hi - lo].cpu().numpy()
+        return out
 
     # ------------------------------------------------------------ inference
 
@@ -530,10 +648,24 @@ class PINNSolver:
                 "layers_1": self.layers_1 if self.evm else None,
                 "hidden_size_1": self.hidden_size_1 if self.evm else None}
 
+    def _metadata(self) -> dict:
+        """The JAX package's sidecar keys (nsfnet_tpu/training/solver.py:1129-1147)."""
+        meta = {"global_step": self.global_step, "Re": self.Re,
+                "alpha_evm": self.alpha_evm, "alpha_b": self.current_alpha_b,
+                "stage": self.current_stage, "layers": self.layers,
+                "hidden_size": self.hidden_size, "backbone": "mlp",
+                "formulation": self.formulation}
+        if self.evm:
+            meta["layers_1"] = self.layers_1
+            meta["hidden_size_1"] = self.hidden_size_1
+        if self.dataset is not None:
+            meta["sampler"] = self.dataset.get_state()
+        return meta
+
     def save(self, filename: str, directory: Optional[str] = None) -> str:
-        """Write the full train state with torch.save (atomic: tmp + rename)."""
+        """Write the full train state (torch.save) and its JSON sidecar,
+        atomically (training/checkpoint.save_state)."""
         path = os.path.join(directory or self._ckpt_dir(), filename)
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         s = self.state
         adam = lambda o: None if o is None else {"mu": o.mu, "nu": o.nu, "count": o.count}
         blob = {
@@ -544,14 +676,8 @@ class PINNSolver:
             "vis_t_minus": s.vis_t_minus,
             "step": s.step,
             "epoch_in_stage": s.epoch_in_stage,
-            "meta": {"global_step": self.global_step, "Re": self.Re,
-                     "alpha_evm": self.alpha_evm, "alpha_b": self.current_alpha_b,
-                     "stage": self.current_stage, "formulation": self.formulation,
-                     **self._arch()},
         }
-        tmp = path + ".tmp"
-        torch.save(blob, tmp)
-        os.replace(tmp, path)
+        ckpt.save_state(path, blob, self._metadata())
         if self.loss_history:  # the logged losses so far, beside the checkpoint
             import scipy.io
 
@@ -564,38 +690,79 @@ class PINNSolver:
                  "eq3": hist[:, 6], "eq4": hist[:, 7]})
         return path
 
-    def load(self, path: str):
-        """Restore a checkpoint written by `save` (exact resume)."""
+    def _read_state(self, path: str):
+        """(TrainState, metadata, main sizes or None, EVM sizes or None) of a
+        checkpoint in either format. The port's flat vectors carry no shapes
+        and its sidecar is its only metadata, so a port file needs it; a JAX
+        file's shapes come from its state."""
+        meta = ckpt.load_metadata(path)
+        if ckpt.is_flax_msgpack(path):
+            state, sizes, sizes_evm = convert.train_state_from_jax(
+                ckpt.read_flax_msgpack(path), self.device)
+            return state, meta or {}, sizes, sizes_evm
+        if meta is None:
+            raise ValueError(f"checkpoint {path} has no sidecar {path}.json (the port "
+                             f"writes its step, stage and architecture there)")
         blob = torch.load(path, map_location=self.device, weights_only=True)
-        meta = blob["meta"]
+        adam = lambda o: None if o is None else AdamState(o["mu"], o["nu"], int(o["count"]))
+        state = TrainState(params=blob["params"], params_evm=blob["params_evm"],
+                           opt_main=adam(blob["opt_main"]), opt_evm=adam(blob["opt_evm"]),
+                           vis_t_minus=blob["vis_t_minus"], step=int(blob["step"]),
+                           epoch_in_stage=int(blob["epoch_in_stage"]))
+        return state, meta, None, None
+
+    def load(self, path: str):
+        """Restore a full-state checkpoint (exact resume): the port's own, or
+        the JAX package's (nsfnet_tpu/training/solver.py:1160-1231).
+        Guards: the formulation, the architecture stamped in the metadata
+        (the keys it has), and the shapes of the state itself. The carry
+        keeps the first N_f rows of the writer's (its padding differs), and
+        is recomputed from the restored EVM net where the writer had fewer
+        points."""
+        state, meta, sizes, sizes_evm = self._read_state(path)
         theirs = meta.get("formulation", "velocity")  # no stamp: written before the option
         if theirs != self.formulation:
             # the shapes of the two heads can coincide; the quantities do not
             raise ValueError(f"checkpoint {path} was written by a {theirs!r}-formulation "
                              f"solver; this solver is {self.formulation!r} (the heads "
                              f"predict different quantities)")
-        bad = {k: (meta.get(k), v) for k, v in self._arch().items() if meta.get(k) != v}
+        mine = {"backbone": "mlp", **self._arch()}
+        bad = {k: (meta[k], v) for k, v in mine.items() if k in meta and meta[k] != v}
+        evm_sizes = self.net_1.sizes if self.evm else None
+        if (sizes is not None and tuple(sizes) != self.net.sizes) \
+                or (sizes_evm is not None and tuple(sizes_evm) != evm_sizes):
+            bad["sizes"] = ((sizes, sizes_evm), (self.net.sizes, evm_sizes))
+        if state.params.numel() != self.net.flat.numel() \
+                or (state.params_evm is None) == self.evm \
+                or (self.evm and state.params_evm.numel() != self.net_1.flat.numel()):
+            bad["parameter count"] = (
+                (state.params.numel(), None if state.params_evm is None
+                 else state.params_evm.numel()),
+                (self.net.flat.numel(), self.net_1.flat.numel() if self.evm else None))
         if bad:
             raise ValueError(f"checkpoint {path} architecture does not match this "
-                             f"solver: {bad} (checkpoint, solver)")
+                             f"solver: {bad} (checkpoint, solver); train.py --init-from "
+                             f"warm-starts across widths")
         with torch.no_grad():
-            self.state.params.copy_(blob["params"])
+            self.state.params.copy_(state.params)
             if self.evm:
-                self.state.params_evm.copy_(blob["params_evm"])
-        restore = lambda o: AdamState(o["mu"].clone(), o["nu"].clone(), int(o["count"]))
-        self.state.opt_main = restore(blob["opt_main"])
+                self.state.params_evm.copy_(state.params_evm)
+        self.state.opt_main = state.opt_main
         if self.evm:
-            self.state.opt_evm = restore(blob["opt_evm"])
-        self.state.step = int(blob["step"])
-        self.state.epoch_in_stage = int(blob["epoch_in_stage"])
-        self.global_step = int(meta["global_step"])
-        self.current_stage = meta["stage"]
-        self.current_alpha_b = float(meta["alpha_b"])
-        vtm = blob["vis_t_minus"]
+            self.state.opt_evm = state.opt_evm
+        self.state.step = state.step
+        self.state.epoch_in_stage = state.epoch_in_stage
+        self.global_step = int(meta.get("global_step", self.global_step))
+        self.current_stage = meta.get("stage", self.current_stage)
+        if "alpha_b" in meta:
+            self.current_alpha_b = float(meta["alpha_b"])
+        vtm = state.vis_t_minus
         if vtm is not None and self._eq is not None:
-            # re-pad the writer's carry to this solver's padding
             n_f = self._eq[0].shape[0]
             if vtm.shape[0] < n_f:
+                self.logger.warning(
+                    f"restored vis_t carry has {vtm.shape[0]} rows < {n_f} collocation "
+                    f"points: recomputing it from the restored EVM net")
                 self._init_vis_t()
                 rows = torch.from_numpy(self._vis_t_init).to(self.device)
             else:

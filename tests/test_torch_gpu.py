@@ -570,3 +570,94 @@ def test_streamfunction_solver_kernel_engine_matches_closed_form(cuda, monkeypat
     torch.testing.assert_close(p_kernel, p_closed, rtol=0, atol=5e-6)
     on_cpu, _ = _cavity_run("cpu", **kw)
     np.testing.assert_allclose(kernel, on_cpu, rtol=1e-4, atol=1e-9)
+
+
+# --------------------------------------------------------- campaign path
+
+def _campaign_solver(dev, tmp_path, **kw):
+    from nsfnet_tpu_torch.data.cavity import CavityData
+
+    s = PINNSolver(**{**dict(Re=400, layers=3, layers_1=2, hidden_size=32, hidden_size_1=16,
+                             N_f=500, evm_update_freq=3, log_interval=1000, seed=3,
+                             checkpoint_freq=4, checkpoint_path=str(tmp_path)), **kw},
+                   device=dev)
+    d = CavityData(N_f=s.N_f, sdf_enabled=True, sort_training_points=False, seed=1)
+    s.attach_dataset(d)
+    s.set_boundary_data(X=d.boundary_data())
+    s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
+    return s
+
+
+def test_campaign_resume_and_rollback_on_the_card_are_bit_exact(cuda, tmp_path):
+    """Through kernels 1+2 on the card: a mid-stage resume from a checkpoint
+    and the rollback after a launch error both end where the uninterrupted
+    stage ends, bit for bit."""
+    whole = _campaign_solver("cuda", tmp_path / "whole")
+    fr.reset_launch_counts()
+    whole.train(num_epoch=10, lr=1e-3)
+    assert fr.launch_counts == {"fused_residual_fwd": 10, "fused_residual_bwd": 10}
+    mid = f"{whole._ckpt_dir()}/model_cavity_loop4.ckpt"
+    resumed = _campaign_solver("cuda", tmp_path / "resumed", seed=9)
+    resumed.load(mid)
+    resumed.train(num_epoch=10, lr=1e-3, resume_in_stage=True)
+
+    flaky = _campaign_solver("cuda", tmp_path / "flaky")
+    flaky._ensure_ready()
+    real, calls = flaky._runner, []
+
+    def runner(state, batch, sc, n_steps):
+        calls.append(n_steps)
+        if len(calls) == 4:
+            real(state, batch, sc, 1)
+            raise fr.KernelLaunchError("injected")
+        return real(state, batch, sc, n_steps)
+
+    flaky._runner = runner
+    flaky.train(num_epoch=10, lr=1e-3)
+    for s in (resumed, flaky):
+        for key in ("params", "params_evm", "vis_t_minus"):
+            assert torch.equal(getattr(s.state, key), getattr(whole.state, key)), key
+
+
+def test_jax_campaign_checkpoint_on_the_card_matches_the_cpu(cuda):
+    """The committed Re=4000 6x160 checkpoint loaded on the card: its
+    predictions against the same load on the CPU, and the RAR keep set its
+    scores pick. The scores themselves are held point-wise on unconverged
+    weights (test_residuals_at_on_the_card_matches_the_cpu): here each is a
+    small difference of O(1) terms."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "artifacts", "live_re4000_r4b", "latest.ckpt")
+    g = np.linspace(0.0, 1.0, 33, dtype=np.float32)
+    gx, gy = (a.reshape(-1, 1) for a in np.meshgrid(g, g))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = PINNSolver(Re=4000, layers=6, layers_1=4, hidden_size=160, hidden_size_1=40,
+                       N_f=1024, alpha_evm=0.002, device=dev)
+        s.load(path)
+        out[dev] = ([t.cpu() for t in s.predict((gx, gy))], s.residuals_at(gx, gy, chunk=512))
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-6)
+    # the points RAR keeps: the top quarter of the scores, as rar_training_data
+    # takes them (argpartition of the negated scores)
+    keep = {dev: set(np.argpartition(-out[dev][1], g.size ** 2 // 4 - 1)[:g.size ** 2 // 4])
+            for dev in out}
+    assert keep["cuda"] == keep["cpu"], len(keep["cuda"] ^ keep["cpu"])
+
+
+def test_residuals_at_on_the_card_matches_the_cpu(cuda):
+    """The RAR score on unconverged weights (EVM, coordinate transform on,
+    a ragged last chunk), card against CPU, both in exact fp32."""
+    rng = np.random.default_rng(3)
+    px, py = rng.uniform(-1, 1, (2, 1300, 1)).astype(np.float32)
+    arch = dict(Re=400, layers=3, layers_1=2, hidden_size=32, hidden_size_1=16, N_f=64,
+                alpha_evm=0.05, seed=4)
+    cpu = PINNSolver(**arch, device="cpu")
+    card = PINNSolver(**arch, device="cuda")
+    card.set_params([(w.cuda(), b.cuda()) for w, b in cpu.params()],
+                    [(w.cuda(), b.cuda()) for w, b in cpu.params_evm()])
+    for s in (cpu, card):
+        s.set_coordinate_transform(2.0)
+    np.testing.assert_allclose(card.residuals_at(px, py, chunk=512),
+                               cpu.residuals_at(px, py, chunk=512), rtol=1e-5, atol=1e-7)

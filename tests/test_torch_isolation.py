@@ -1,4 +1,5 @@
-"""PyTorch port: it stands alone (no JAX, nothing of nsfnet_tpu), its entry
+"""PyTorch port: it stands alone (no JAX, flax or msgpack, nothing of
+nsfnet_tpu; it reads the JAX package's checkpoints with its own decoder), its entry
 points refuse to run on the CPU unless asked, and the CLI runs on the CPU
 when asked."""
 
@@ -12,13 +13,14 @@ import pytest
 import torch
 
 from nsfnet_tpu_torch import train as port_train
+from nsfnet_tpu_torch.training.checkpoint import load_metadata
 from nsfnet_tpu_torch.training.solver import PINNSolver
 
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "nsfnet_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nsfnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "nsfnet_tpu")
 
 
 def _port_sources():
@@ -57,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
-    assert "nsfnet_tpu_torch.training.solver" in loaded
+    assert {"nsfnet_tpu_torch.training.solver", "nsfnet_tpu_torch.training.checkpoint"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -99,8 +101,8 @@ def test_cli_runs_on_the_cpu_when_asked(tmp_path):
     assert port_train.main(["--config", str(cfg), "--cpu"]) == 0
     final = list(tmp_path.glob("Re100/*/model_final.ckpt"))
     assert len(final) == 1
-    blob = torch.load(final[0], weights_only=True)
-    assert blob["meta"]["global_step"] == 5 and blob["meta"]["stage"] == "S2"
+    meta = load_metadata(str(final[0]))
+    assert meta["global_step"] == 5 and meta["stage"] == "S2"
 
 
 def test_cli_refuses_what_the_port_does_not_run(tmp_path):

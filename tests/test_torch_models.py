@@ -140,3 +140,24 @@ def test_mlp_module_uses_one_flat_parameter():
     torch.testing.assert_close(net(x), mlp_apply(net.params(), x), rtol=0, atol=0)
     net(x).sum().backward()
     assert net.flat.grad is not None and net.flat.grad.shape == net.flat.shape
+
+
+def test_widen_mlp_params_preserves_the_function():
+    """Net2Net widening (tests/test_solver.py:237-249): the widened net
+    computes the donor's function; new units send exactly zero to the old
+    units and the head, and get random incoming weights from the generator."""
+    from nsfnet_tpu_torch.models.mlp import widen_mlp_params
+
+    p = params_from_numpy(_jax_params((2, 16, 16, 16, 3), seed=3))
+    x = torch.as_tensor(_points(37, seed=4), dtype=torch.float32)
+    wide = widen_mlp_params(p, 24, torch.Generator().manual_seed(5))
+    assert [tuple(w.shape) for w, _ in wide] == [(2, 24), (24, 24), (24, 24), (24, 3)]
+    for li, (w, b) in enumerate(wide):
+        fi, fo = p[li][0].shape
+        assert torch.equal(w[:fi, :fo], p[li][0]) and torch.equal(b[:fo], p[li][1])
+        assert torch.count_nonzero(w[fi:, :fo]) == 0 and torch.count_nonzero(b[fo:]) == 0
+        if w.shape[1] > fo:
+            assert torch.count_nonzero(w[:, fo:]) == w[:, fo:].numel()
+    torch.testing.assert_close(mlp_apply(wide, x), mlp_apply(p, x), rtol=0, atol=1e-6)
+    again = widen_mlp_params(p, 24, torch.Generator().manual_seed(5))
+    assert all(torch.equal(a, b) for pa, pb in zip(wide, again) for a, b in zip(pa, pb))

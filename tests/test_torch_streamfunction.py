@@ -5,7 +5,9 @@ through its Pallas order-3 engine in interpret mode), the formulation stamp
 on checkpoints, the engine choice, stall-advance, and the command line.
 """
 
+import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -21,6 +23,7 @@ from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops import psi_streams as psi
+from nsfnet_tpu_torch.training.checkpoint import load_metadata
 from nsfnet_tpu_torch.training.solver import PINNSolver, stall_gain
 
 torch.set_num_threads(2)
@@ -92,7 +95,7 @@ def test_streamfunction_checkpoint_stamp_and_refusal(tmp_path):
     a = _port_solver(tmp_path, **SF)
     a.train(num_epoch=3, lr=1e-3)
     path = a.save("sf.ckpt", directory=str(tmp_path))
-    assert torch.load(path, weights_only=True)["meta"]["formulation"] == "streamfunction"
+    assert load_metadata(path)["formulation"] == "streamfunction"
     b = _port_solver(tmp_path, **{**SF, "seed": 99})
     b.load(path)
     assert b.global_step == 3 and torch.equal(a.state.params, b.state.params)
@@ -107,14 +110,16 @@ def test_streamfunction_checkpoint_stamp_and_refusal(tmp_path):
     with pytest.raises(ValueError, match="'streamfunction'-formulation"):
         vel.load(path)
     vpath = vel.save("vel.ckpt", directory=str(tmp_path))
-    assert torch.load(vpath, weights_only=True)["meta"]["formulation"] == "velocity"
+    assert load_metadata(vpath)["formulation"] == "velocity"
     with pytest.raises(ValueError, match="'velocity'-formulation"):
         a.load(vpath)
     # a checkpoint written before the stamp existed counts as velocity
-    blob = torch.load(vpath, weights_only=True)
-    del blob["meta"]["formulation"]
+    meta = load_metadata(vpath)
+    del meta["formulation"]
     old = str(tmp_path / "old.ckpt")
-    torch.save(blob, old)
+    shutil.copyfile(vpath, old)
+    with open(old + ".json", "w") as f:
+        json.dump(meta, f)
     vel.load(old)
     with pytest.raises(ValueError, match="'velocity'-formulation"):
         a.load(old)
@@ -178,7 +183,7 @@ def test_stage_advances_on_stall(tmp_path):
     assert s.state.opt_main.count == 8 and s.global_step == 40
     (ckpt,) = (tmp_path / "Re400").glob("*S1/model_cavity_loop40.ckpt")
     blob = torch.load(ckpt, weights_only=True)
-    assert blob["meta"]["global_step"] == 40 and blob["epoch_in_stage"] == 8
+    assert load_metadata(str(ckpt))["global_step"] == 40 and blob["epoch_in_stage"] == 8
 
     t = _port_solver(tmp_path, **kw)
     t.train(num_epoch=12, lr=0.0)
@@ -231,7 +236,7 @@ def test_cli_runs_the_streamfunction_formulation(tmp_path):
     assert s.formulation == "streamfunction" and s.evm and s.net.sizes[-1] == 2
     assert port_train.main(["--config", str(path), "--cpu"]) == 0
     (final,) = tmp_path.glob("Re100/*/model_final.ckpt")
-    meta = torch.load(final, weights_only=True)["meta"]
+    meta = load_metadata(str(final))
     # S2 stalls (an lr too small to move an fp32 weight) and is fast-forwarded to its end: 4 + 30
     assert meta["formulation"] == "streamfunction" and meta["global_step"] == 34
     assert meta["stage"] == "S2"
