@@ -25,6 +25,8 @@ Phases (any failure exits non-zero before the result line):
      3a'. kernels 1+2 at the h160 campaign width (6x160, the same 120,000
      points, Re = 4000, "high": tile 16, panel 160) against the plain passes
      and exact fp32, bitwise across runs, timed;
+     3a''. the same at the reference v1 recipe's shape (4x120, no EVM,
+     N_f = 40,000, "high");
   4. the paths, each through ConfigManager.from_dict -> build_solver on cuda
      -> train(), with the launch counts set to 0 just before and read just
      after:
@@ -61,6 +63,19 @@ Phases (any failure exits non-zero before the result line):
            grid, P2's residual-aware redraw (480,000 scored, 60,000 kept,
            timed), and a resume from P2's checkpoint that replays its points
            bitwise without scoring and ends bitwise where the run ended;
+       4g. the polish phase through the driver's main(): (i)
+           configs/re2000_nsfnet.yaml at its published widths (4x120, N_f =
+           40,000, bc_weight 10, MSE, "high"), its five Adam stages cut to 30
+           steps (kernels 1+2 once per step, 3-6 never) and its L-BFGS stage
+           to 50: the loss falls, evaluations and ms per L-BFGS step; (ii)
+           configs/re2000_ev_h288.yaml --init-from
+           artifacts/best_re2000_h288.ckpt, its LM stage (3 slices, cg 50) at
+           6x288 and N_f = 120,000 cut to 3 steps: the loaded net's equation
+           loss, a non-increasing history, seconds per step, peak memory, no
+           kernel launched; (iii) on small inputs, L-BFGS cuda against the CPU,
+           LM over 3 slices against the full batch from the h288 checkpoint,
+           and an Adam run with supervision and the adaptive bc weight cuda
+           against the CPU;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
@@ -108,6 +123,14 @@ SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
 UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
 ENGINE_TOL = 1e-4   # streamfunction step, kernel engine vs closed form: metrics, gradient tensors
 DIV_TOL = 1e-5      # |u_x + v_y| of the streamfunction field on a grid
+LM_SLICE_NF = 8192  # the LM slicing check: the h288 checkpoint on fewer points
+LM_PARAM_TOL = 1e-5  # LM over 3 slices vs the full batch: max|diff| / max|w| of the params
+# ... and of the loss history: at a converged state each residual is a small
+# difference of O(1) terms, so the same loss summed in another slice layout
+# moves in fp32 (~5e-5 on the CPU at N_f 2,000); the smoke reads that move on
+# the card, the loaded state's loss in both layouts, and prints it beside
+# this bar (PERF.md, section 6)
+LM_HIST_TOL = 1e-4
 WIDEN_TOL = 1e-6    # widened net against its donor (Net2Net: exact zeros out of new units)
 N_SF_SMALL = 10_000  # N_f of configs/re100_streamfunction.yaml
 
@@ -177,14 +200,14 @@ def cuda_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def profile_steps(torch, solver, card, what, n_steps=5):
-    """Device time by kernel over a few steps (torch.profiler), and the
-    share of the window's wall time the device was busy."""
+def profile_steps(torch, run, card, what, n_steps=5):
+    """Device time by kernel over `run()`, n_steps steps (torch.profiler),
+    and the share of the window's wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.run_steps(n_steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     dev_us = lambda ev: getattr(ev, "self_device_time_total",
@@ -489,6 +512,64 @@ def main() -> int:
     del ref160, runs, again, sums_k, dflat_k, ge_k
     torch.cuda.empty_cache()
 
+    # 3a''. kernels 1+2 at the reference v1 recipe's shape (configs/re2000_nsfnet.yaml:
+    # 4x120, no EVM, N_f = 40,000, MSE, "high"), the polish phase's Adam stages:
+    # against the plain passes and exact fp32, bitwise across runs, timed
+    _, n_v1, x_v1 = padded_points(ConfigManager.from_dict(V1).config, N_F_V1)
+    x_v1 = x_v1.to(dev).contiguous()
+    flat_v1 = flatten_params(init_mlp(sizes_v1, torch.Generator().manual_seed(1))).to(dev)
+    w_v1 = torch.zeros((n_v1, 1), device=dev)
+    w_v1[:N_F_V1] = 1.0
+    ct3 = torch.ones(3, device=dev) / N_F_V1
+    args_v1 = (flat_v1, sizes_v1, x_v1, None, None, w_v1, RE)
+    ref_v1 = {}
+    for name in ("high", None):
+        flat_r = flat_v1.clone().requires_grad_(True)
+        sums_p = fr.plain_residual_sums(unflatten_params(flat_r, sizes_v1), x_v1, None, None,
+                                        w_v1, RE, 1.0, False, name)
+        (grad,) = torch.autograd.grad(sums_p, [flat_r], ct3, retain_graph=name == "high")
+        ref_v1[name] = (sums_p.detach(), grad)
+        if name == "high":
+            p2_ms = cuda_ms(torch, lambda: torch.autograd.grad(sums_p, [flat_r], ct3,
+                                                               retain_graph=True), 5)
+        del sums_p, flat_r
+    with torch.no_grad():
+        p1_ms = cuda_ms(torch, lambda: fr.plain_residual_sums(
+            unflatten_params(flat_v1, sizes_v1), x_v1, None, None, w_v1, RE, 1.0, False,
+            "high"), 5)
+    runs = [(fr.fused_fwd(*args_v1, 1.0, False, "high"),
+             fr.fused_bwd(*args_v1, ct3, 1.0, False, "high")[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    (sums_k, dflat_k), again = runs
+    cv1 = {"tile_panel": fr.pick_loss_tile(120, "high"), "n": n_v1}
+    for tag, (s_r, d_r) in (("", ref_v1["high"]), ("exact_", ref_v1[None])):
+        cv1[tag + "fwd_rel"] = rel_sums(sums_k.tolist(), s_r.tolist())
+        cv1[tag + "bwd_rel"] = rel_per_param(unflatten_params, dflat_k, d_r, sizes_v1)
+    # the plain 'high' passes' own distance from exact fp32, printed beside
+    # the kernel's: the gate holds the kernel to the plain passes
+    cv1["plain_exact_fwd"] = rel_sums(ref_v1["high"][0].tolist(), ref_v1[None][0].tolist())
+    cv1["plain_exact_bwd"] = rel_per_param(unflatten_params, ref_v1["high"][1], ref_v1[None][1],
+                                           sizes_v1)
+    cv1["fwd_abs"] = (sums_k - ref_v1["high"][0]).abs().max().item()
+    cv1["bwd_abs"] = (dflat_k - ref_v1["high"][1]).abs().max().item()
+    cv1["det"] = all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    cv1["k1_ms"] = cuda_ms(torch, lambda: fr.fused_fwd(*args_v1, 1.0, False, "high"), 20)
+    cv1["k2_ms"] = cuda_ms(torch, lambda: fr.fused_bwd(*args_v1, ct3, 1.0, False, "high"), 20)
+    cv1["p1_ms"], cv1["p2_ms"] = p1_ms, p2_ms
+    print(f"kernels 1+2 at 4x120, no EVM, N={n_v1}, 'high', tile/panel {cv1['tile_panel']}: "
+          f"sums {cv1['fwd_rel']:.3e}, dW/db {cv1['bwd_rel']:.3e} from the plain passes "
+          f"(tolerance {BWD_TOL:g}); from exact fp32 sums {cv1['exact_fwd_rel']:.3e}, dW/db "
+          f"{cv1['exact_bwd_rel']:.3e} (the plain 'high' passes from exact fp32: sums "
+          f"{cv1['plain_exact_fwd']:.3e}, dW/db {cv1['plain_exact_bwd']:.3e}); bitwise equal "
+          f"across runs: {cv1['det']}; kernel 1 "
+          f"{cv1['k1_ms']:.4f} ms, kernel 2 {cv1['k2_ms']:.4f} ms, plain {p1_ms:.4f} / "
+          f"{p2_ms:.4f} ms — {card}")
+    ok_check = (ok_check and cv1["det"] and cv1["fwd_rel"] <= FWD_TOL
+                and cv1["bwd_rel"] <= BWD_TOL)
+    record["check_v1_mse"] = cv1
+    del ref_v1, runs, again, sums_k, dflat_k
+    torch.cuda.empty_cache()
+
     def check_forward(what, name, run, plain, exact, bundle=None):
         """A forward at `name` against the plain version's passes at that
         name (`plain(name)`), per stream, two runs bitwise; both against
@@ -579,9 +660,6 @@ def main() -> int:
         return b, ok
 
     # 3b. kernels 3+4 at both widths, at each precision name
-    _, n_v1, x_v1 = padded_points(ConfigManager.from_dict(V1).config, N_F_V1)
-    flat_v1 = flatten_params(init_mlp(sizes_v1, torch.Generator().manual_seed(1)))
-    x_v1, flat_v1 = x_v1.to(dev).contiguous(), flat_v1.to(dev)
     stream_cases = {"4x120": (flat_v1, sizes_v1, x_v1), "6x80": (flat, sizes, x)}
     stream_cts, stream_chk = {}, {}
     for name, (fl, sz, xx) in stream_cases.items():
@@ -826,16 +904,19 @@ def main() -> int:
         timings["rar"].append(time.perf_counter() - t0)
         return out
 
-    def campaign_config(src, name, stages, **training):
+    def write_config(root, src, name, stages, **training):
         # eval_data stays: its DNS file is not in the repository, and the
         # driver skips the evaluation with a warning
         raw = ConfigManager.from_file(src).to_dict()
-        raw["training"].update(checkpoint_dir=os.path.join(campaign_dir, name), **training)
+        raw["training"].update(checkpoint_dir=os.path.join(root, name), **training)
         raw["training"]["training_stages"] = stages
-        path = os.path.join(campaign_dir, f"{name}.yaml")
+        path = os.path.join(root, f"{name}.yaml")
         with open(path, "w") as f:
             json.dump(raw, f)  # YAML reads JSON
         return path
+
+    def campaign_config(src, name, stages, **training):
+        return write_config(campaign_dir, src, name, stages, **training)
 
     def ckpt_in(name, pattern):
         found = sorted(glob.glob(os.path.join(campaign_dir, name, "**", pattern),
@@ -1003,6 +1084,198 @@ def main() -> int:
     ok_campaign = ok_i and ok_ii and ok_iii
     torch.cuda.empty_cache()
 
+    # ---- 4g. the polish phase, through the driver's main(), every checkpoint
+    # in a temporary directory: (i) the reference v1 recipe at its published
+    # widths and settings, Adam stages through kernels 1+2 then the L-BFGS
+    # polish; (ii) the h288 LM stage from the committed JAX checkpoint; (iii)
+    # small-input checks of L-BFGS, LM slicing, supervision and the adaptive
+    # boundary weight on the card
+    polish_t0 = time.time()
+    polish_dir = tempfile.mkdtemp(prefix="chip_smoke_polish_")
+    polished, eq_before, pol = [], [], {}
+
+    def spy_polish(self, *a, **kw):
+        polished.append(self)
+        if kw.get("optimizer") == "lm":  # the loaded net's equation loss, the stage's own loss
+            self._ensure_ready()
+            with torch.no_grad():
+                _, (m, _) = self._loss_fn((self.state.params, self.state.params_evm), self._batch,
+                                          self.state.vis_t_minus, self._stage_scalars(1.0))
+            eq_before.append(m.equation.item())
+        return orig[0](self, *a, **kw)
+
+    v1_cfg, h288_cfg = "configs/re2000_nsfnet.yaml", "configs/re2000_ev_h288.yaml"
+    h288_ckpt = "artifacts/best_re2000_h288.ckpt"
+    PINNSolver.train = spy_polish
+    try:
+        # (i) re2000_nsfnet: its five Adam stages cut to 30 steps in all, its
+        # lbfgs-polish stage to 50 (one chunk)
+        stages = ConfigManager.from_file(v1_cfg).to_dict()["training"]["training_stages"]
+        for st in stages[:5]:
+            st["epochs"] = 6
+        stages[5]["epochs"] = 50
+        path = write_config(polish_dir, v1_cfg, "v1", stages, enable_tensorboard=False)
+        reset_counts()
+        t0 = time.time()
+        rc = train_mod.main(["--config", path])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches_polish = read_counts()
+        sv = polished[-1]
+        ps = sv.polish_stats
+        hist, evals = ps["history"], ps["evaluations"]
+        lbfgs_ms = 1e3 * ps["seconds"] / ps["steps"]
+        print(f"polish (i) {v1_cfg} ({sv.layers}x{sv.hidden_size}, EVM {sv.evm}, N_f "
+              f"{sv.N_f:,}, loss {sv.loss_mode}, {sv.matmul_precision!r}) through train.main: exit "
+              f"{rc} in {seconds:.1f} s; launches {launches_polish}; L-BFGS {ps['steps']} steps, "
+              f"loss {hist[0]:.6e} -> {hist[-1]:.6e}, value-and-grad evaluations per step mean "
+              f"{np.mean(evals):.2f} max {max(evals)}, {lbfgs_ms:.3f} ms per L-BFGS step — {card}")
+        ok_p1 = (rc == 0 and sv.global_step == 80 and ps["optimizer"] == "lbfgs"
+                 and (sv.layers, sv.hidden_size, sv.evm, sv.loss_mode) == (4, 120, False, "MSE")
+                 and all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]
+                 and launches_polish == {**dict.fromkeys(launches_polish, 0),
+                                         "fused_residual_fwd": 30, "fused_residual_bwd": 30})
+        pol["v1"] = {"rc": rc, "seconds": seconds, "launches": launches_polish,
+                     "history": hist, "evaluations": evals, "lbfgs_ms_per_step": lbfgs_ms,
+                     "ok": ok_p1}
+        # where an L-BFGS step's time goes: 5 more steps from the polished state
+        pol["v1"]["profile"] = profile_steps(torch, lambda: sv.train_lbfgs(5), card,
+                                             "L-BFGS step (re2000_nsfnet, 4x120, N_f 40,000)")
+        pol["v1"]["profile_evaluations"] = sv.polish_stats["evaluations"]
+        print(f"  value-and-grad evaluations of the 5 profiled L-BFGS steps: "
+              f"{sv.polish_stats['evaluations']}")
+        del sv
+        polished.clear()
+        torch.cuda.empty_cache()
+
+        # (ii) re2000_ev_h288 --init-from the committed checkpoint: P1 (LM,
+        # lm_microbatches 3, cg_iters 50) at 6x288, N_f = 120,000, cut to 3 steps
+        stages = ConfigManager.from_file(h288_cfg).to_dict()["training"]["training_stages"]
+        stages[0]["epochs"] = 3
+        path = write_config(polish_dir, h288_cfg, "h288", stages)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.time()
+        rc = train_mod.main(["--config", path, "--init-from", h288_ckpt])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        launches_lm = read_counts()
+        sh = polished[-1]
+        ps = sh.polish_stats
+        hist, lam = ps["history"], ps["lam"]
+        lm_s = ps["seconds"] / ps["steps"]
+        widths = (sh.layers, sh.hidden_size, sh.layers_1, sh.hidden_size_1)
+        print(f"polish (ii) {h288_cfg} --init-from {h288_ckpt} through train.main: exit {rc} in "
+              f"{seconds:.1f} s; loaded widths {widths}, N_f {sh.N_f:,}, LM microbatches "
+              f"{ps['microbatches']}, cg_iters {ps['cg_iters']}; equation loss of the loaded net "
+              f"{eq_before[-1] if eq_before else float('nan'):.4e}; LM loss history "
+              f"{[f'{v:.6e}' for v in hist]}, lam {lam:.3e}; {lm_s:.3f} s per LM step; peak "
+              f"memory {peak_mb:,.0f} MiB ({peak_mb - base_mb:,.0f} MiB over the "
+              f"{base_mb:,.0f} MiB held before); launches {launches_lm} — {card}")
+        ok_p2 = (rc == 0 and widths == (6, 288, 4, 40) and sh.N_f == 120_000
+                 and ps["optimizer"] == "lm" and ps["microbatches"] == 3 and len(hist) == 3
+                 and all(math.isfinite(v) for v in hist) and math.isfinite(lam)
+                 and all(b <= a for a, b in zip(hist, hist[1:]))
+                 and len(eq_before) == 1 and math.isfinite(eq_before[0]) and eq_before[0] < 1e-4
+                 and not any(launches_lm.values()))
+        pol["h288"] = {"rc": rc, "seconds": seconds, "widths": widths, "history": hist,
+                       "lam": lam, "s_per_step": lm_s, "peak_mb": peak_mb, "base_mb": base_mb,
+                       "eq_before": eq_before[-1] if eq_before else None,
+                       "launches": launches_lm, "ok": ok_p2}
+        # where an LM step's time goes: one step with 3 CG iterations (its
+        # products are the step's, 50 of them in the real one)
+        pol["h288"]["profile"] = profile_steps(
+            torch, lambda: sh.train_lm(1, cg_iters=3), card,
+            "LM step with cg_iters 3 (re2000_ev_h288, 6x288, N_f 120,000, 3 slices)", n_steps=1)
+        del sh
+        polished.clear()
+        torch.cuda.empty_cache()
+    finally:
+        PINNSolver.train = orig[0]
+        shutil.rmtree(polish_dir, ignore_errors=True)
+
+    # (iii) small inputs on the card: L-BFGS against the CPU; LM with the
+    # Gauss-Newton products over 3 slices against the full batch; an Adam run
+    # with supervision (one NaN p target) and the adaptive bc weight against the CPU
+    small = json.loads(json.dumps(V1))
+    small["training"].update(N_f=512, loss_mode="MSE")
+    scfg = ConfigManager.from_dict(small).config
+    hists = {}
+    for where in ("cuda", "cpu"):
+        s, _ = ready_solver(scfg, where)
+        s.train(num_epoch=3, optimizer="lbfgs")
+        hists[where] = s.polish_stats["history"]
+    lbfgs_rel = max(abs(a - b) / abs(b) for a, b in zip(hists["cuda"], hists["cpu"]))
+    print(f"small input (4x120 nsfnet MSE, N_f=512): L-BFGS 3 steps, cuda vs CPU max rel diff "
+          f"of the loss history {lbfgs_rel:.3e} (tolerance {SMALL_TOL:g})")
+
+    hraw = ConfigManager.from_file(h288_cfg).to_dict()
+    hraw["training"].update(N_f=LM_SLICE_NF)
+    hcfg = ConfigManager.from_dict(hraw).config
+    lm_runs, loss_at_start = {}, {}
+    for k in (1, 3):
+        s, d = ready_solver(hcfg)
+        train_mod.warm_start(s, hcfg, d, h288_ckpt)
+        s.set_alpha_evm(hcfg.training.training_stages[0].alpha)
+        # the loaded state's loss in this slice layout: with no CG iteration
+        # the step is zero and the history entry is the loss at the start
+        # (the params are unchanged: w + 0)
+        s.train_lm(1, cg_iters=0, microbatches=k)
+        loss_at_start[k] = s.polish_stats["history"][0]
+        s.train_lm(2, cg_iters=10, microbatches=k)
+        lm_runs[k] = (s.polish_stats["history"], torch.cat([s.state.params.detach(),
+                                                            s.state.params_evm.detach()]))
+    lm_hist_rel = max(abs(a - b) / abs(b) for a, b in zip(lm_runs[3][0], lm_runs[1][0]))
+    lm_par_rel = rel_max(lm_runs[3][1], lm_runs[1][1])
+    lm_layout_rel = abs(loss_at_start[3] - loss_at_start[1]) / abs(loss_at_start[1])
+    print(f"LM on the card from {h288_ckpt} (N_f {LM_SLICE_NF:,}, 2 steps, cg 10): 3 slices vs "
+          f"the full batch, loss history {lm_runs[3][0]} vs {lm_runs[1][0]}: max rel diff "
+          f"{lm_hist_rel:.3e} (tolerance {LM_HIST_TOL:g}), params {lm_par_rel:.3e} (tolerance "
+          f"{LM_PARAM_TOL:g}, max|diff|/max|w|); the loaded state's loss in the two layouts "
+          f"{loss_at_start[3]!r} vs {loss_at_start[1]!r}: rel diff {lm_layout_rel:.3e}")
+    del lm_runs, s, d
+
+    small = json.loads(json.dumps(FLAGSHIP))
+    small["training"].update(N_f=512, log_interval=1, evm_update_freq=2, adaptive_bc_weight=True)
+    scfg = ConfigManager.from_dict(small).config
+    g = np.random.default_rng(7)
+    sup_xy = g.uniform(0.0, 1.0, (2, 64, 1)).astype(np.float32)
+    sup_uvp = (0.1 * g.standard_normal((3, 64, 1))).astype(np.float32)
+    sup_uvp[2, 5] = np.nan
+    runs = {}
+    for where in ("cuda", "cpu"):
+        s, _ = ready_solver(scfg, where)
+        s.set_alpha_evm(scfg.training.training_stages[0].alpha)
+        s.set_supervised_data((*sup_xy, *sup_uvp))
+        s.set_supervised_loss_weight(1.0)
+        s.train(num_epoch=3, lr=1e-3)
+        runs[where] = ([m for _, m in s.loss_history], s.current_alpha_b)
+    sup_rel = max(abs(a - b) / max(abs(b), 1e-30) for ma, mb in zip(runs["cuda"][0], runs["cpu"][0])
+                  for a, b in zip(ma, mb) if b != 0.0)
+    ab_rel = abs(runs["cuda"][1] - runs["cpu"][1]) / runs["cpu"][1]
+    sup_vals = [m.supervised for m in runs["cuda"][0]]
+    print(f"small input (6x80 ev-nsfnet, N_f=512, 3 Adam steps, supervision with a NaN p target, "
+          f"adaptive bc weight): cuda vs CPU metrics max rel diff {sup_rel:.3e}, alpha_b "
+          f"{runs['cuda'][1]:.6f} vs {runs['cpu'][1]:.6f} ({ab_rel:.3e}; tolerance {SMALL_TOL:g}), "
+          f"supervised loss {sup_vals}")
+    ok_p3 = (lbfgs_rel <= SMALL_TOL and lm_hist_rel <= LM_HIST_TOL and lm_par_rel <= LM_PARAM_TOL
+             and sup_rel <= SMALL_TOL and ab_rel <= SMALL_TOL and runs["cuda"][1] != scfg.physics.bc_weight
+             and all(math.isfinite(v) and v > 0.0 for v in sup_vals))
+    pol["small"] = {"lbfgs_rel": lbfgs_rel, "lm_hist_rel": lm_hist_rel, "lm_param_rel": lm_par_rel,
+                    "lm_layout_rel": lm_layout_rel, "lm_loss_at_start": loss_at_start,
+                    "sup_rel": sup_rel, "alpha_b": [runs["cuda"][1], runs["cpu"][1]],
+                    "supervised": sup_vals, "ok": ok_p3}
+    polish_s = time.time() - polish_t0
+    print(f"polish phase: {polish_s:.1f} s on the card (builds excluded: the kernels were built)")
+    pol["seconds"] = polish_s
+    record["polish"] = pol
+    ok_polish = ok_p1 and ok_p2 and ok_p3
+    del runs, s
+    torch.cuda.empty_cache()
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -1071,6 +1344,21 @@ def main() -> int:
                     shape, fr.passes("high"), keep=False)
     pair_times["h160/high"] = [w1.pop("row"), w2.pop("row")]
     work["fused_residual_fwd@h160"], work["fused_residual_bwd@h160"] = w1, w2
+    # kernels 1+2 at the reference v1 recipe's shape, checked and timed in
+    # phase 3a'' (the launches: phase 4g (i)'s run)
+    flops, nbytes = fr.flop_counts(sizes_v1, n_v1), fr.byte_counts(sizes_v1, n_v1, False)
+    shape = (f"4x120, N={n_v1}, no EVM, 'high', tile {cv1['tile_panel'][0]}, panel "
+             f"{cv1['tile_panel'][1]}")
+    w1 = add_kernel("fused_residual_fwd", src, "nsfnet_tpu/ops/pallas_residual.py:100",
+                    launches_polish["fused_residual_fwd"], cv1["k1_ms"], cv1["p1_ms"],
+                    cv1["fwd_abs"], cv1["fwd_rel"], flops[0], nbytes[0], shape,
+                    fr.passes("high"), keep=False)
+    w2 = add_kernel("fused_residual_bwd", src, "nsfnet_tpu/ops/pallas_residual.py:128",
+                    launches_polish["fused_residual_bwd"], cv1["k2_ms"], cv1["p2_ms"],
+                    cv1["bwd_abs"], cv1["bwd_rel"], flops[1], nbytes[1], shape,
+                    fr.passes("high"), keep=False)
+    pair_times["v1_mse/high"] = [w1.pop("row"), w2.pop("row")]
+    work["fused_residual_fwd@v1_mse"], work["fused_residual_bwd@v1_mse"] = w1, w2
     traffic = fr.bwd_traffic(sizes, n, "high")
     print("kernel 2 traffic per launch at 'high' (from the shapes): tape written "
           f"{traffic['tape_written'] / 1e9:.3f} GB, read {traffic['tape_read'] / 1e9:.3f} GB, "
@@ -1187,10 +1475,13 @@ def main() -> int:
                        "sf_step_ms": sf_ms, "sf_points_per_s": sf_pts,
                        "campaign_step_ms": camp_ms, "campaign_points_per_s": camp_pts,
                        "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
-    record["profile"] = profile_steps(torch, solver, card, "flagship step")
-    record["profile_v1"] = profile_steps(torch, solver_v1, card, "v1 L2 step")
-    record["profile_sf"] = profile_steps(torch, solver_sf, card, "streamfunction step")
-    record["profile_campaign"] = profile_steps(torch, solver_c, card, "campaign 6x160 step")
+    record["profile"] = profile_steps(torch, lambda: solver.run_steps(5), card, "flagship step")
+    record["profile_v1"] = profile_steps(torch, lambda: solver_v1.run_steps(5), card,
+                                         "v1 L2 step")
+    record["profile_sf"] = profile_steps(torch, lambda: solver_sf.run_steps(5), card,
+                                         "streamfunction step")
+    record["profile_campaign"] = profile_steps(torch, lambda: solver_c.run_steps(5), card,
+                                               "campaign 6x160 step")
     # the host side of each launch's weight split: its workspace allocation
     lib, reps = ms._lib(), 1000
     t0 = time.perf_counter()
@@ -1205,12 +1496,13 @@ def main() -> int:
         json.dump(record, f, indent=1)
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
-            and ok_engine and ok_campaign):
+            and ok_engine and ok_campaign and ok_polish):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
               f"{ok_engine}, campaign resume / SIGTERM / init-from {ok_i} / {ok_ii} / "
-              f"{ok_iii})", file=sys.stderr)
+              f"{ok_iii}, polish v1 L-BFGS / h288 LM / small inputs {ok_p1} / {ok_p2} / "
+              f"{ok_p3})", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,13 +8,16 @@
     the vanilla one (NSFnet/pinn_solver.py:218-221).
   * L2 mode (the reference v1's): un-normalised norms sqrt(sum(w * r^2)) in
     place of the means (NSFnet/pinn_solver.py:201-218).
+  * Supervised loss: MSE against sampled DNS values of u, v and, where
+    finite, p (ev-NSFnet/pinn_solver.py:400-411).
 
 Every mean is sum(w * r^2) / count over the padded array, with pad rows at
 weight 0 and `count` the number of REAL points, so padding never biases it.
-The supervised loss comes in a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -57,3 +60,20 @@ def equation_loss(res, eq_weights, count, evm_entropy_weight: float = 0.1):
         l4 = torch.zeros((), dtype=res.eq1.dtype, device=res.eq1.device)
         total = l1 + l2 + l3
     return total, (l1, l2, l3, l4)
+
+
+def supervised_loss(u_pred, v_pred, p_pred, u_s, v_s, p_s, mask, count,
+                    p_mask: Optional[torch.Tensor], p_count) -> torch.Tensor:
+    """MSE of u and v over the supervised points, plus that of p over the
+    points whose DNS p is finite (nsfnet_tpu/ops/losses.py:88-99). NaN p
+    targets (the reference masks them by isfinite,
+    ev-NSFnet/pinn_solver.py:405-410) are zeroed under the mask, so no NaN
+    reaches the arithmetic or its gradient."""
+    loss = (masked_mean_sq(u_pred - u_s, mask, count)
+            + masked_mean_sq(v_pred - v_s, mask, count))
+    if p_s is not None and p_mask is not None:
+        keep = p_mask > 0
+        p_t = torch.where(keep, p_s, torch.zeros_like(p_s))
+        p_p = torch.where(keep, p_pred, torch.zeros_like(p_pred))
+        loss = loss + masked_mean_sq(p_p - p_t, p_mask, max(float(p_count), 1.0))
+    return loss

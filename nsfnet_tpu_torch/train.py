@@ -16,6 +16,11 @@ Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
     (Net2Net) where the config is wider than the donor;
   * `resample_each_stage` draws fresh points at each stage start, residual-
     aware (RAR) where `rar_pool_mult` > 0 (`rar_schedule`: first | every);
+  * a stage's `optimizer` is adam, or lbfgs / lm for a second-order polish
+    stage; only an Adam stage resumes mid-stage (a resume inside a polish
+    stage runs its remaining steps afresh);
+  * `supervision` samples DNS points with the run's seed, and
+    `adaptive_bc_weight` balances the boundary weight by gradient norms;
   * SIGTERM stops at a chunk boundary, writes `sigterm_step<N>.ckpt` and
     exits with code 3, for a later `--resume`;
   * a device error rolls back to the stage's last checkpoint (solver.train).
@@ -24,8 +29,8 @@ With `training.enable_tensorboard` (the default) the logged scalars go to
 where it is installed); every checkpoint gets `eq_losses.mat` beside it.
 Runs on the CUDA card; `--cpu` runs on the CPU, and without a card and
 without `--cpu` it raises. Options of the JAX driver that this port does not
-run yet (profiling, L-BFGS/LM stages, supervision, adaptive bc weight,
-Fourier / KAN, ...) are refused in `unsupported()` rather than ignored.
+run yet (profiling, Fourier / KAN, microbatching, multi-GPU) are refused in
+`unsupported()` rather than ignored.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import os
 import signal
 import time
 
+import numpy as np
 import torch
 
 from nsfnet_tpu_torch.config import ConfigManager
@@ -84,13 +90,8 @@ def unsupported(cfg) -> list:
         out.append("only the plain MLP backbone (either formulation)")
     if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
         out.append("microbatches / mesh_devices > 1")
-    if t.adaptive_bc_weight:
-        out.append("adaptive_bc_weight")
-    if cfg.supervision.enabled:
-        out.append("supervision")
-    for st in t.training_stages:
-        if st.optimizer != "adam":
-            out.append(f"stage {st.name!r}: optimizer {st.optimizer!r}")
+    if t.loss_mode != "MSE" and any(st.optimizer == "lm" for st in t.training_stages):
+        out.append(f"an lm stage under loss_mode {t.loss_mode!r} (LM minimises the MSE loss)")
     return out
 
 
@@ -106,6 +107,8 @@ def build_solver(cfg, device=None) -> PINNSolver:
         alpha_evm=cfg.physics.alpha_evm,
         bc_weight=cfg.physics.bc_weight,
         eq_weight=cfg.physics.eq_weight,
+        supervised_data_weight=(cfg.supervision.loss_weight
+                                if cfg.supervision.enabled else 0.0),
         entropy_residual_weight=cfg.physics.entropy_residual_weight,
         evm=(variant == "ev-nsfnet"),
         seed=cfg.training.seed,
@@ -117,6 +120,10 @@ def build_solver(cfg, device=None) -> PINNSolver:
         loss_mode=cfg.training.loss_mode,
         formulation=cfg.network.formulation,
         max_chunk=cfg.training.max_chunk,
+        lm_microbatches=cfg.training.lm_microbatches,
+        adaptive_bc_weight=cfg.training.adaptive_bc_weight,
+        adaptive_bc_ema=cfg.training.adaptive_bc_ema,
+        adaptive_bc_max=cfg.training.adaptive_bc_max,
         device=device,
     )
 
@@ -224,6 +231,22 @@ def main(argv=None) -> int:
     elif cfg.eval_data:
         logger.warning(f"eval data {cfg.eval_data} missing; skipping evaluation")
 
+    # supervision: DNS points drawn with the run's seed (nsfnet_tpu/train.py:235-248)
+    sup = cfg.supervision
+    if sup.enabled and sup.num_samples > 0 and eval_fields:
+        xs, ys, us, vs, ps = eval_fields
+        n = min(sup.num_samples, xs.shape[0])
+        idx = np.random.default_rng(cfg.training.seed).choice(xs.shape[0], size=n, replace=False)
+        solver.set_supervised_data((xs[idx], ys[idx], us[idx], vs[idx], ps[idx]))
+        solver.set_supervised_loss_weight(sup.loss_weight)
+        logger.info(f"supervision: {n} DNS samples, weight={sup.loss_weight}")
+    else:
+        if sup.enabled:
+            logger.warning("supervision is enabled but there are no DNS samples "
+                           "(num_samples 0 or no eval data): training without it")
+        solver.clear_supervised_data()
+        solver.set_supervised_loss_weight(0.0)
+
     if args.init_from:
         try:
             donor_hidden = warm_start(solver, cfg, data, args.init_from)
@@ -268,12 +291,14 @@ def main(argv=None) -> int:
             cum = stage_end
             if start_step >= stage_end:
                 continue  # covered by the restored step
-            logger.stage(st.name, st.alpha, stage_end - max(start_step, stage_start), st.lr)
+            epochs = stage_end - max(start_step, stage_start)
+            logger.stage(st.name, st.alpha, epochs, st.lr)
             solver.current_stage = st.name
             solver.set_alpha_evm(st.alpha)
             # a mid-stage resume keeps the stage's points (replayed from the
-            # sampler state where the checkpoint has one)
-            mid_stage = bool(args.resume) and start_step > stage_start
+            # sampler state where the checkpoint has one); a polish stage
+            # keeps no state of its own, so it runs its remaining steps afresh
+            mid_stage = bool(args.resume) and start_step > stage_start and st.optimizer == "adam"
             if mid_stage and cfg.training.resample_each_stage and not sampler_replayed:
                 logger.warning("mid-stage resume without sampler metadata under "
                                "resample_each_stage: the collocation points may differ "
@@ -295,7 +320,8 @@ def main(argv=None) -> int:
                 solver.set_eq_training_data(X=X, weights=data.sdf_weights)
             # a mid-stage resume runs the FULL stage from the restored
             # epoch_in_stage, so the EVM gate's phase stays aligned
-            solver.train(num_epoch=st.epochs, lr=st.lr, Re=st.Re or None,
+            solver.train(num_epoch=st.epochs if mid_stage else epochs, lr=st.lr,
+                         optimizer=st.optimizer, Re=st.Re or None,
                          bc_weight=st.bc_weight or None,
                          resume_in_stage=mid_stage,
                          advance_on_stall=st.advance_on_stall,

@@ -3,11 +3,13 @@ nsfnet_tpu/training/solver.py, main path).
 
 API parity with the reference `PysicsInformedNeuralNetwork`
 (ev-NSFnet/pinn_solver.py:27-765): set_boundary_data, set_eq_training_data,
-set_coordinate_transform, set_alpha_evm, train, evaluate, predict, save,
-load; and the JAX package's campaign surface: attach_dataset, eq_points,
-refresh_vis_t, residuals_at, mid-stage resume, bounded chunks, a SIGTERM-safe
-step counter and the rollback after a device error. What differs from the
-reference, as in the JAX package:
+set_supervised_data, set_supervised_loss_weight, set_coordinate_transform,
+set_alpha_evm, train, evaluate, test, predict, save, load; and the JAX
+package's campaign surface: attach_dataset, eq_points, refresh_vis_t,
+residuals_at, mid-stage resume, bounded chunks, a SIGTERM-safe step counter,
+the rollback after a device error, the adaptive boundary weight and the
+second-order polish stages (train(optimizer="lbfgs" | "lm")). What differs
+from the reference, as in the JAX package:
   * point batches are padded with zero-weight rows; losses are exact means
     over the real points;
   * the EVM lag field vis_t is a device carry (no per-step host sync);
@@ -35,8 +37,14 @@ residuals -> masked sums: the fused residual loss reads (u, v, p) heads and
 is never used. Under `auto`, NSFNET_PALLAS_PSI=0 keeps the closed form on a
 card; an explicit engine="pallas" wins.
 
-Left for later slices: L-BFGS / LM polish, microbatching, multi-GPU,
-supervised data, KAN / Fourier features, adaptive bc weight, test(),
+The polish stages (training/lbfgs.py, training/lm.py) and the adaptive bc
+weight's probe run the loss of the JAX package's `self._loss_fn`: the
+closed-form engine with no fused loss, here in exact fp32 whatever
+`matmul_precision` says (the JAX package runs them at that name). They
+optimise both nets with the EVM carry frozen; the device-error rollback is
+Adam-only, as in the JAX package.
+
+Left for later slices: microbatching, multi-GPU, KAN / Fourier features,
 .pth import/export.
 """
 
@@ -62,11 +70,14 @@ from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
 from nsfnet_tpu_torch.ops.psi_streams import psi_streams
 from nsfnet_tpu_torch.parallel import mesh as pmesh
 from nsfnet_tpu_torch.training import checkpoint as ckpt
+from nsfnet_tpu_torch.training.lbfgs import run_lbfgs
+from nsfnet_tpu_torch.training.lm import run_lm, run_lm_micro, stack_slices
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
 from nsfnet_tpu_torch.training.step import (
     StageScalars,
     make_chunk_runner,
     make_loss_fn,
+    make_residual_fn,
     make_train_step,
 )
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
@@ -160,6 +171,7 @@ class PINNSolver:
         learning_rate: float = 0.001,
         bc_weight: float = 10.0,
         eq_weight: float = 1.0,
+        supervised_data_weight: float = 1.0,
         entropy_residual_weight: float = 0.1,
         num_ins: int = 2,
         num_outs: int = 3,
@@ -175,6 +187,10 @@ class PINNSolver:
         loss_mode: str = "MSE",  # MSE | L2 (reference v1's un-normalized norms)
         formulation: str = "velocity",  # velocity | streamfunction (net outputs psi, p)
         max_chunk: int = 2000,  # most steps queued between two host syncs
+        lm_microbatches: int = 1,  # collocation slices of the LM Gauss-Newton products
+        adaptive_bc_weight: bool = False,  # grad-norm boundary-weight balancing
+        adaptive_bc_ema: float = 0.9,
+        adaptive_bc_max: float = 1000.0,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -200,6 +216,11 @@ class PINNSolver:
         self.alpha_evm = float(alpha_evm)
         self.alpha_b = float(bc_weight)
         self.alpha_e = float(eq_weight)
+        self.alpha_s = float(supervised_data_weight)
+        self.lm_microbatches = max(1, int(lm_microbatches))
+        self.adaptive_bc_weight = bool(adaptive_bc_weight)
+        self.adaptive_bc_ema = float(adaptive_bc_ema)
+        self.adaptive_bc_max = float(adaptive_bc_max)
         self.entropy_residual_weight = float(entropy_residual_weight)
         self.evm = bool(evm) and layers_1 is not None
         self.checkpoint_freq = checkpoint_freq
@@ -237,8 +258,11 @@ class PINNSolver:
         self._bc = None
         self._eq = None
         self._eq_weights = None
+        self._sup = None
         self._batch: Optional[Batch] = None
         self._runner = None
+        self._loss_fn = None  # the closed-form exact-fp32 loss: polish stages, bc probe
+        self.polish_stats: Optional[dict] = None  # the last polish stage's record
         self._dirty = True
         self._vis_stale = True
         self._eval_fields = None
@@ -320,6 +344,24 @@ class PINNSolver:
             e = self.net_1(x)[:, 0:1]
         self._vis_t_init = self.alpha_evm * np.abs(e.cpu().numpy()).astype(np.float32)
 
+    def set_supervised_data(self, data):
+        """data = (x, y, u, v, p) host arrays, or None; p may hold NaN, which
+        is masked (parity: ev-NSFnet/pinn_solver.py:202-254)."""
+        if data is None:
+            self._sup = None
+        else:
+            x, y, u, v, p = data
+            col = lambda a: np.asarray(a, np.float32).reshape(-1, 1)
+            self._sup = (col(x), col(y), col(u), col(v), col(p) if p is not None else None)
+        self._dirty = True
+
+    def clear_supervised_data(self):
+        self.set_supervised_data(None)
+
+    def set_supervised_loss_weight(self, weight: float):
+        self.alpha_s = float(weight)
+        self._dirty = True
+
     def set_coordinate_transform(self, scale: Optional[float]):
         """Chain-rule scale for [0,1]->[-1,1] domains
         (parity: ev-NSFnet/pinn_solver.py:186-192)."""
@@ -347,12 +389,24 @@ class PINNSolver:
         x_b, y_b, u_b, v_b = self._bc
         n_b = x_b.shape[0]  # no kernel reads the boundary set: no padding
 
+        sup = {}
+        if self._sup is not None and self.alpha_s != 0.0:
+            # no kernel reads the supervised set either: no padding
+            x_s, y_s, u_s, v_s, p_s = self._sup
+            sup = dict(x_s=dev(x_s), y_s=dev(y_s), u_s=dev(u_s), v_s=dev(v_s),
+                       s_mask=dev(np.ones_like(x_s)), n_s=float(x_s.shape[0]))
+            if p_s is not None:
+                finite = np.isfinite(p_s).astype(np.float32)
+                sup.update(p_s=dev(np.nan_to_num(p_s)), p_mask=dev(finite),
+                           n_p=float(finite.sum()))
+
         batch = Batch(
             x_f=dev(pmesh.pad_rows(x_f, nf_pad)),
             y_f=dev(pmesh.pad_rows(y_f, nf_pad)),
             eq_w=dev(pmesh.pad_rows(w, nf_pad, 0.0)), n_f=float(n_f),
             x_b=dev(x_b), y_b=dev(y_b), u_b=dev(u_b), v_b=dev(v_b),
             b_mask=dev(np.ones((n_b, 1), np.float32)), n_b=float(n_b),
+            **sup,
         )
         if self.evm:
             vtm = pmesh.pad_rows(self._vis_t_init, nf_pad, self.vis_t0)
@@ -390,11 +444,18 @@ class PINNSolver:
         it is on by default."""
         return os.environ.get("NSFNET_FUSED_LOSS", "1") != "0"
 
-    def _make_loss(self):
-        sizes, sizes_1 = self.net.sizes, (self.net_1.sizes if self.evm else None)
+    def _apply_evm(self):
+        sizes_1 = self.net_1.sizes
+        return lambda flat, x: mlp_apply(unflatten_params(flat, sizes_1), x)
+
+    def _make_loss(self, kind: Optional[str] = None):
+        """The step's loss on the engine `kind` (the solver's by default);
+        "xla" is the closed form with no fused loss."""
+        kind = kind or self.engine
+        sizes = self.net.sizes
         scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
         fused = None
-        if self.engine == "pallas" and self.formulation == "velocity" \
+        if kind == "pallas" and self.formulation == "velocity" \
                 and self.loss_mode == "MSE" and self._fused_loss_enabled():
             if evm:
                 def fused(flat, x, e, vis_t, eq_w, re):
@@ -405,12 +466,12 @@ class PINNSolver:
                     return fused_residual_loss(flat, sizes, x, None, None, eq_w, re,
                                                coord_scale=scale, evm=False, precision=prec)
         return make_loss_fn(
-            engine=self._engine(),
+            engine=self._engine(kind),
             apply_main=self._uvp_apply(),
-            apply_evm=((lambda flat, x: mlp_apply(unflatten_params(flat, sizes_1), x))
-                       if evm else None),
+            apply_evm=self._apply_evm() if evm else None,
             coord_scale=scale,
             alpha_e=self.alpha_e,
+            alpha_s=self.alpha_s,
             entropy_weight=self.entropy_residual_weight,
             evm=evm,
             fused_eq_loss=fused,
@@ -423,6 +484,7 @@ class PINNSolver:
         self._batch = self._build_batch()
         train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm)
         self._runner = make_chunk_runner(train_step)
+        self._loss_fn = self._make_loss("xla")
         self._dirty = False
 
     # ------------------------------------------------------------- training
@@ -440,14 +502,48 @@ class PINNSolver:
         self.global_step += n_steps
         return metrics
 
-    def train(self, num_epoch: int = 1, lr: float = 1e-4,
+    def _grad_norm_ratio(self) -> float:
+        """||grad L_eq|| / ||grad L_bc|| over the MAIN net's params on the
+        current batch (nsfnet_tpu/training/solver.py:614-646): the balance
+        signal of the adaptive boundary weight. The closed-form exact-fp32
+        loss; the raw (unweighted) boundary part is differentiated, so the
+        current weight does not feed back into its own update."""
+        lf, st, b = self._loss_fn, self.state, self._batch
+        sc = self._stage_scalars(self.current_lr)
+        evm = st.params_evm.detach() if self.evm else None
+        with _exact_fp32():
+            p = st.params.detach().requires_grad_(True)
+            eq, _ = lf.eq_loss_fn((p, evm), b.x_f, b.y_f, b.eq_w, b.n_f, st.vis_t_minus, sc)
+            (g_eq,) = torch.autograd.grad(eq, [p])
+            _, (loss_b, _) = lf.aux_loss_fn((p, evm), b, sc)
+            (g_bc,) = torch.autograd.grad(loss_b, [p])
+            return (g_eq.norm() / (g_bc.norm() + 1e-12)).item()
+
+    def _update_adaptive_bc(self):
+        """EMA the boundary weight toward the grad-norm ratio clipped to
+        [1, adaptive_bc_max] (nsfnet_tpu/training/solver.py:648-662); the
+        next chunk's stage scalars read it."""
+        ratio = self._grad_norm_ratio()
+        if not np.isfinite(ratio):
+            return
+        target = float(np.clip(ratio, 1.0, self.adaptive_bc_max))
+        m = self.adaptive_bc_ema
+        self.current_alpha_b = m * self.current_alpha_b + (1.0 - m) * target
+        self.logger.info(f"  adaptive bc_weight -> {self.current_alpha_b:.3f} "
+                         f"(grad-norm ratio {ratio:.3f})")
+
+    def train(self, num_epoch: int = 1, lr: float = 1e-4, optimizer: str = "adam",
               Re: Optional[float] = None, bc_weight: Optional[float] = None,
               resume_in_stage: bool = False, advance_on_stall: bool = False,
               stall_threshold: float = 0.02, stall_window: int = 3,
               stall_min_epochs: int = 0, stall_metric: str = "eq_loss"):
-        """One Adam stage: num_epoch full-batch steps at fixed lr
-        (parity: ev-NSFnet/pinn_solver.py:430-487); Re / bc_weight override
-        the physics for this stage. Syncs with the device only at log and
+        """One stage: num_epoch full-batch Adam steps at fixed lr
+        (parity: ev-NSFnet/pinn_solver.py:430-487), or with optimizer "lbfgs"
+        / "lm" that many polish steps (train_lbfgs / train_lm); Re /
+        bc_weight override the physics for this stage. Without bc_weight, a
+        static-weight run resets the boundary weight to the config's at each
+        stage, and an adaptive one keeps its EMA'd weight (load() restores it
+        across resumes). Syncs with the device only at log and
         checkpoint boundaries, and at least every `max_chunk` steps.
 
         resume_in_stage continues a restored checkpoint mid-stage:
@@ -469,8 +565,16 @@ class PINNSolver:
         checkpoint and goes on, at most three times; before the stage's
         first checkpoint it is raised."""
         self.current_re = float(Re) if Re is not None else self.Re
-        self.current_alpha_b = (float(bc_weight) if bc_weight is not None
-                                else self.alpha_b)
+        if bc_weight is not None:
+            self.current_alpha_b = float(bc_weight)
+        elif not self.adaptive_bc_weight:
+            self.current_alpha_b = self.alpha_b
+        if optimizer == "lbfgs":
+            return self.train_lbfgs(num_epoch)
+        if optimizer == "lm":
+            return self.train_lm(num_epoch)
+        if optimizer != "adam":
+            raise ValueError(f"unknown optimizer {optimizer!r}; adam, lbfgs or lm")
         self.current_lr = lr
         self._ensure_ready()
         if not resume_in_stage:
@@ -529,6 +633,8 @@ class PINNSolver:
                         eq_track.append(0.5 * (errs["u"] + errs["v"]))
                     else:
                         eq_track.append(float(m.equation))
+                if self.adaptive_bc_weight and done < num_epoch:
+                    self._update_adaptive_bc()
             if (done == 1 and num_epoch >= self.checkpoint_freq) \
                     or done % self.checkpoint_freq == 0:
                 last_ckpt = self.save(f"model_cavity_loop{done}.ckpt")
@@ -544,6 +650,119 @@ class PINNSolver:
                     self.global_step += num_epoch - done
                     self.save(f"model_cavity_loop{num_epoch}.ckpt")
                     break
+        return self.state
+
+    def _flat_state(self):
+        """(both nets' params as one detached flat vector, its split into
+        the (params, params_evm) pair the losses take)."""
+        n0 = self.state.params.numel()
+        parts = [self.state.params] + ([self.state.params_evm] if self.evm else [])
+        w0 = torch.cat([t.detach() for t in parts])
+        return w0, lambda w: (w[:n0], w[n0:] if self.evm else None)
+
+    def _install_flat(self, w: torch.Tensor):
+        n0 = self.state.params.numel()
+        with torch.no_grad():
+            self.state.params.copy_(w[:n0])
+            if self.evm:
+                self.state.params_evm.copy_(w[n0:])
+
+    def train_lbfgs(self, num_steps: int):
+        """L-BFGS polish of both nets (training/lbfgs.py; the JAX package's
+        train_lbfgs), vis_t carry frozen, on the closed-form loss in exact
+        fp32. Chunks of max(1, max_chunk // 40) steps (a step runs up to 26
+        value-and-grad evaluations); n_steps rounds up to whole chunks and
+        global_step counts every step run. The state is replaced when the
+        stage ends, so a SIGTERM (delivered between chunks) leaves the
+        stage-start state for the checkpoint."""
+        self._ensure_ready()
+        batch, vtm, sc = self._batch, self.state.vis_t_minus, self._stage_scalars(1.0)
+        loss = self._loss_fn
+        w0, split = self._flat_state()
+
+        def value_and_grad(w):
+            w = w.detach().requires_grad_(True)
+            total, _ = loss(split(w), batch, vtm, sc)
+            (g,) = torch.autograd.grad(total, [w])
+            return total.detach(), g
+
+        t0 = time.time()
+
+        def progress(done, last_loss):
+            if done % 200 == 0:
+                self.logger.info(f"[L-BFGS] step {done}/{num_steps}  loss={last_loss:.3e}  "
+                                 f"({done / max(time.time() - t0, 1e-9):.2f} it/s)")
+
+        with _exact_fp32():
+            res = run_lbfgs(value_and_grad, w0, num_steps,
+                            max_chunk=max(1, self.max_chunk // 40), progress=progress,
+                            guard=_defer_sigterm)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.time() - t0
+        self._install_flat(res.params)
+        self.global_step += len(res.history)
+        self.polish_stats = {"optimizer": "lbfgs", "steps": len(res.history),
+                             "history": res.history, "evaluations": res.evaluations,
+                             "seconds": seconds}
+        self.logger.info(f"[L-BFGS] {num_steps} steps in {seconds:.1f}s  loss "
+                         f"{res.history[0]:.3e} -> {res.history[-1]:.3e}")
+        return self.state
+
+    def train_lm(self, num_steps: int, cg_iters: int = 50, microbatches: Optional[int] = None):
+        """Levenberg-Marquardt (matrix-free Gauss-Newton-CG) polish of both
+        nets (training/lm.py; the JAX package's train_lm), vis_t carry
+        frozen, on the closed-form residual in exact fp32. microbatches > 1
+        (default `lm_microbatches`) sums every Gauss-Newton product over that
+        many collocation slices, zero-padded to equal length: ~K-fold lower
+        peak memory, the same math. Chunks of max(1, max_chunk //
+        (2 cg_iters + 4)) steps, or // (3 cg_iters + 8) sliced; the state is
+        replaced when the stage ends, as in train_lbfgs."""
+        if self.loss_mode != "MSE":
+            raise ValueError("the LM polish minimises the MSE loss; loss_mode is "
+                             f"{self.loss_mode!r}")
+        self._ensure_ready()
+        residual = make_residual_fn(
+            engine=self._engine("xla"), apply_main=self._uvp_apply(),
+            apply_evm=self._apply_evm() if self.evm else None,
+            coord_scale=self.coord_scale, alpha_e=self.alpha_e, alpha_s=self.alpha_s,
+            entropy_weight=self.entropy_residual_weight, evm=self.evm)
+        batch, vtm, sc = self._batch, self.state.vis_t_minus, self._stage_scalars(1.0)
+        w0, split = self._flat_state()
+        t0 = time.time()
+
+        def progress(done, last_loss, lam):
+            self.logger.info(f"[LM] step {done}/{num_steps}  loss={last_loss:.3e}  lam={lam:.1e}  "
+                             f"({done / max(time.time() - t0, 1e-9):.2f} it/s)")
+
+        micro = int(microbatches if microbatches is not None else self.lm_microbatches)
+        with _exact_fp32():
+            if micro > 1:
+                # pad rows carry eq_w = 0: zero residual rows; the global n_f
+                # keeps the rows scaled as in the unsliced vector (a vanilla
+                # solver has no carry: its slices hold zeros, unread)
+                carry = vtm if vtm is not None else torch.zeros_like(batch.x_f)
+                slices = stack_slices([batch.x_f, batch.y_f, batch.eq_w, carry], micro)
+                eq_fn, aux_fn = residual.eq_residual_fn, residual.aux_residual_fn
+                w, history, lam = run_lm_micro(
+                    lambda w_, sl: eq_fn(split(w_), *sl, batch.n_f, sc),
+                    lambda w_: aux_fn(split(w_), batch, sc), slices, w0, num_steps,
+                    cg_iters=cg_iters, max_chunk=max(1, self.max_chunk // (3 * cg_iters + 8)),
+                    progress=progress, guard=_defer_sigterm)
+            else:
+                w, history, lam = run_lm(
+                    lambda w_: residual(split(w_), batch, vtm, sc), w0, num_steps,
+                    cg_iters=cg_iters, max_chunk=max(1, self.max_chunk // (2 * cg_iters + 4)),
+                    progress=progress, guard=_defer_sigterm)
+        history = history.tolist()
+        seconds = time.time() - t0
+        self._install_flat(w)
+        self.global_step += len(history)
+        self.polish_stats = {"optimizer": "lm", "steps": len(history), "history": history,
+                             "lam": lam, "microbatches": micro, "cg_iters": cg_iters,
+                             "seconds": seconds}
+        self.logger.info(f"[LM] {num_steps} steps in {seconds:.1f}s  loss "
+                         f"{history[0]:.3e} -> {history[-1]:.3e}")
         return self.state
 
     def residuals_at(self, x, y, chunk: int = 32768) -> np.ndarray:
@@ -633,6 +852,34 @@ class PINNSolver:
                 "Error u: %.3f %%  v: %.3f %%  p: %.3f %% (gauge-corrected %.3f %%, "
                 "shift %.4f)" % (errors["u"], errors["v"], errors["p"],
                                  errors["p_gauge"], shift))
+        return errors
+
+    def test(self, x, y, u, v, p, loop=None, save_dir=None):
+        """Predict the full grid, report the errors and write
+        `cavity_result_loop_{loop}.mat` (parity: ev-NSFnet/pinn_solver.py:695-740;
+        nsfnet_tpu/training/solver.py:1049-1083): U/V/P/E_pred on the square
+        grid, the errors, lam_bcs and lam_equ; PSI_pred, the raw net's psi,
+        under the streamfunction formulation."""
+        import scipy.io
+
+        errors = self.evaluate(x, y, u, v, p)
+        side = int(round(np.sqrt(np.asarray(x).size)))
+        grid = lambda t: t.cpu().numpy().reshape(side, side)
+        u_pred, v_pred, p_pred, e_pred = self.neural_net_u(x, y)
+        extra = {}
+        if self.formulation == "streamfunction":
+            with torch.no_grad(), _exact_fp32():
+                extra["PSI_pred"] = grid(self.net(self._host_points(x, y))[:, 0])
+        out_dir = save_dir or os.path.join(self.checkpoint_path, f"Re{self.Re:g}", "test_result")
+        os.makedirs(out_dir, exist_ok=True)
+        scipy.io.savemat(os.path.join(out_dir, f"cavity_result_loop_{loop}.mat"), {
+            **extra,
+            "U_pred": grid(u_pred), "V_pred": grid(v_pred), "P_pred": grid(p_pred),
+            "E_pred": grid(e_pred),
+            "error_u": errors["u"], "error_v": errors["v"], "error_p": errors["p"],
+            "error_p_gauge": errors["p_gauge"],
+            "lam_bcs": self.alpha_b, "lam_equ": self.alpha_e,
+        })
         return errors
 
     # ---------------------------------------------------------- persistence

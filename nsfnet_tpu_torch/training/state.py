@@ -30,6 +30,16 @@ class Batch(NamedTuple):
     v_b: torch.Tensor
     b_mask: torch.Tensor  # [Nb_pad, 1]
     n_b: float
+    # supervised DNS samples (None when supervision is off)
+    x_s: Optional[torch.Tensor] = None   # [Ns, 1]
+    y_s: Optional[torch.Tensor] = None
+    u_s: Optional[torch.Tensor] = None
+    v_s: Optional[torch.Tensor] = None
+    p_s: Optional[torch.Tensor] = None   # NaN targets zeroed; p_mask marks the finite ones
+    s_mask: Optional[torch.Tensor] = None
+    p_mask: Optional[torch.Tensor] = None
+    n_s: float = 0.0
+    n_p: float = 0.0
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
-"""The training step and the multi-step chunk runner
-(port of nsfnet_tpu/training/step.py:53-190, 271-331, 432-455).
+"""The training step, the multi-step chunk runner and the least-squares
+residual (port of nsfnet_tpu/training/step.py:53-268, 271-331, 432-455).
 
 One step = the reference's full-batch epoch (solve_Adam body,
 ev-NSFnet/pinn_solver.py:456-480), on the device:
@@ -9,7 +9,8 @@ ev-NSFnet/pinn_solver.py:456-480), on the device:
     kernel pair of ops/mlp_streams.py, or the plain closed-form engine)
     followed by residuals and masked sums,
   * boundary / equation losses with exact means over real points (MSE), or
-    the reference v1's un-normalised norms (L2),
+    the reference v1's un-normalised norms (L2), and the supervised loss on
+    sampled DNS values,
   * Adam on the main net every step,
   * Adam on the EVM net only on stage-epochs k*evm_update_freq, k >= 1
     (pinn_solver.py:452-462); frozen steps leave its params AND moments
@@ -19,6 +20,10 @@ ev-NSFnet/pinn_solver.py:456-480), on the device:
 Nothing in a step reads a value back from the device: lr, Re and alpha_evm
 are Python floats and the EVM gate counts on the host, so a chunk of steps
 queues up without a host sync. The caller syncs at log boundaries.
+
+`make_residual_fn` is the loss as a vector r with sum(r**2) equal to the
+MSE total: the least-squares structure the Levenberg-Marquardt polish
+(training/lm.py) works on.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ def make_loss_fn(
     apply_evm: Optional[Callable],
     coord_scale: float,
     alpha_e: float,
+    alpha_s: float = 0.0,
     entropy_weight: float = 0.1,
     evm: bool = True,
     fused_eq_loss: Optional[Callable] = None,
@@ -62,7 +68,10 @@ def make_loss_fn(
     runs `engine` -> residuals -> masked means. loss_mode 'L2' is the
     reference v1's un-normalised L2-norm loss (NSFnet/pinn_solver.py:201-218):
     norms of the residuals and of the boundary mismatch, no 1/n. The
-    supervised loss is not ported yet: its component is reported as 0."""
+    supervised loss (weight `alpha_s`) is an MSE in either mode, as in the
+    JAX package. The parts are exposed as attributes, as the JAX package's
+    are: `eq_loss_fn` and `aux_loss_fn` (the adaptive bc weight's probe
+    differentiates them apart)."""
     if loss_mode not in ("MSE", "L2"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
     if loss_mode == "L2" and fused_eq_loss is not None:
@@ -115,7 +124,7 @@ def make_loss_fn(
         return alpha_e * loss_e, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus)
 
     def aux_loss_fn(params_all, batch: Batch, sc: StageScalars):
-        """Boundary part, weighted, plus the raw component."""
+        """Boundary + supervised part, weighted, plus the raw components."""
         params, _ = params_all
         x_bc = torch.cat([batch.x_b, batch.y_b], dim=1)
         uvp_b = apply_main(params, x_bc)
@@ -126,22 +135,97 @@ def make_loss_fn(
         else:
             loss_b = L.boundary_loss(uvp_b[:, 0:1], uvp_b[:, 1:2],
                                      batch.u_b, batch.v_b, batch.b_mask, batch.n_b)
-        return sc.alpha_b * loss_b, loss_b
+        if batch.x_s is not None:
+            uvp_s = apply_main(params, torch.cat([batch.x_s, batch.y_s], dim=1))
+            loss_s = L.supervised_loss(uvp_s[:, 0:1], uvp_s[:, 1:2], uvp_s[:, 2:3],
+                                       batch.u_s, batch.v_s, batch.p_s, batch.s_mask,
+                                       batch.n_s, batch.p_mask, batch.n_p)
+        else:
+            loss_s = torch.zeros_like(loss_b)
+        return sc.alpha_b * loss_b + alpha_s * loss_s, (loss_b, loss_s)
 
-    def assemble(loss_b, l1, l2, l3, l4, vis_t_mean, sc: StageScalars):
+    def assemble(loss_b, l1, l2, l3, l4, loss_s, vis_t_mean, sc: StageScalars):
         loss_e = l1 + l2 + l3 + (entropy_weight * l4 if evm else 0.0)
-        total = sc.alpha_b * loss_b + alpha_e * loss_e
-        return StepMetrics(total, loss_b, loss_e, torch.zeros_like(total),
-                           l1, l2, l3, l4, vis_t_mean)
+        total = sc.alpha_b * loss_b + alpha_e * loss_e + alpha_s * loss_s
+        return StepMetrics(total, loss_b, loss_e, loss_s, l1, l2, l3, l4, vis_t_mean)
 
     def loss_fn(params_all, batch: Batch, vis_t_minus, sc: StageScalars):
         _, (l1, l2, l3, l4, vis_t_mean, new_vis_t_minus) = eq_loss_fn(
             params_all, batch.x_f, batch.y_f, batch.eq_w, batch.n_f, vis_t_minus, sc)
-        _, loss_b = aux_loss_fn(params_all, batch, sc)
-        metrics = assemble(loss_b, l1, l2, l3, l4, vis_t_mean, sc)
+        _, (loss_b, loss_s) = aux_loss_fn(params_all, batch, sc)
+        metrics = assemble(loss_b, l1, l2, l3, l4, loss_s, vis_t_mean, sc)
         return metrics.total, (metrics, new_vis_t_minus)
 
+    loss_fn.eq_loss_fn = eq_loss_fn
+    loss_fn.aux_loss_fn = aux_loss_fn
     return loss_fn
+
+
+def make_residual_fn(
+    engine: Engine,
+    apply_main: Callable,
+    apply_evm: Optional[Callable],
+    coord_scale: float,
+    alpha_e: float,
+    alpha_s: float = 0.0,
+    entropy_weight: float = 0.1,
+    evm: bool = True,
+):
+    """The flat weighted residual vector r(params) with sum(r**2) equal to
+    the MSE loss total (nsfnet_tpu/training/step.py:193-268): the same
+    masks, counts and weights as make_loss_fn, each row scaled by
+    sqrt(alpha / count), so pad rows are zero rows of the Jacobian. Plain
+    PyTorch only (the Gauss-Newton products take forward-mode derivatives
+    through it, which the kernel wrappers do not have); MSE mode only.
+
+    `residual_fn.eq_residual_fn` gives the equation rows of any SLICE of
+    the collocation set, scaled by the GLOBAL real-point count `n_f`, so
+    the slices' rows together are the full vector's equation rows; the
+    microbatched Gauss-Newton products sum over them.
+    `residual_fn.aux_residual_fn` gives the boundary and supervised rows."""
+
+    def eq_residual_fn(params_all, x_f, y_f, eq_w, vis_t_minus, n_f, sc: StageScalars):
+        params, params_evm = params_all
+        re = sc.re
+        x_eq = torch.cat([x_f, y_f], dim=1)
+        derivs = engine(params, x_eq)
+        if evm:
+            e = apply_evm(params_evm, x_eq)[:, 0:1]
+            vis_t = R.next_vis_t(vis_t_minus, 20.0 / re)
+            res = R.ev_ns_residuals(derivs, e, vis_t, re, coord_scale)
+        else:
+            res = R.ns_residuals(derivs, re, coord_scale)
+        sw = torch.sqrt(eq_w * (alpha_e / n_f))
+        parts = [sw * res.eq1, sw * res.eq2, sw * res.eq3]
+        if evm and res.eq4 is not None:
+            parts.append(entropy_weight ** 0.5 * sw * res.eq4)
+        return torch.cat([p.reshape(-1) for p in parts])
+
+    def aux_residual_fn(params_all, batch: Batch, sc: StageScalars):
+        params, _ = params_all
+        uvp_b = apply_main(params, torch.cat([batch.x_b, batch.y_b], dim=1))
+        bw = torch.sqrt(batch.b_mask * (sc.alpha_b / batch.n_b))
+        parts = [bw * (uvp_b[:, 0:1] - batch.u_b), bw * (uvp_b[:, 1:2] - batch.v_b)]
+        if batch.x_s is not None:
+            uvp_s = apply_main(params, torch.cat([batch.x_s, batch.y_s], dim=1))
+            suw = torch.sqrt(batch.s_mask * (alpha_s / batch.n_s))
+            parts += [suw * (uvp_s[:, 0:1] - batch.u_s), suw * (uvp_s[:, 1:2] - batch.v_s)]
+            if batch.p_s is not None and batch.p_mask is not None:
+                keep = batch.p_mask > 0
+                pw = torch.sqrt(batch.p_mask * (alpha_s / max(float(batch.n_p), 1.0)))
+                p_t = torch.where(keep, batch.p_s, torch.zeros_like(batch.p_s))
+                p_p = torch.where(keep, uvp_s[:, 2:3], torch.zeros_like(p_t))
+                parts.append(pw * (p_p - p_t))
+        return torch.cat([p.reshape(-1) for p in parts])
+
+    def residual_fn(params_all, batch: Batch, vis_t_minus, sc: StageScalars):
+        r_eq = eq_residual_fn(params_all, batch.x_f, batch.y_f, batch.eq_w, vis_t_minus,
+                              batch.n_f, sc)
+        return torch.cat([r_eq, aux_residual_fn(params_all, batch, sc)])
+
+    residual_fn.eq_residual_fn = eq_residual_fn
+    residual_fn.aux_residual_fn = aux_residual_fn
+    return residual_fn
 
 
 @torch.no_grad()

@@ -401,7 +401,9 @@ def test_driver_takes_35_of_the_38_configs():
         if out:
             refused[os.path.basename(p)] = out
     assert len(paths) == 38
-    assert sorted(refused) == ["kan_cavity.yaml", "re2000_ev_h288.yaml", "re2000_nsfnet.yaml"]
+    # 37 of the 38 since the polish stages and the solver options came in:
+    # only the KAN config is refused
+    assert sorted(refused) == ["kan_cavity.yaml"]
     for name in ("re4000_r4b", "re4000_ev_polish_h160", "re5000_ev_polish_h160",
-                 "re5000_cont_from_re4000"):
+                 "re5000_cont_from_re4000", "re2000_nsfnet", "re2000_ev_h288"):
         assert f"{name}.yaml" not in refused

@@ -661,3 +661,58 @@ def test_residuals_at_on_the_card_matches_the_cpu(cuda):
         s.set_coordinate_transform(2.0)
     np.testing.assert_allclose(card.residuals_at(px, py, chunk=512),
                                cpu.residuals_at(px, py, chunk=512), rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------- second-order polish
+
+def test_v1_recipe_shape_kernels_match_plain_version(cuda):
+    """Kernels 1+2 at configs/re2000_nsfnet.yaml's shape (4x120, no EVM,
+    40,000 points) at the path's name and tile."""
+    _check_pair(cuda, (2, 120, 120, 120, 120, 3), 40_000, 1.0, 2000.0, False, "high")
+
+
+def _polish_pair(evm=True, hidden=24, n_f=500, re=400.0, adam_steps=10):
+    from nsfnet_tpu_torch.data.cavity import CavityData
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        s = PINNSolver(Re=re, layers=2, layers_1=2 if evm else None, evm=evm,
+                       hidden_size=hidden, hidden_size_1=hidden // 2, N_f=n_f,
+                       evm_update_freq=2, log_interval=1, checkpoint_freq=10**9, seed=3,
+                       device=dev)
+        d = CavityData(N_f=n_f, sdf_enabled=True, sort_training_points=False, seed=1)
+        s.set_boundary_data(X=d.boundary_data())
+        s.set_eq_training_data(X=d.training_data(), weights=d.sdf_weights)
+        s.train(num_epoch=adam_steps, lr=1e-3)
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("evm", [True, False])
+def test_lbfgs_on_the_card_matches_the_cpu(cuda, evm):
+    """The closed-form exact-fp32 loss on both devices: the line search
+    takes the same decisions, the histories differ by the sums' order."""
+    card, cpu = _polish_pair(evm)
+    for s in (card, cpu):
+        s.train(num_epoch=4, optimizer="lbfgs")
+    assert card.polish_stats["evaluations"] == cpu.polish_stats["evaluations"]
+    np.testing.assert_allclose(card.polish_stats["history"], cpu.polish_stats["history"],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("micro", [1, 3])
+def test_lm_on_the_card_matches_the_cpu(cuda, micro):
+    """LM full and over 3 slices, card against CPU, on a net small enough
+    (8 wide, 64 points) for 40 CG iterations to converge: with CG stopped
+    early, fp32 CG over an ill-conditioned J^T J amplifies the devices'
+    summation-order differences into different steps. Converged, the port
+    and the JAX package agree to 1e-4 of the loss on the CPU
+    (tests/test_torch_polish.py): the bar is 5e-4."""
+    card, cpu = _polish_pair(hidden=8, n_f=64, re=100.0, adam_steps=2)
+    for s in (card, cpu):
+        s.train_lm(2, cg_iters=40, microbatches=micro)
+    h = card.polish_stats["history"]
+    assert h[-1] < h[0]
+    np.testing.assert_allclose(h, cpu.polish_stats["history"], rtol=5e-4)
+    torch.testing.assert_close(card.state.params.cpu(), cpu.state.params, rtol=0, atol=5e-4)
+    assert card.global_step == cpu.global_step == 4

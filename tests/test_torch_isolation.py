@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
-    assert {"nsfnet_tpu_torch.training.solver", "nsfnet_tpu_torch.training.checkpoint"} <= set(loaded)
+    assert {"nsfnet_tpu_torch.training.solver", "nsfnet_tpu_torch.training.checkpoint",
+            "nsfnet_tpu_torch.training.lbfgs", "nsfnet_tpu_torch.training.lm"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -106,6 +107,6 @@ def test_cli_runs_on_the_cpu_when_asked(tmp_path):
 
 
 def test_cli_refuses_what_the_port_does_not_run(tmp_path):
-    cfg = tmp_path / "lbfgs.yaml"
-    cfg.write_text(TINY.format(out=tmp_path).replace("name: S2,", "name: S2, optimizer: lbfgs,"))
+    cfg = tmp_path / "micro.yaml"
+    cfg.write_text(TINY.format(out=tmp_path).replace("  N_f: 300\n", "  N_f: 300\n  microbatches: 2\n"))
     assert port_train.main(["--config", str(cfg), "--cpu"]) == 2
