@@ -76,6 +76,19 @@ Phases (any failure exits non-zero before the result line):
            LM over 3 slices against the full batch from the h288 checkpoint,
            and an Adam run with supervision and the adaptive bc weight cuda
            against the CPU;
+      4h. the other backbones, no kernel launched in any run: (i)
+          configs/kan_cavity.yaml unedited through the driver's main() (200
+          L-BFGS steps of the notebook's KAN at N_f 10,000): a falling loss,
+          evaluations and ms per step; (ii) the committed KAN state
+          artifacts/kan_cavity/final_state.ckpt, its loss on cuda against
+          the CPU, then 20 L-BFGS steps; (iii) the KAN [2,16,16,8] at the
+          flagship batch, timed Adam steps; (iv) the flagship ev-NSFnet with
+          16 Fourier features, 30 Adam steps on the generic engine and cuda
+          against the CPU; (v) the generic engines against the closed forms
+          at full width; (vi) LM on both backbones at N_f 10,000 (the KAN
+          from the committed state, the Fourier net from its seed), then the
+          Gauss-Newton products (residual, J v, J^T r) cuda against the CPU
+          on a small input;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
@@ -132,7 +145,12 @@ LM_PARAM_TOL = 1e-5  # LM over 3 slices vs the full batch: max|diff| / max|w| of
 # this bar (PERF.md, section 6)
 LM_HIST_TOL = 1e-4
 WIDEN_TOL = 1e-6    # widened net against its donor (Net2Net: exact zeros out of new units)
+KAN_LOAD_TOL = 1e-5  # the committed KAN state's loss, cuda vs CPU (relative)
+GENERIC_TOL = 1e-5      # generic jvp engine vs closed form, order 2: max|diff|/max|ref| per stream
+GENERIC_PSI_TOL = 1e-4  # order 3, the bar kernels 5+6 are held to against the closed form
 N_SF_SMALL = 10_000  # N_f of configs/re100_streamfunction.yaml
+LM_BACKBONE_NF = 10_000  # LM on the KAN and the Fourier net: kan_cavity's N_f
+LM_BACKBONE_STEPS = 2
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -284,7 +302,7 @@ def main() -> int:
         return 1
 
     from nsfnet_tpu_torch.config import ConfigManager
-    from nsfnet_tpu_torch.models.mlp import (flatten_params, init_mlp, layer_sizes,
+    from nsfnet_tpu_torch.models.mlp import (flatten_params, init_mlp, layer_sizes, mlp_apply,
                                              unflatten_params)
     from nsfnet_tpu_torch.ops import _build
     from nsfnet_tpu_torch.ops import fused_residual as fr
@@ -1276,6 +1294,250 @@ def main() -> int:
     del runs, s
     torch.cuda.empty_cache()
 
+    # ---- 4h. the other backbones, every checkpoint in a temporary directory:
+    # (i) configs/kan_cavity.yaml through train.py's main(); (ii) the
+    # committed JAX KAN state on cuda and on the CPU, then 20 L-BFGS steps;
+    # (iii) the notebook's KAN at the flagship batch, timed Adam steps; (iv) a
+    # Fourier-feature flagship net on the generic engine; (v) the generic
+    # engines against the closed forms at full width. No kernel may launch.
+    # (in a function: its names stay out of phase 5's)
+    def run_backbones():
+        from nsfnet_tpu_torch.models.kan import KAN
+        from nsfnet_tpu_torch.ops import derivatives as D
+        from nsfnet_tpu_torch.training.step import make_residual_fn
+
+        other_t0 = time.time()
+        other_dir = tempfile.mkdtemp(prefix="chip_smoke_backbones_")
+        kan_cfg, kan_ckpt = "configs/kan_cavity.yaml", "artifacts/kan_cavity/final_state.ckpt"
+        oth, driven = {}, []
+
+        def spy_other(self, *a, **kw):
+            driven.append(self)
+            return orig[0](self, *a, **kw)
+
+        def no_launches(counts):
+            return not any(counts.values())
+
+        def with_n_f(raw, n_f):
+            return ConfigManager.from_dict({**raw, "training": {**raw["training"],
+                                                                "N_f": n_f}}).config
+
+        def lm_products(raw):
+            """max|diff|/max|ref| over the LM residual r(w0), J v and J^T r,
+            cuda against the CPU, on the config's net at N_f 512 (exact fp32)."""
+            out = {}
+            for where in ("cuda", "cpu"):
+                s, _ = ready_solver(with_n_f(raw, 512), where)
+                s._ensure_ready()
+                res = make_residual_fn(
+                    engine=s._engine("xla"), apply_main=s._uvp_apply(),
+                    apply_evm=s._apply_evm() if s.evm else None, coord_scale=s.coord_scale,
+                    alpha_e=s.alpha_e, alpha_s=s.alpha_s,
+                    entropy_weight=s.entropy_residual_weight, evm=s.evm)
+                w0, split = s._flat_state()
+                sc = s._stage_scalars(1.0)
+                f = lambda w: res(split(w), s._batch, s.state.vis_t_minus, sc)
+                v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+                    w0.numel()).astype(np.float32)).to(w0.device)
+                r, jv = torch.func.jvp(f, (w0,), (v,))
+                (jtr,) = torch.func.vjp(f, w0)[1](r)
+                out[where] = [t.detach().cpu() for t in (r, jv, jtr)]
+            return max(rel_max(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+
+        PINNSolver.train = spy_other
+        try:
+            # (i) kan_cavity, its stage as published (200 L-BFGS steps, N_f 10,000)
+            stages = ConfigManager.from_file(kan_cfg).to_dict()["training"]["training_stages"]
+            path = write_config(other_dir, kan_cfg, "kan", stages)
+            reset_counts()
+            t0 = time.time()
+            rc = train_mod.main(["--config", path])
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches_kan = read_counts()
+            sk = driven[-1]
+            ps = sk.polish_stats
+            hist, evals = ps["history"], ps["evaluations"]
+            kan_lbfgs_ms = 1e3 * ps["seconds"] / ps["steps"]
+            print(f"backbones (i) {kan_cfg} (KAN {list(sk.net.width)}, grid {sk.net.grid}, k "
+                  f"{sk.net.k}, N_f {sk.N_f:,}, engine {sk.engine}) through train.main: exit {rc} in "
+                  f"{seconds:.1f} s; launches {launches_kan}; L-BFGS {ps['steps']} steps, loss "
+                  f"{hist[0]:.6e} -> {hist[-1]:.6e} (the JAX package on the CPU from its own "
+                  f"initialisation: 3.20e-1 -> 8.46e-3, VALIDATION.md:682; not gated), "
+                  f"value-and-grad evaluations per step mean {np.mean(evals):.2f} max {max(evals)}, "
+                  f"{kan_lbfgs_ms:.3f} ms per L-BFGS step — {card}")
+            ok_o1 = (rc == 0 and sk.backbone == "kan" and sk.engine == "xla" and not sk.evm
+                     and ps["optimizer"] == "lbfgs" and ps["steps"] == 200
+                     and all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]
+                     and no_launches(launches_kan))
+            oth["kan_cavity"] = {"rc": rc, "seconds": seconds, "launches": launches_kan,
+                                 "history": hist, "evaluations": evals,
+                                 "lbfgs_ms_per_step": kan_lbfgs_ms, "ok": ok_o1}
+            oth["kan_cavity"]["profile"] = profile_steps(
+                torch, lambda: sk.train_lbfgs(5), card, "KAN L-BFGS step (kan_cavity, N_f 10,000)")
+            oth["kan_cavity"]["profile_evaluations"] = sk.polish_stats["evaluations"]
+            print(f"  value-and-grad evaluations of the 5 profiled L-BFGS steps: "
+                  f"{sk.polish_stats['evaluations']}")
+            del sk
+            driven.clear()
+        finally:
+            PINNSolver.train = orig[0]
+            shutil.rmtree(other_dir, ignore_errors=True)
+
+        # (ii) the committed JAX state (200 L-BFGS steps of the notebook's KAN) on
+        # the config's seeded points, on cuda and on the CPU; then 20 L-BFGS steps
+        kcfg = ConfigManager.from_file(kan_cfg).config
+        loaded = {}
+        for where in ("cuda", "cpu"):
+            s, _ = ready_solver(kcfg, where)
+            s.load(kan_ckpt)
+            s._ensure_ready()
+            with torch.no_grad():
+                loaded[where] = s._loss_fn((s.state.params, None), s._batch, None,
+                                           s._stage_scalars(1.0))[0].item()
+            if where == "cuda":
+                reset_counts()
+                s.train(num_epoch=20, optimizer="lbfgs")
+                torch.cuda.synchronize()
+                launches_ld = read_counts()
+                ld_hist = s.polish_stats["history"]
+            del s
+        ld_rel = abs(loaded["cuda"] - loaded["cpu"]) / abs(loaded["cpu"])
+        print(f"backbones (ii) {kan_ckpt} on {kcfg.training.N_f:,} seeded points: loss cuda "
+              f"{loaded['cuda']:.8e} vs CPU {loaded['cpu']:.8e}, rel diff {ld_rel:.3e} (tolerance "
+              f"{KAN_LOAD_TOL:g}); 20 L-BFGS steps on cuda {ld_hist[0]:.6e} -> {ld_hist[-1]:.6e}; "
+              f"launches {launches_ld}")
+        ok_o2 = (ld_rel <= KAN_LOAD_TOL and math.isfinite(loaded["cuda"])
+                 and all(math.isfinite(v) for v in ld_hist) and ld_hist[-1] <= ld_hist[0]
+                 and no_launches(launches_ld))
+        oth["kan_loaded"] = {"loss": loaded, "rel": ld_rel, "history": ld_hist,
+                             "launches": launches_ld, "ok": ok_o2}
+
+        # (iii) the notebook's KAN [2,16,16,8], no EVM, at the flagship batch
+        # (N_f 120,000, as scripts/perf_matrix.py:152-155 builds it): Adam steps
+        kraw = json.loads(json.dumps(FLAGSHIP))
+        kraw["model_variant"] = "kan"
+        kraw["network"].update(backbone="kan", kan_width=[2, 16, 16, 8], kan_grid=5, kan_k=3)
+        kraw["experiment_name"] = "chip_smoke_kan_flagship_batch"
+        kbcfg = ConfigManager.from_dict(kraw).config
+        sk, _ = ready_solver(kbcfg)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        sk.run_steps(5, 1e-3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sk.run_steps(TIMED_STEPS, 1e-3)
+        torch.cuda.synchronize()
+        kan_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+        launches_kb = read_counts()
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        m = m.to_host()
+        kan_pts = (sk._batch.n_f + sk._batch.n_b) / (kan_ms / 1e3)
+        print(f"backbones (iii) KAN [2,16,16,8] no EVM, N_f {sk.N_f:,} + {int(sk._batch.n_b):,} "
+              f"boundary points, engine {sk.engine}: {kan_ms:.3f} ms per Adam step "
+              f"({TIMED_STEPS} after 5 warm-up), {kan_pts:,.0f} collocation points/s, peak "
+              f"{peak_mb:,.0f} MiB ({peak_mb - base_mb:,.0f} over the {base_mb:,.0f} held "
+              f"before), loss {m.total:.4e}, launches {launches_kb} — {card}")
+        ok_o3 = math.isfinite(m.total) and no_launches(launches_kb) and sk.engine == "xla"
+        oth["kan_step"] = {"ms_per_step": kan_ms, "pts_per_s": kan_pts, "peak_mb": peak_mb,
+                           "base_mb": base_mb, "loss": m.total, "launches": launches_kb,
+                           "ok": ok_o3}
+        oth["kan_step"]["profile"] = profile_steps(
+            torch, lambda: sk.run_steps(5), card, "KAN Adam step ([2,16,16,8], N_f 120,000)")
+        del sk
+        torch.cuda.empty_cache()
+
+        # (iv) the flagship ev-NSFnet with 16 random Fourier features (sigma 3):
+        # 30 Adam steps on the generic engine, then cuda against the CPU
+        fraw = json.loads(json.dumps(FLAGSHIP))
+        fraw["network"].update(fourier_features=16, fourier_sigma=3.0)
+        fraw["experiment_name"] = "chip_smoke_fourier"
+        frcfg = ConfigManager.from_dict(fraw).config
+        sfr, launches_fr, ok_fr = drive(frcfg, "slice_fourier", ())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sfr.run_steps(10, 1e-3)
+        torch.cuda.synchronize()
+        fourier_ms = 1e3 * (time.perf_counter() - t0) / 10
+        print(f"backbones (iv) Fourier 6x80 + 4x40 EVM (m 16, sigma 3, first fan_in "
+              f"{sfr.net.sizes[0]}), N_f {sfr.N_f:,}, engine {sfr.engine}: {fourier_ms:.3f} ms per "
+              f"Adam step (10 timed after the 30) — {card}")
+        oth["fourier"] = {"ms_per_step": fourier_ms, "launches": launches_fr,
+                          "profile": profile_steps(torch, lambda: sfr.run_steps(5), card,
+                                                   "Fourier Adam step (6x80 m 16, N_f 120,000)")}
+        del sfr
+        torch.cuda.empty_cache()
+        fr_rel = cuda_vs_cpu(fraw, "6x80 ev-nsfnet, 16 Fourier features", evm_update_freq=2)
+        ok_o4 = ok_fr and fr_rel <= SMALL_TOL
+        oth["fourier"].update(small_rel=fr_rel, ok=ok_o4)
+
+        # (vi) LM on both backbones (training/lm.py through the solver's
+        # train_lm; for the Fourier net each Gauss-Newton product is a third
+        # level of forward mode over the generic engine), then the products
+        # themselves cuda against the CPU on a small input
+        lm_runs = {}
+        for what, raw, start in (("KAN", ConfigManager.from_file(kan_cfg).to_dict(), kan_ckpt),
+                                 ("Fourier", fraw, None)):
+            s, _ = ready_solver(with_n_f(raw, LM_BACKBONE_NF))
+            if start:
+                s.load(start)
+            reset_counts()
+            s.train_lm(LM_BACKBONE_STEPS)
+            torch.cuda.synchronize()
+            st = s.polish_stats
+            lm_runs[what] = {"history": st["history"], "lam": st["lam"],
+                             "s_per_step": st["seconds"] / st["steps"], "launches": read_counts(),
+                             "params": s.net.flat.numel() + (s.net_1.flat.numel() if s.evm else 0),
+                             "products_rel": lm_products(raw)}
+            del s
+            r = lm_runs[what]
+            print(f"backbones (vi) LM on the {what} net ({r['params']:,} parameters, N_f "
+                  f"{LM_BACKBONE_NF:,}{', from ' + start if start else ''}), cg 50: "
+                  f"{LM_BACKBONE_STEPS} steps, history "
+                  + " ".join(f"{v:.6e}" for v in r["history"])
+                  + f", lam {r['lam']:.1e}, {r['s_per_step']:.3f} s per step, launches "
+                  f"{r['launches']}; Gauss-Newton products cuda vs CPU (N_f 512) max|diff|/max|ref| "
+                  f"of r, J v, J^T r {r['products_rel']:.3e} (tolerance {SMALL_TOL:g}) — {card}")
+        ok_o6 = all(all(math.isfinite(v) for v in r["history"]) and no_launches(r["launches"])
+                    and r["products_rel"] <= SMALL_TOL for r in lm_runs.values())
+        ok_o6 = ok_o6 and lm_runs["KAN"]["history"][-1] <= loaded["cuda"]
+        oth["lm"] = {**lm_runs, "ok": ok_o6}
+        torch.cuda.empty_cache()
+
+        # (v) the generic engines against the closed forms, exact fp32, N = 120,000
+        gen = torch.Generator().manual_seed(11)
+        x = (torch.rand((N_F, 2), generator=gen) * 2 - 1).to(dev)
+        stream_rel = lambda got, ref: max(rel_max(a, b) for a, b in zip(got, ref))
+        with torch.no_grad():
+            p = tuple((w.to(dev), b.to(dev)) for w, b in init_mlp(layer_sizes(2, 3, 6, 80), gen))
+            g_mlp = stream_rel(D.derivatives_2d(lambda z: mlp_apply(p, z), x),
+                               D.mlp_derivatives_2d(p, x))
+            p = tuple((w.to(dev), b.to(dev)) for w, b in init_mlp(layer_sizes(2, 2, 6, 80), gen))
+            g_psi = stream_rel(D.psi_p_derivatives_2d(lambda z: mlp_apply(p, z), x, 2.0),
+                               D.mlp_psi_derivatives_2d(p, x, 2.0))
+            net = KAN((2, 16, 16, 8), 5, 3, gen, dev)
+            kp = net.params()
+            g_kan = stream_rel(D.derivatives_2d(lambda z: net.apply_params(kp, z), x),
+                               D.make_kan_derivatives_2d(net)(kp, x))
+        print(f"backbones (v) generic vs closed form at N {N_F:,}, exact fp32, max over streams of "
+              f"max|diff|/max|ref|: derivatives_2d 6x80 MLP {g_mlp:.3e} (tolerance "
+              f"{GENERIC_TOL:g}); psi_p_derivatives_2d 6x80 (psi, p) {g_psi:.3e} (tolerance "
+              f"{GENERIC_PSI_TOL:g}); derivatives_2d KAN [2,16,16,8] {g_kan:.3e} (tolerance "
+              f"{GENERIC_TOL:g})")
+        ok_o5 = g_mlp <= GENERIC_TOL and g_psi <= GENERIC_PSI_TOL and g_kan <= GENERIC_TOL
+        oth["generic_vs_closed"] = {"mlp": g_mlp, "psi": g_psi, "kan": g_kan, "ok": ok_o5}
+        torch.cuda.empty_cache()
+        other_s = time.time() - other_t0
+        print(f"backbones phase: {other_s:.1f} s on the card")
+        oth["seconds"] = other_s
+        record["backbones"] = oth
+        return ok_o1, ok_o2, ok_o3, ok_o4, ok_o5, ok_o6
+
+    ok_o1, ok_o2, ok_o3, ok_o4, ok_o5, ok_o6 = run_backbones()
+    ok_other = ok_o1 and ok_o2 and ok_o3 and ok_o4 and ok_o5 and ok_o6
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -1496,13 +1758,15 @@ def main() -> int:
         json.dump(record, f, indent=1)
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
-            and ok_engine and ok_campaign and ok_polish):
+            and ok_engine and ok_campaign and ok_polish and ok_other):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
               f"{ok_engine}, campaign resume / SIGTERM / init-from {ok_i} / {ok_ii} / "
               f"{ok_iii}, polish v1 L-BFGS / h288 LM / small inputs {ok_p1} / {ok_p2} / "
-              f"{ok_p3})", file=sys.stderr)
+              f"{ok_p3}, backbones kan_cavity / KAN state / KAN step / Fourier / generic "
+              f"engines / LM {ok_o1} / {ok_o2} / {ok_o3} / {ok_o4} / {ok_o5} / {ok_o6})",
+              file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,20 +14,141 @@ the reference chains six reverse-mode `torch.autograd.grad` passes
 
 They are the CPU engines and the oracles the CUDA kernel pairs
 (ops/fused_residual.py, ops/mlp_streams.py, ops/psi_streams.py) are held
-against. The generic nested-jvp engines serve only the Fourier / KAN
-backbones and come with them.
+against.
+
+The other backbones (no kernel serves them, in either package):
+  * `derivatives_2d`, `first_derivatives_2d` (:34-84) and
+    `psi_p_derivatives_2d` (:107-137), with `psi_p_uv_generic` (:167-176):
+    the generic engines, nested `torch.func.jvp` over any batched smooth
+    `apply(x)` (the Fourier-embedded MLP); autograd differentiates them
+    wrt weights captured by the closure;
+  * `make_kan_derivatives_2d` (:290-341): the KAN's closed form, one
+    B-spline basis evaluation per layer for the value and both orders.
+Eager forward mode runs the primal again in every jvp trace (two per
+direction at order 2, three at order 3), where XLA's CSE merges them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
+from torch.func import jvp
 
 from nsfnet_tpu_torch.models.mlp import Params
 
 Derivs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # (out, d/dx, d/dy, d2/dx2, d2/dy2), each [N, K]
+
+
+Apply = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _tangents(x: torch.Tensor, *dirs) -> Tuple[torch.Tensor, ...]:
+    """Tangent batches [N, 2], one per direction. (The JAX package wraps
+    them in an optimization_barrier against a TPU fusion crash; eager
+    PyTorch has no such fusion.)"""
+    return tuple(x.new_tensor(d).expand_as(x) for d in dirs)
+
+
+def _directional_second_order(apply_fn: Apply, x: torch.Tensor, v: torch.Tensor):
+    """f(x), Df v, D2f (v, v) by a jvp of a jvp."""
+    (out, d1), (_, d2) = jvp(lambda z: jvp(apply_fn, (z,), (v,)), (x,), (v,))
+    return out, d1, d2
+
+
+def _directional_third_order(apply_fn: Apply, x: torch.Tensor, v: torch.Tensor):
+    """f, Df v, D2f (v, v), D3f (v, v, v) by three nested jvps (exact
+    directional derivatives, not Taylor coefficients)."""
+    def first(u):
+        return jvp(apply_fn, (u,), (v,))
+
+    def second(w):
+        return jvp(first, (w,), (v,))
+
+    ((f, d1), (_, d2)), (_, (_, d3)) = jvp(second, (x,), (v,))
+    return f, d1, d2, d3
+
+
+def derivatives_2d(apply_fn: Apply, x: torch.Tensor) -> Derivs:
+    """All first and the two diagonal second derivatives of a batched
+    f: [N,2] -> [N,K] wrt x and y: one order-2 sweep per coordinate."""
+    ex, ey = _tangents(x, (1.0, 0.0), (0.0, 1.0))
+    out, fx, fxx = _directional_second_order(apply_fn, x, ex)
+    _, fy, fyy = _directional_second_order(apply_fn, x, ey)
+    return out, fx, fy, fxx, fyy
+
+
+def first_derivatives_2d(apply_fn: Apply, x: torch.Tensor):
+    """(out, d/dx, d/dy) only, for first-order residuals."""
+    ex, ey = _tangents(x, (1.0, 0.0), (0.0, 1.0))
+    out, fx = jvp(apply_fn, (x,), (ex,))
+    _, fy = jvp(apply_fn, (x,), (ey,))
+    return out, fx, fy
+
+
+def psi_p_derivatives_2d(apply_fn: Apply, x: torch.Tensor, uv_scale: float = 1.0) -> Derivs:
+    """The (u, v, p) bundle of a generic (psi, p) net f: [N,2] -> [N,2]:
+    four order-3 sweeps along e_x, e_y, (1,1) and (1,-1) give the 13 raw
+    streams that `assemble_psi_bundle` takes (the closed-form engine's
+    assembly)."""
+    ex, ey, dp, dm = _tangents(x, (1.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, -1.0))
+    out, gx, gxx, gxxx = _directional_third_order(apply_fn, x, ex)
+    _, gy, gyy, gyyy = _directional_third_order(apply_fn, x, ey)
+    _, a_p, m2, m3 = _directional_third_order(apply_fn, x, dp)
+    _, a_m, n2, n3 = _directional_third_order(apply_fn, x, dm)
+    return assemble_psi_bundle((out, gx, gy, a_p, a_m, gxx, gyy, m2, n2, gxxx, gyyy, m3, n3),
+                               uv_scale)
+
+
+def psi_p_uv_generic(apply_fn: Apply, x: torch.Tensor, uv_scale: float = 1.0) -> torch.Tensor:
+    """(u, v, p) VALUES [N,3] of a generic (psi, p) net by one tangent sweep
+    per coordinate (u = s psi_y, v = -s psi_x)."""
+    out, fx, fy = first_derivatives_2d(apply_fn, x)
+    return torch.cat([uv_scale * fy[:, 0:1], -uv_scale * fx[:, 0:1], out[:, 1:2]], dim=1)
+
+
+def make_kan_derivatives_2d(kan) -> Callable[..., Derivs]:
+    """Closed-form value + tangent propagation through a KAN (the KAN
+    analogue of mlp_derivatives_2d). Each layer is y_j = sum_i phi_ij(h_i),
+    so the chain rule needs only phi' and phi'' elementwise (the B-spline
+    derivative bases and silu's derivatives) against the carried tangents:
+
+        y_x  = sum_i phi'(h_i) h_i,x
+        y_xx = sum_i phi''(h_i) h_i,x^2 + phi'(h_i) h_i,xx
+
+    `kan` carries grid and k (models/kan.KAN; the grid spans its
+    GRID_RANGE); the engine takes the per-layer (coef, w_base, w_sp) tuple and X[N,2]."""
+    from nsfnet_tpu_torch.models.kan import bspline_basis_derivs
+
+    grid, k = kan.grid, kan.k
+
+    def engine(params, x: torch.Tensor) -> Derivs:
+        h = x
+        hx, hy = _tangents(x, (1.0, 0.0), (0.0, 1.0))
+        hxx = torch.zeros_like(x)
+        hyy = torch.zeros_like(x)
+        for coef, w_base, w_sp in params:
+            basis, dbasis, d2basis = bspline_basis_derivs(h, grid, k)
+            sp = torch.einsum("nib,iob->nio", basis, coef)
+            dsp = torch.einsum("nib,iob->nio", dbasis, coef)
+            d2sp = torch.einsum("nib,iob->nio", d2basis, coef)
+            sig = torch.sigmoid(h)
+            base = h * sig                                            # silu
+            dbase = sig + h * sig * (1.0 - sig)                       # silu'
+            d2base = sig * (1.0 - sig) * (2.0 + h * (1.0 - 2.0 * sig))  # silu''
+            phi = w_base[None] * base[..., None] + w_sp[None] * sp
+            dphi = w_base[None] * dbase[..., None] + w_sp[None] * dsp
+            d2phi = w_base[None] * d2base[..., None] + w_sp[None] * d2sp
+            y = phi.sum(dim=1)
+            y_x = (dphi * hx[..., None]).sum(dim=1)
+            y_y = (dphi * hy[..., None]).sum(dim=1)
+            y_xx = (d2phi * (hx * hx)[..., None] + dphi * hxx[..., None]).sum(dim=1)
+            y_yy = (d2phi * (hy * hy)[..., None] + dphi * hyy[..., None]).sum(dim=1)
+            h, hx, hy, hxx, hyy = y, y_x, y_y, y_xx, y_yy
+        return h, hx, hy, hxx, hyy
+
+    return engine
 
 
 def mlp_derivatives_2d(params: Params, x: torch.Tensor) -> Derivs:

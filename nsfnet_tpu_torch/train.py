@@ -27,10 +27,11 @@ Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
 With `training.enable_tensorboard` (the default) the logged scalars go to
 `<tb_log_dir>/<experiment>_<timestamp>/scalars.jsonl` (and to TensorBoard
 where it is installed); every checkpoint gets `eq_losses.mat` beside it.
-Runs on the CUDA card; `--cpu` runs on the CPU, and without a card and
-without `--cpu` it raises. Options of the JAX driver that this port does not
-run yet (profiling, Fourier / KAN, microbatching, multi-GPU) are refused in
-`unsupported()` rather than ignored.
+Every backbone runs: the MLP, the Fourier-embedded MLP and the KAN
+(`model_variant: kan`, e.g. configs/kan_cavity.yaml). Runs on the CUDA card;
+`--cpu` runs on the CPU, and without a card and without `--cpu` it raises.
+Options of the JAX package's train.py that this port does not run yet (profiling,
+microbatching, multi-GPU) are refused in `unsupported()` rather than ignored.
 """
 
 from __future__ import annotations
@@ -82,12 +83,10 @@ def parse_args(argv=None):
 
 def unsupported(cfg) -> list:
     """Config settings this port cannot honour yet."""
-    t, n = cfg.training, cfg.network
+    t = cfg.training
     out = []
-    if cfg.model_variant not in ("nsfnet", "ev-nsfnet"):
+    if cfg.model_variant not in ("nsfnet", "ev-nsfnet", "kan"):
         out.append(f"model_variant {cfg.model_variant!r}")
-    if n.backbone != "mlp" or n.fourier_features:
-        out.append("only the plain MLP backbone (either formulation)")
     if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
         out.append("microbatches / mesh_devices > 1")
     if t.loss_mode != "MSE" and any(st.optimizer == "lm" for st in t.training_stages):
@@ -96,6 +95,8 @@ def unsupported(cfg) -> list:
 
 
 def build_solver(cfg, device=None) -> PINNSolver:
+    """The solver of a config (nsfnet_tpu/train.py:77-117): `model_variant:
+    kan` is the KAN backbone without the EVM net."""
     variant = cfg.model_variant
     return PINNSolver(
         Re=cfg.physics.Re,
@@ -111,6 +112,12 @@ def build_solver(cfg, device=None) -> PINNSolver:
                                 if cfg.supervision.enabled else 0.0),
         entropy_residual_weight=cfg.physics.entropy_residual_weight,
         evm=(variant == "ev-nsfnet"),
+        backbone=cfg.network.backbone if variant != "kan" else "kan",
+        kan_width=tuple(cfg.network.kan_width),
+        kan_grid=cfg.network.kan_grid,
+        kan_k=cfg.network.kan_k,
+        fourier_features=cfg.network.fourier_features,
+        fourier_sigma=cfg.network.fourier_sigma,
         seed=cfg.training.seed,
         matmul_precision=cfg.training.matmul_precision,
         evm_update_freq=cfg.training.evm_update_freq,
@@ -149,13 +156,16 @@ def warm_start(solver: PINNSolver, cfg, data: CavityData, init_from: str) -> int
     The donor's shapes come from peek_architecture (the JAX package's state
     itself, the port's sidecar). Raises ValueError where they cannot be read
     or the transfer would not be one: another depth, a narrower config,
-    another backbone or formulation, another EVM net.
+    a KAN on either side, another formulation, another EVM net.
     Returns the donor's hidden size."""
     net = cfg.network
     meta = ckpt.load_metadata(init_from) or {}
     arch = ckpt.peek_architecture(init_from)
     if arch is None:
         raise ValueError(f"--init-from: cannot read the network shapes of {init_from}")
+    if arch.get("backbone", "mlp") != "mlp" or meta.get("backbone", "mlp") != "mlp" \
+            or net.backbone != "mlp" or cfg.model_variant == "kan":
+        raise ValueError("--init-from supports the MLP backbone only")
     donor_hidden, donor_layers = int(arch["hidden_size"]), int(arch["layers"])
     if donor_layers != net.layers:
         raise ValueError(f"--init-from: the donor has {donor_layers} layers, the config "
@@ -163,8 +173,6 @@ def warm_start(solver: PINNSolver, cfg, data: CavityData, init_from: str) -> int
     if donor_hidden > net.hidden_size:
         raise ValueError(f"--init-from: donor hidden_size {donor_hidden} exceeds the "
                          f"config's {net.hidden_size}; widening only")
-    if meta.get("backbone", "mlp") != "mlp":
-        raise ValueError("--init-from supports the MLP backbone only")
     if meta.get("formulation", "velocity") != net.formulation:
         raise ValueError(f"--init-from: donor formulation "
                          f"{meta.get('formulation', 'velocity')!r} != config "

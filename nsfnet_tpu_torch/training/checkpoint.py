@@ -80,10 +80,11 @@ def read_flax_msgpack(path: str) -> dict:
 
 def peek_architecture(path: str) -> Optional[dict]:
     """The main / EVM network shapes: layers, hidden_size and, where the run
-    had an EVM net, layers_1 and hidden_size_1. A JAX checkpoint gives them
-    from its state itself (no template, no metadata; num_ins too); the
-    port's flat vectors carry no shapes, so its sidecar gives them. None if
-    the file cannot be read as a checkpoint."""
+    had an EVM net, layers_1 and hidden_size_1; a KAN adds "backbone" and
+    "kan_width" (a JAX checkpoint's has no MLP keys). A JAX checkpoint gives them from its state itself
+    (no template, no metadata; num_ins too); the port's flat vectors carry
+    no shapes, so its sidecar gives them. None if the file cannot be read
+    as a checkpoint."""
     from nsfnet_tpu_torch.models import convert
 
     try:
@@ -95,6 +96,8 @@ def peek_architecture(path: str) -> Optional[dict]:
     if meta is None or "hidden_size" not in meta:
         return None
     keys = ("layers", "hidden_size", "layers_1", "hidden_size_1")
+    if meta.get("backbone", "mlp") != "mlp":
+        keys += ("backbone", "kan_width")
     return {k: meta[k] for k in keys if meta.get(k) is not None}
 
 

@@ -44,8 +44,17 @@ closed-form engine with no fused loss, here in exact fp32 whatever
 optimise both nets with the EVM carry frozen; the device-error rollback is
 Adam-only, as in the JAX package.
 
-Left for later slices: microbatching, multi-GPU, KAN / Fourier features,
-.pth import/export.
+The other backbones (nsfnet_tpu/training/solver.py:186-221, 451-503): the
+KAN (`backbone="kan"`, models/kan.py) runs its closed-form B-spline/silu
+engine (ops/derivatives.make_kan_derivatives_2d), and a Fourier-embedded
+MLP (`fourier_features` > 0) the generic nested-jvp engines
+(ops/derivatives.derivatives_2d, psi_p_derivatives_2d). No kernel serves
+either, in either package: `auto` resolves to `xla` for them, an explicit
+`pallas` falls back to `xla`, and the fused loss is never built. The KAN
+has no streamfunction formulation. `_engine("generic")` puts any net on the
+generic engine (a cross-check of the closed forms).
+
+Left for later slices: microbatching, multi-GPU, .pth import/export.
 """
 
 from __future__ import annotations
@@ -61,10 +70,12 @@ import torch
 
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models import convert
+from nsfnet_tpu_torch.models.kan import KAN, flatten_kan
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
 from nsfnet_tpu_torch.ops import residuals as R
-from nsfnet_tpu_torch.ops.derivatives import (mlp_derivatives_2d, mlp_psi_derivatives_2d,
-                                              psi_p_uv)
+from nsfnet_tpu_torch.ops.derivatives import (derivatives_2d, make_kan_derivatives_2d,
+                                              mlp_derivatives_2d, mlp_psi_derivatives_2d,
+                                              psi_p_derivatives_2d, psi_p_uv, psi_p_uv_generic)
 from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, KernelLaunchError, fused_residual_loss
 from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
 from nsfnet_tpu_torch.ops.psi_streams import psi_streams
@@ -129,6 +140,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_engine(engine: str, device_type: str, backbone: str = "mlp",
+                   fourier_features: int = 0, formulation: str = "velocity") -> str:
+    """The engine a solver runs (nsfnet_tpu/training/solver.py:186-221):
+    `auto` is `pallas` on a card for the plain MLP and `xla` otherwise
+    (NSFNET_PALLAS_PSI=0 keeps a streamfunction run on `xla`); a KAN or a
+    Fourier net has no kernel, so `pallas` falls back to `xla` for it."""
+    if engine == "auto":
+        engine = "pallas" if device_type == "cuda" and backbone == "mlp" else "xla"
+        if formulation == "streamfunction" and os.environ.get("NSFNET_PALLAS_PSI") == "0":
+            engine = "xla"
+    if engine == "pallas" and (backbone != "mlp" or fourier_features > 0):
+        engine = "xla"
+    return engine
+
+
 @contextlib.contextmanager
 def _exact_fp32():
     """Full-fp32 matmuls for evaluation, whatever the process has set
@@ -155,9 +181,10 @@ def stall_gain(eq_track, window: int) -> float:
 
 
 class PINNSolver:
-    """2-D steady cavity PINN solver (vanilla NSFnet or ev-NSFnet), MLP
-    backbone, velocity or streamfunction formulation. Constructor knobs
-    follow ev-NSFnet/pinn_solver.py:32-54 and the JAX package's flagship set."""
+    """2-D steady cavity PINN solver (vanilla NSFnet or ev-NSFnet), MLP (with
+    or without Fourier features) or KAN backbone, velocity or streamfunction
+    formulation. Constructor knobs follow ev-NSFnet/pinn_solver.py:32-54 and
+    the JAX package's set."""
 
     def __init__(
         self,
@@ -179,6 +206,12 @@ class PINNSolver:
         checkpoint_freq: int = 10000,
         checkpoint_path: str = "./results",
         evm: bool = True,
+        backbone: str = "mlp",  # mlp | kan
+        kan_width=(2, 16, 16, 8),
+        kan_grid: int = 5,
+        kan_k: int = 3,
+        fourier_features: int = 0,  # random Fourier embedding size of the main MLP (0 = off)
+        fourier_sigma: float = 3.0,
         seed: int = 42,
         matmul_precision: str = "high",
         evm_update_freq: int = 10000,
@@ -197,18 +230,22 @@ class PINNSolver:
         self.max_chunk = int(max_chunk)
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}; auto, pallas or xla")
+        if backbone not in ("mlp", "kan"):
+            raise ValueError(f"unknown backbone {backbone!r}; mlp or kan")
         if loss_mode not in ("MSE", "L2"):
             raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
         if formulation not in ("velocity", "streamfunction"):
             raise ValueError(f"unknown formulation {formulation!r}")
         self.formulation = formulation
         if formulation == "streamfunction":
+            if backbone != "mlp":
+                raise ValueError("formulation='streamfunction' supports the MLP backbone")
             num_outs = 2  # (psi, p); u and v are derivatives of psi
-        if engine == "auto":
-            engine = "pallas" if self.device.type == "cuda" else "xla"
-            if formulation == "streamfunction" and os.environ.get("NSFNET_PALLAS_PSI") == "0":
-                engine = "xla"
-        self.engine = engine
+        self.backbone = backbone
+        # no kernel (and no fused loss) for a KAN or a Fourier-embedded net
+        self._generic_engine = backbone == "kan" or int(fourier_features) > 0
+        self.engine = resolve_engine(engine, self.device.type, backbone,
+                                     int(fourier_features), formulation)
         self.loss_mode = loss_mode
         self.Re = float(Re)
         self.vis_t0 = 20.0 / self.Re  # ev-NSFnet/pinn_solver.py:67
@@ -240,7 +277,11 @@ class PINNSolver:
         self.logger = get_logger()
 
         gen = torch.Generator().manual_seed(seed)
-        self.net = MLP(num_ins, num_outs, layers, hidden_size, gen, self.device)
+        if backbone == "kan":
+            self.net = KAN(kan_width, kan_grid, kan_k, gen, self.device)
+        else:
+            self.net = MLP(num_ins, num_outs, layers, hidden_size, gen, self.device,
+                           fourier_features=fourier_features, fourier_sigma=fourier_sigma)
         self.net_1 = (MLP(num_ins, num_outs_1, layers_1, hidden_size_1, gen, self.device)
                       if self.evm else None)
         self.state = TrainState(
@@ -269,7 +310,7 @@ class PINNSolver:
 
         self.logger.info(
             f"PINNSolver: variant={'ev-nsfnet' if self.evm else 'nsfnet'} "
-            f"net={layers}x{hidden_size} formulation={formulation} "
+            f"net={self._net_name()} formulation={formulation} "
             f"engine={self.engine} loss={loss_mode} "
             f"device={self.device}"
             + (f" ({torch.cuda.get_device_name(self.device)})"
@@ -277,18 +318,26 @@ class PINNSolver:
 
     # ------------------------------------------------------------ weights
 
-    def params(self) -> Params:
+    def _net_name(self) -> str:
+        if self.backbone == "kan":
+            return f"KAN{list(self.net.width)} grid={self.net.grid} k={self.net.k}"
+        m = self.net.fourier_features
+        return f"{self.layers}x{self.hidden_size}" + (f" fourier={m}" if m else "")
+
+    def params(self):
         return self.net.params()
 
     def params_evm(self) -> Optional[Params]:
         return self.net_1.params() if self.evm else None
 
     def set_params(self, params: Params, params_evm: Optional[Params] = None):
-        """Install network weights ((W, b), ... in the models/mlp.py layout),
-        with fresh optimizer moments and a vis_t carry recomputed from the
-        installed EVM net — a restart like the reference's weight import."""
+        """Install network weights (per-layer tuples in the layout of
+        models/mlp.py, or of models/kan.py for a KAN), with fresh optimizer
+        moments and a vis_t carry recomputed from the installed EVM net — a
+        restart like the reference's weight import."""
+        flatten = flatten_kan if self.backbone == "kan" else flatten_params
         with torch.no_grad():
-            self.net.flat.copy_(flatten_params(params))
+            self.net.flat.copy_(flatten(params))
             if self.evm and params_evm is not None:
                 self.net_1.flat.copy_(flatten_params(params_evm))
         self.state.opt_main = AdamState.zeros_like(self.net.flat)
@@ -421,23 +470,40 @@ class PINNSolver:
         every consumer of velocities uses (boundary loss, prediction). The
         net's output itself in the velocity formulation; u = s psi_y,
         v = -s psi_x by one value + first-tangent pass in the streamfunction
-        formulation."""
-        sizes, scale = self.net.sizes, self.coord_scale
+        formulation (generic tangent sweeps for a Fourier net). For a KAN
+        or a Fourier net, columns past the third (a KAN's extra outputs) are
+        returned too and unread, as in the JAX package."""
+        net, scale = self.net, self.coord_scale
+        apply = lambda flat, x: net.apply_params(net.unflatten(flat), x)
         if self.formulation == "streamfunction":
-            return lambda flat, x: psi_p_uv(unflatten_params(flat, sizes), x, scale)
-        return lambda flat, x: mlp_apply(unflatten_params(flat, sizes), x)
+            if self._generic_engine:
+                return lambda flat, x: psi_p_uv_generic(lambda z: apply(flat, z), x, scale)
+            return lambda flat, x: psi_p_uv(net.unflatten(flat), x, scale)
+        return apply
 
     def _engine(self, kind: Optional[str] = None):
-        """(flat params, X[N,2]) -> the (u, v, p) derivative bundle."""
+        """(flat params, X[N,2]) -> the (u, v, p) derivative bundle
+        (nsfnet_tpu/training/solver.py:468-503): the kernel pair on "pallas",
+        the closed form on "xla" (a KAN's own closed form), the generic
+        nested-jvp engine on "generic" and for a Fourier net."""
         kind = kind or self.engine
-        sizes, prec, scale = self.net.sizes, self.matmul_precision, self.coord_scale
+        net, prec, scale = self.net, self.matmul_precision, self.coord_scale
+        apply = lambda flat: (lambda z: net.apply_params(net.unflatten(flat), z))
+        if self.backbone == "kan" and kind != "generic":
+            kan_engine = make_kan_derivatives_2d(net)
+            return lambda flat, x: kan_engine(net.unflatten(flat), x)
+        generic = self._generic_engine or kind == "generic"
         if self.formulation == "streamfunction":
+            if generic:
+                return lambda flat, x: psi_p_derivatives_2d(apply(flat), x, scale)
             if kind == "pallas":
-                return lambda flat, x: psi_streams(flat, sizes, x, scale, precision=prec)
-            return lambda flat, x: mlp_psi_derivatives_2d(unflatten_params(flat, sizes), x, scale)
+                return lambda flat, x: psi_streams(flat, net.sizes, x, scale, precision=prec)
+            return lambda flat, x: mlp_psi_derivatives_2d(net.unflatten(flat), x, scale)
+        if generic:
+            return lambda flat, x: derivatives_2d(apply(flat), x)
         if kind == "pallas":
-            return lambda flat, x: mlp_streams(flat, sizes, x, precision=prec)
-        return lambda flat, x: mlp_derivatives_2d(unflatten_params(flat, sizes), x)
+            return lambda flat, x: mlp_streams(flat, net.sizes, x, precision=prec)
+        return lambda flat, x: mlp_derivatives_2d(net.unflatten(flat), x)
 
     def _fused_loss_enabled(self) -> bool:
         """NSFNET_FUSED_LOSS=0/1 forces the fused residual loss off/on;
@@ -450,13 +516,14 @@ class PINNSolver:
 
     def _make_loss(self, kind: Optional[str] = None):
         """The step's loss on the engine `kind` (the solver's by default);
-        "xla" is the closed form with no fused loss."""
+        "xla" is the closed form with no fused loss. The fused loss needs the
+        plain MLP (nsfnet_tpu/training/solver.py:545-547)."""
         kind = kind or self.engine
-        sizes = self.net.sizes
         scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
         fused = None
-        if kind == "pallas" and self.formulation == "velocity" \
+        if kind == "pallas" and not self._generic_engine and self.formulation == "velocity" \
                 and self.loss_mode == "MSE" and self._fused_loss_enabled():
+            sizes = self.net.sizes
             if evm:
                 def fused(flat, x, e, vis_t, eq_w, re):
                     return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
@@ -891,20 +958,27 @@ class PINNSolver:
         return os.path.join(self.checkpoint_path, f"Re{self.Re:g}", f"{nn}_{lam}")
 
     def _arch(self) -> dict:
-        return {"layers": self.layers, "hidden_size": self.hidden_size,
+        """The architecture stamp of the sidecar: the JAX package's keys, and
+        what its keys leave out (a KAN's width, grid and k; a Fourier net's
+        embedding size and the sigma its B is rebuilt from)."""
+        arch = {"backbone": self.backbone, "layers": self.layers,
+                "hidden_size": self.hidden_size,
                 "layers_1": self.layers_1 if self.evm else None,
                 "hidden_size_1": self.hidden_size_1 if self.evm else None}
+        if self.backbone == "kan":
+            arch.update(kan_width=list(self.net.width), kan_grid=self.net.grid,
+                        kan_k=self.net.k)
+        elif self.net.fourier_features:
+            arch.update(fourier_features=self.net.fourier_features,
+                        fourier_sigma=self.net.fourier_sigma)
+        return arch
 
     def _metadata(self) -> dict:
         """The JAX package's sidecar keys (nsfnet_tpu/training/solver.py:1129-1147)."""
         meta = {"global_step": self.global_step, "Re": self.Re,
                 "alpha_evm": self.alpha_evm, "alpha_b": self.current_alpha_b,
-                "stage": self.current_stage, "layers": self.layers,
-                "hidden_size": self.hidden_size, "backbone": "mlp",
-                "formulation": self.formulation}
-        if self.evm:
-            meta["layers_1"] = self.layers_1
-            meta["hidden_size_1"] = self.hidden_size_1
+                "stage": self.current_stage, "formulation": self.formulation,
+                **{k: v for k, v in self._arch().items() if v is not None}}
         if self.dataset is not None:
             meta["sampler"] = self.dataset.get_state()
         return meta
@@ -938,15 +1012,16 @@ class PINNSolver:
         return path
 
     def _read_state(self, path: str):
-        """(TrainState, metadata, main sizes or None, EVM sizes or None) of a
-        checkpoint in either format. The port's flat vectors carry no shapes
-        and its sidecar is its only metadata, so a port file needs it; a JAX
-        file's shapes come from its state."""
+        """(TrainState, metadata, main leaf shapes or None, EVM leaf shapes
+        or None) of a checkpoint in either format. The port's flat vectors
+        carry no shapes and its sidecar is its only metadata, so a port file
+        needs it; a JAX file's shapes and backbone come from its state (the
+        backbone overrides the sidecar's)."""
         meta = ckpt.load_metadata(path)
         if ckpt.is_flax_msgpack(path):
-            state, sizes, sizes_evm = convert.train_state_from_jax(
+            state, shapes, shapes_evm, backbone = convert.train_state_from_jax(
                 ckpt.read_flax_msgpack(path), self.device)
-            return state, meta or {}, sizes, sizes_evm
+            return state, {**(meta or {}), "backbone": backbone}, shapes, shapes_evm
         if meta is None:
             raise ValueError(f"checkpoint {path} has no sidecar {path}.json (the port "
                              f"writes its step, stage and architecture there)")
@@ -962,7 +1037,10 @@ class PINNSolver:
         """Restore a full-state checkpoint (exact resume): the port's own, or
         the JAX package's (nsfnet_tpu/training/solver.py:1160-1231).
         Guards: the formulation, the architecture stamped in the metadata
-        (the keys it has), and the shapes of the state itself. The carry
+        (the keys it has: the backbone, a KAN's width, grid and k, a Fourier
+        net's embedding size and sigma; the JAX package stamps neither), and the shapes of the state itself (every
+        leaf of a JAX state: a KAN's coef and w_base, a Fourier net's first
+        fan_in). The carry
         keeps the first N_f rows of the writer's (its padding differs), and
         is recomputed from the restored EVM net where the writer had fewer
         points."""
@@ -973,12 +1051,12 @@ class PINNSolver:
             raise ValueError(f"checkpoint {path} was written by a {theirs!r}-formulation "
                              f"solver; this solver is {self.formulation!r} (the heads "
                              f"predict different quantities)")
-        mine = {"backbone": "mlp", **self._arch()}
+        mine = {"fourier_features": 0, **self._arch()}
         bad = {k: (meta[k], v) for k, v in mine.items() if k in meta and meta[k] != v}
-        evm_sizes = self.net_1.sizes if self.evm else None
-        if (sizes is not None and tuple(sizes) != self.net.sizes) \
-                or (sizes_evm is not None and tuple(sizes_evm) != evm_sizes):
-            bad["sizes"] = ((sizes, sizes_evm), (self.net.sizes, evm_sizes))
+        evm_shapes = self.net_1.leaf_shapes() if self.evm else None
+        if (sizes is not None and tuple(sizes) != self.net.leaf_shapes()) \
+                or (sizes_evm is not None and tuple(sizes_evm) != evm_shapes):
+            bad["shapes"] = ((sizes, sizes_evm), (self.net.leaf_shapes(), evm_shapes))
         if state.params.numel() != self.net.flat.numel() \
                 or (state.params_evm is None) == self.evm \
                 or (self.evm and state.params_evm.numel() != self.net_1.flat.numel()):

@@ -393,7 +393,9 @@ def test_load_short_carry_is_recomputed(tmp_path):
     assert big.state.vis_t_minus[:256].max() < big.vis_t0
 
 
-def test_driver_takes_35_of_the_38_configs():
+def test_driver_takes_all_38_configs():
+    """train.unsupported() refuses none of the repo's 38 configs, and
+    kan_cavity.yaml (the KAN backbone) is among them."""
     refused = {}
     paths = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
     for p in paths:
@@ -401,9 +403,5 @@ def test_driver_takes_35_of_the_38_configs():
         if out:
             refused[os.path.basename(p)] = out
     assert len(paths) == 38
-    # 37 of the 38 since the polish stages and the solver options came in:
-    # only the KAN config is refused
-    assert sorted(refused) == ["kan_cavity.yaml"]
-    for name in ("re4000_r4b", "re4000_ev_polish_h160", "re5000_ev_polish_h160",
-                 "re5000_cont_from_re4000", "re2000_nsfnet", "re2000_ev_h288"):
-        assert f"{name}.yaml" not in refused
+    assert refused == {}
+    assert "kan_cavity.yaml" in {os.path.basename(p) for p in paths}

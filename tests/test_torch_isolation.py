@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=120, check=True).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert {"nsfnet_tpu_torch.training.solver", "nsfnet_tpu_torch.training.checkpoint",
-            "nsfnet_tpu_torch.training.lbfgs", "nsfnet_tpu_torch.training.lm"} <= set(loaded)
+            "nsfnet_tpu_torch.training.lbfgs", "nsfnet_tpu_torch.training.lm",
+            "nsfnet_tpu_torch.models.kan"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -240,11 +240,18 @@ def test_cli_runs_the_streamfunction_formulation(tmp_path):
     # S2 stalls (an lr too small to move an fp32 weight) and is fast-forwarded to its end: 4 + 30
     assert meta["formulation"] == "streamfunction" and meta["global_step"] == 34
     assert meta["stage"] == "S2"
-    for bad in ("fourier_features: 16", "backbone: kan"):
-        other = tmp_path / "bad.yaml"
-        other.write_text(SF_YAML.format(out=tmp_path).replace(
-            "formulation: streamfunction", f"formulation: streamfunction, {bad}"))
-        assert port_train.main(["--config", str(other), "--cpu"]) == 2
+    other = tmp_path / "bad.yaml"
+    other.write_text(SF_YAML.format(out=tmp_path).replace(
+        "formulation: streamfunction", "formulation: streamfunction, backbone: kan"))
+    assert port_train.main(["--config", str(other), "--cpu"]) == 2
+    # a Fourier-embedded (psi, p) net is taken, on the generic engine
+    fourier = tmp_path / "fourier.yaml"
+    fourier.write_text(SF_YAML.format(out=tmp_path).replace(
+        "formulation: streamfunction", "formulation: streamfunction, fourier_features: 16"))
+    fcfg = ConfigManager.from_file(str(fourier)).config
+    assert port_train.unsupported(fcfg) == []
+    fs = port_train.build_solver(fcfg, device="cpu")
+    assert fs.net.sizes[0] == 2 + 2 * 16 and fs.engine == "xla" and fs._generic_engine
 
 
 @pytest.mark.parametrize("name", ["re2000_sf_ev", "re100_streamfunction"])
