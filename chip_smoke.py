@@ -89,6 +89,18 @@ Phases (any failure exits non-zero before the result line):
           from the committed state, the Fourier net from its seed), then the
           Gauss-Newton products (residual, J v, J^T r) cuda against the CPU
           on a small input;
+      4i. microbatching and data parallelism on configs/re2000_ev.yaml
+          (its stages cut to one of 20 steps, evm_update_freq 10): (i)
+          microbatches 4 against 1 from one initialisation (kernels 1+2 4x
+          per step on 30,000 rows, 3-6 never; the first gradient per tensor,
+          the metrics after 20 steps, the peak memory of each); (ii) N_f
+          1,200,000 over 10 microbatches, 3 steps; (iii) the driver's main()
+          under `python -m torch.distributed.run --standalone
+          --nproc_per_node=1` (NCCL, world 1, a checkpoint, kernels 1+2
+          launched); (iv) two ranks on the one card (gloo, named: NCCL takes
+          one rank per card) for 10 steps on (i)'s weights: bitwise equal
+          ranks, against one process, each rank's launches on 60,000 rows,
+          rank 0's gathered carry reloaded by both and 2 more steps;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
@@ -151,6 +163,14 @@ GENERIC_PSI_TOL = 1e-4  # order 3, the bar kernels 5+6 are held to against the c
 N_SF_SMALL = 10_000  # N_f of configs/re100_streamfunction.yaml
 LM_BACKBONE_NF = 10_000  # LM on the KAN and the Fourier net: kan_cavity's N_f
 LM_BACKBONE_STEPS = 2
+PAR_STEPS = 20           # phase 4i (i): Adam steps at microbatches 4 and 1
+PAR_TIMED = 20           # ... then timed steps in one chunk
+PAR_BIG_STEPS = 3        # (ii): N_f 1,200,000 over 10 microbatches
+PAR_DP_STEPS = 10        # (iv): two ranks on the one card
+PAR_GRAD_TOL = 1e-5      # (i): first gradient per tensor, 4 slices vs 1 (summation order only)
+PAR_METRIC_TOL = 1e-3    # (i): metrics after PAR_STEPS steps
+PAR_DP_METRIC_TOL = 1e-4  # (iv): 2 ranks vs 1 process, every logged metric
+PAR_DP_PARAM_TOL = 1e-3   # ... and the params, max|diff| / max|p|
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -1538,6 +1558,245 @@ def main() -> int:
     ok_o1, ok_o2, ok_o3, ok_o4, ok_o5, ok_o6 = run_backbones()
     ok_other = ok_o1 and ok_o2 and ok_o3 and ok_o4 and ok_o5 and ok_o6
 
+    # ---- 4i. microbatching and data parallelism, configs/re2000_ev.yaml at
+    # its widths (6x80 + 4x40 EVM, N_f = 120,000, "high") with its stages cut
+    # to one: (i) microbatches 4 against 1 from one initialisation; (ii) N_f
+    # 1,200,000 over 10 microbatches; (iii) the driver under torchrun with
+    # NCCL; (iv) two ranks on the one card (gloo, asked for by name: NCCL
+    # takes one rank per card), against one process
+    def run_parallel():
+        from nsfnet_tpu_torch.parallel import mesh as pmesh
+        from nsfnet_tpu_torch.tools import dist_worker
+        from nsfnet_tpu_torch.training.step import make_grad_fn
+
+        par_t0 = time.time()
+        par_dir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+        par = {}
+        raw = ConfigManager.from_file("configs/re2000_ev.yaml").to_dict()
+        raw["training"].update(evm_update_freq=10, log_interval=10, checkpoint_freq=10**9,
+                               enable_tensorboard=False, matmul_precision="high")
+        raw["training"]["training_stages"] = raw["training"]["training_stages"][:1]
+        raw["training"]["training_stages"][0]["epochs"] = PAR_STEPS
+        raw["eval_data"] = None
+
+        def flagship(**training):
+            cfg_ = json.loads(json.dumps(raw))
+            cfg_["training"].update(**training)
+            return ConfigManager.from_dict(cfg_).config
+
+        def first_grads(s):
+            s._ensure_ready()
+            st = s.state
+            leaves = [st.params.detach().clone().requires_grad_(True),
+                      st.params_evm.detach().clone().requires_grad_(True)]
+            grads, _, _ = make_grad_fn(s._make_loss(), s.microbatches)(
+                tuple(leaves), leaves, s._batch, st.vis_t_minus, s._stage_scalars(1e-3))
+            return grads
+
+        def run_timed(s, st, n_steps, timed, what):
+            """train() for one stage of n_steps with the counts reset just
+            before and read just after, the peak memory over it, then
+            `timed` timed steps (one chunk, no host sync)."""
+            s.set_alpha_evm(st.alpha)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.time()
+            s.train(num_epoch=n_steps, lr=st.lr)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches, rows = read_counts(), dict(fr.launch_rows)
+            peak = torch.cuda.max_memory_allocated(dev)
+            hist = [m._asdict() for _, m in s.loss_history]
+            t0 = time.perf_counter()
+            s.run_steps(timed)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / timed
+            finite = all(math.isfinite(v) for m in hist for v in m.values())
+            # the step's device busy share: the host issues every slice's ops
+            prof = profile_steps(torch, lambda: s.run_steps(5), card, f"parallel {what}")
+            print(f"parallel {what}: {n_steps} Adam steps in {wall:.2f} s, launches {launches}, "
+                  f"rows per launch of kernel 1 "
+                  f"{rows['fused_residual_fwd'] / max(launches['fused_residual_fwd'], 1):,.0f}; "
+                  f"peak {peak / 2**20:,.0f} MiB ({(peak - base) / 2**20:,.0f} MiB above the "
+                  f"run's start); {step_ms:.3f} ms/step over {timed} more steps; loss "
+                  f"{hist[0]['total']:.4e} -> {hist[-1]['total']:.4e} — {card}")
+            return {"launches": launches, "rows": rows, "peak_mib": peak / 2**20, "profile": prof,
+                    "peak_above_start_mib": (peak - base) / 2**20, "step_ms": step_ms,
+                    "seconds": wall, "history": hist, "finite": finite}
+
+        def ready(cfg_):
+            return ready_solver(cfg_)[0], cfg_.training.training_stages[0]
+
+        try:
+            # (i) microbatches 4 against 1 from the same initialisation (the
+            # config's seed): the first gradient per tensor, then PAR_STEPS steps
+            runs, grads = {}, {}
+            for m in (4, 1):
+                s, st = ready(flagship(microbatches=m))
+                grads[m] = first_grads(s)
+                runs[m] = run_timed(s, st, PAR_STEPS, PAR_TIMED, f"(i) flagship, microbatches {m}")
+                del s
+                torch.cuda.empty_cache()
+            sizes_evm = layer_sizes(2, 1, 4, 40)
+            g_main = worst_per_param(unflatten_params, grads[4][0], grads[1][0], sizes)
+            g_evm = worst_per_param(unflatten_params, grads[4][1], grads[1][1], sizes_evm)
+            last = lambda r: [r["history"][-1][k] for k in sorted(r["history"][-1])]
+            m_rel = rel_sums(last(runs[4]), last(runs[1]))
+            n_f_pad = pmesh.padded_size(N_F, 1, 4 * fr.ROW_ALIGN)
+            none = dict.fromkeys(read_counts(), 0)
+            want = lambda n: {**none, "fused_residual_fwd": n, "fused_residual_bwd": n}
+            ok_p1 = (g_main[0] <= PAR_GRAD_TOL and g_evm[0] <= PAR_GRAD_TOL
+                     and m_rel <= PAR_METRIC_TOL and runs[4]["finite"] and runs[1]["finite"]
+                     and runs[4]["launches"] == want(4 * PAR_STEPS)
+                     and runs[1]["launches"] == want(PAR_STEPS)
+                     and runs[4]["rows"]["fused_residual_fwd"] == PAR_STEPS * n_f_pad
+                     and runs[4]["peak_mib"] < runs[1]["peak_mib"])
+            print(f"parallel (i): microbatches 4 vs 1, first gradient worst per tensor "
+                  f"{g_main[0]:.3e} ({g_main[1]}) main, {g_evm[0]:.3e} ({g_evm[1]}) EVM "
+                  f"(tolerance {PAR_GRAD_TOL:g}); metrics after {PAR_STEPS} steps max rel diff "
+                  f"{m_rel:.3e} (tolerance {PAR_METRIC_TOL:g}); peak {runs[4]['peak_mib']:,.0f} "
+                  f"vs {runs[1]['peak_mib']:,.0f} MiB; {runs[4]['step_ms']:.3f} vs "
+                  f"{runs[1]['step_ms']:.3f} ms/step; ok {ok_p1}")
+            par["micro4"] = {**runs[4], "grad_rel": g_main, "grad_rel_evm": g_evm,
+                             "metrics_rel": m_rel}
+            par["micro1"] = runs[1]
+            par["ok_i"] = ok_p1
+
+            # (ii) the scaling axis: N_f 1,200,000 over 10 microbatches
+            s, st = ready(flagship(N_f=10 * N_F, microbatches=10))
+            big = run_timed(s, st, PAR_BIG_STEPS, PAR_BIG_STEPS,
+                            f"(ii) N_f {10 * N_F:,}, microbatches 10")
+            del s
+            torch.cuda.empty_cache()
+            ok_p2 = (big["finite"] and big["launches"] == want(10 * PAR_BIG_STEPS)
+                     and big["rows"]["fused_residual_fwd"] == PAR_BIG_STEPS * 10 * N_F)
+            print(f"parallel (ii): {big['step_ms']:.3f} ms/step at N_f {10 * N_F:,} "
+                  f"({big['step_ms'] / runs[4]['step_ms']:.2f}x (i)'s microbatched step), peak "
+                  f"{big['peak_mib']:,.0f} MiB; ok {ok_p2}")
+            par["big"] = big
+            par["ok_ii"] = ok_p2
+
+            # (iii) the driver under torchrun with NCCL: one process on the card
+            path = write_config(par_dir, "configs/re2000_ev.yaml", "torchrun",
+                                raw["training"]["training_stages"], evm_update_freq=10,
+                                log_interval=10, checkpoint_freq=10**9,
+                                enable_tensorboard=True,
+                                tb_log_dir=os.path.join(par_dir, "tb"))
+            out_json = os.path.join(par_dir, "torchrun.json")
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=1", "-m", "nsfnet_tpu_torch.tools.dist_worker", "train",
+                 out_json, "--config", path], capture_output=True, text=True, timeout=300)
+            tr_s = time.time() - t0
+            got = json.load(open(out_json)) if os.path.exists(out_json) else {}
+            finals = glob.glob(os.path.join(par_dir, "torchrun", "**", "model_final.ckpt"),
+                               recursive=True)
+            scalars = glob.glob(os.path.join(par_dir, "tb", "**", "scalars.jsonl"),
+                                recursive=True)
+            launches_tr = got.get("launches", {})
+            ok_p3 = (proc.returncode == 0 and got.get("rc") == 0
+                     and got.get("backend") == "nccl" and got.get("world") == 1
+                     and len(finals) == 1 and len(scalars) == 1
+                     and launches_tr == want(PAR_STEPS))
+            print(f"parallel (iii): torch.distributed.run --standalone --nproc_per_node=1 -m "
+                  f"nsfnet_tpu_torch.tools.dist_worker train (train.main): exit "
+                  f"{proc.returncode}, backend {got.get('backend')}, world {got.get('world')}, "
+                  f"checkpoint {finals}, scalars {len(scalars)}, launches {launches_tr}, "
+                  f"{tr_s:.1f} s with start-up; ok {ok_p3}")
+            if not ok_p3:
+                print(proc.stdout[-3000:], proc.stderr[-6000:], sep="\n")
+            par["torchrun"] = {"rc": proc.returncode, **got, "seconds": tr_s, "ok": ok_p3}
+            par["ok_iii"] = ok_p3
+
+            # (iv) two ranks on the one card over gloo, from (i)'s weights
+            cfg1 = flagship(microbatches=1)
+            s, _ = ready(cfg1)
+            weights = os.path.join(par_dir, "weights.npz")
+            np.savez(weights, params=s.state.params.detach().cpu().numpy(),
+                     params_evm=s.state.params_evm.detach().cpu().numpy())
+            del s
+            spec = {"solver": {**train_mod.solver_kwargs(cfg1),
+                               "checkpoint_path": os.path.join(par_dir, "ck")},
+                    "data": train_mod.data_kwargs(cfg1), "device": "cuda", "backend": "gloo",
+                    "weights": weights, "steps": PAR_DP_STEPS, "microbatches": [1],
+                    "ckpt_dir": os.path.join(par_dir, "shared"), "continue_steps": 2}
+            with open(os.path.join(par_dir, "spec.json"), "w") as f:
+                json.dump(spec, f)
+            sock = __import__("socket").socket()
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+            outs = [os.path.join(par_dir, f"rank{r}.npz") for r in (0, 1)]
+            procs = []
+            t0 = time.time()
+            for r in (0, 1):
+                env = dict(os.environ, RANK=str(r), LOCAL_RANK="0", WORLD_SIZE="2",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "nsfnet_tpu_torch.tools.dist_worker", "dp",
+                     os.path.join(par_dir, "spec.json"), outs[r]], env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            try:
+                logs = [p.communicate(timeout=300)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            dp_s = time.time() - t0
+            one = dist_worker.run_dp({**spec, "ckpt_dir": os.path.join(par_dir, "one")})
+            done = all(p.returncode == 0 for p in procs) and all(os.path.exists(o) for o in outs)
+            if not done:
+                for log in logs:
+                    print(log[-4000:])
+            a, b = (dict(np.load(o)) for o in outs) if done else ({}, {})
+            keys = sorted(k for k in a if "/" in k)
+            bitwise = done and all(np.array_equal(a[k], b[k]) for k in keys)
+            rel = lambda x, y: float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+            h_rel = rel(a["m1/history"], one["m1/history"]) if done else math.inf
+            p_rel = rel(a["m1/params"], one["m1/params"]) if done else math.inf
+            carry = torch.load(os.path.join(par_dir, "shared", "dist.ckpt"),
+                               map_location="cpu", weights_only=True)["vis_t_minus"] \
+                if done else None
+            ok_p4 = bool(done and bitwise and str(a["backend"]) == "gloo" and int(a["world"]) == 2
+                     and h_rel <= PAR_DP_METRIC_TOL and p_rel <= PAR_DP_PARAM_TOL
+                     and list(a["m1/launches"]) == [PAR_DP_STEPS] * 2
+                     and list(a["m1/rows"]) == [PAR_DP_STEPS * N_F // 2] * 2
+                     and int(a["m1/other_launches"]) == 0
+                     and tuple(carry.shape) == (N_F, 1)
+                     and bool(a["reload/params_equal"]) and bool(b["reload/carry_equal"])
+                     and np.isfinite(a["reload/history"]).all())
+            print(f"parallel (iv): 2 ranks (gloo on CUDA tensors, one card) x {PAR_DP_STEPS} "
+                  f"steps in {dp_s:.1f} s with start-up: bitwise equal across ranks {bitwise} "
+                  f"({len(keys)} arrays); vs 1 process: metrics {h_rel:.3e} (tolerance "
+                  f"{PAR_DP_METRIC_TOL:g}), params {p_rel:.3e} (tolerance {PAR_DP_PARAM_TOL:g}); "
+                  f"kernels 1+2 per rank {a['m1/launches'].tolist() if done else None} launches "
+                  f"on {a['m1/rows'].tolist() if done else None} rows; gathered carry "
+                  f"{None if carry is None else tuple(carry.shape)}, reloaded on both ranks "
+                  f"and 2 more steps; {float(a.get('m1_seconds', math.nan)):.3f} s for the "
+                  f"{PAR_DP_STEPS} steps on rank 0 vs {float(one['m1_seconds']):.3f} s in one "
+                  f"process; ok {ok_p4}")
+            par["dp"] = {"bitwise": bitwise, "metrics_rel": h_rel, "params_rel": p_rel,
+                         "launches": a.get("m1/launches", np.zeros(0)).tolist(),
+                         "rows": a.get("m1/rows", np.zeros(0)).tolist(),
+                         "seconds_rank0": float(a.get("m1_seconds", math.nan)),
+                         "seconds_one": float(one["m1_seconds"]), "wall_s": dp_s, "ok": ok_p4}
+            par["ok_iv"] = ok_p4
+        finally:
+            shutil.rmtree(par_dir, ignore_errors=True)
+        par_s = time.time() - par_t0
+        print(f"parallel phase: {par_s:.1f} s on the card")
+        par["seconds"] = par_s
+        record["parallel"] = par
+        torch.cuda.empty_cache()
+        return par
+
+    par = run_parallel()
+    ok_parallel = par["ok_i"] and par["ok_ii"] and par["ok_iii"] and par["ok_iv"]
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -1591,6 +1850,37 @@ def main() -> int:
                         fr.passes(name), keep=main)
         pair_times[name] = [w1.pop("row"), w2.pop("row")]
         work[f"fused_residual_fwd@{name}"], work[f"fused_residual_bwd@{name}"] = w1, w2
+        torch.cuda.empty_cache()
+    # kernels 1+2 at the per-launch shapes of phase 4i: a microbatch of the
+    # flagship (N = 30,000, (i)) and a rank's block (N = 60,000, (iv)); (ii)'s
+    # slices are the path's N = 120,000 above
+    par_rows = []
+    for n_sub, launched in ((N_F // 4, par["micro4"]["launches"]),
+                            (N_F // 2, dict(zip(("fused_residual_fwd", "fused_residual_bwd"),
+                                                par["dp"]["launches"] or [0, 0])))):
+        sub = (flat, sizes, x[:n_sub], e[:n_sub], vis_t[:n_sub], eq_w[:n_sub], RE)
+        k1_ms = cuda_ms(torch, lambda: fr.fused_fwd(*sub, 1.0, True, "high"), 20)
+        k2_ms = cuda_ms(torch, lambda: fr.fused_bwd(*sub, ct, 1.0, True, "high"), 20)
+        flat_r = flat.clone().requires_grad_(True)
+        e_r = e[:n_sub].clone().requires_grad_(True)
+        sums_r = fr.plain_residual_sums(unflatten_params(flat_r, sizes), x[:n_sub], e_r,
+                                        vis_t[:n_sub], eq_w[:n_sub], RE, 1.0, True, "high")
+        with torch.no_grad():
+            p1_ms = cuda_ms(torch, lambda: fr.plain_residual_sums(
+                params, x[:n_sub], e[:n_sub], vis_t[:n_sub], eq_w[:n_sub], RE, 1.0, True,
+                "high"), 5)
+        p2_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            sums_r, [flat_r, e_r], ct, retain_graph=True), 5)
+        del sums_r
+        flops, nbytes = fr.flop_counts(sizes, n_sub), fr.byte_counts(sizes, n_sub, True)
+        shape = f"6x80, N={n_sub}, EVM, 'high' (phase 4i)"
+        for i, name in enumerate(("fused_residual_fwd", "fused_residual_bwd")):
+            w = add_kernel(name, src, ("nsfnet_tpu/ops/pallas_residual.py:100",
+                                       "nsfnet_tpu/ops/pallas_residual.py:128")[i],
+                           launched[name], (k1_ms, k2_ms)[i], (p1_ms, p2_ms)[i], None, None,
+                           flops[i], nbytes[i], shape, fr.passes("high"), keep=False)
+            par_rows.append(w.pop("row"))
+            work[f"{name}@N{n_sub}"] = w
         torch.cuda.empty_cache()
     # kernels 1+2 at the campaign width, timed in phase 3a' (the launches:
     # phase 4f (i)'s run)
@@ -1730,6 +2020,7 @@ def main() -> int:
     camp_ms, camp_pts = time_steps(solver_c, "campaign (re4000_r4b 6x160 ev-NSFnet, kernels 1+2)",
                                    N_F)
     record["times"] = {"kernels": kernels, "pair_by_precision": pair_times,
+                       "pair_phase_4i": par_rows,
                        "streams_by_width": stream_times,
                        "psi_by_width": psi_times, "work": work,
                        "step_ms": step_ms, "points_per_s": pts_s,
@@ -1755,17 +2046,21 @@ def main() -> int:
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+        # numpy scalars (the dist worker's arrays) as Python numbers
+        json.dump(record, f, indent=1,
+                  default=lambda o: o.item() if hasattr(o, "item") else repr(o))
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
-            and ok_engine and ok_campaign and ok_polish and ok_other):
+            and ok_engine and ok_campaign and ok_polish and ok_other and ok_parallel):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
               f"{ok_engine}, campaign resume / SIGTERM / init-from {ok_i} / {ok_ii} / "
               f"{ok_iii}, polish v1 L-BFGS / h288 LM / small inputs {ok_p1} / {ok_p2} / "
               f"{ok_p3}, backbones kan_cavity / KAN state / KAN step / Fourier / generic "
-              f"engines / LM {ok_o1} / {ok_o2} / {ok_o3} / {ok_o4} / {ok_o5} / {ok_o6})",
+              f"engines / LM {ok_o1} / {ok_o2} / {ok_o3} / {ok_o4} / {ok_o5} / {ok_o6}, "
+              f"parallel microbatched / N_f 1.2M / torchrun NCCL / 2 ranks {par['ok_i']} / "
+              f"{par['ok_ii']} / {par['ok_iii']} / {par['ok_iv']})",
               file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))

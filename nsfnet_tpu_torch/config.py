@@ -2,8 +2,9 @@
 
 The PyTorch port's own copy of the JAX package's schema (nsfnet_tpu/config.py),
 field for field, so every config in configs/ parses the same way in both
-packages. Fields the port does not run yet (RAR, L-BFGS/LM stages, KAN,
-streamfunction, microbatching) still parse; train.py refuses them.
+packages; the port's driver runs every field of every config there.
+`mesh_devices` is the world size the run must have (one process per card,
+under torchrun), where the JAX package makes a mesh of that many devices.
 `yaml` is imported only inside `from_file`: build a config with
 `ConfigManager.from_dict` where PyYAML is missing.
 """
@@ -108,7 +109,7 @@ class TrainingConfig:
     # and compute exact fp32 for each; tensor-core passes come later.
     matmul_precision: str = "high"
     evm_update_freq: int = 10000  # EVM net trains once per this many steps
-    mesh_devices: Optional[int] = None  # None = all local devices
+    mesh_devices: Optional[int] = None  # None = any world size (JAX: all local devices)
     microbatches: int = 1  # gradient-accumulation microbatches (N_f > HBM)
     lm_microbatches: int = 1  # LM Gauss-Newton product slicing (memory)
     loss_mode: str = "MSE"  # MSE | L2 (NSFnet/pinn_solver.py:201-218)

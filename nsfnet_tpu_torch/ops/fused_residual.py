@@ -61,13 +61,17 @@ _MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
 LOSS_BLOCKS = 132
 LOSS_TILES = (32, 16)
 
-# Launches of each kernel since the last reset; the wrappers add one per launch.
+# Launches of each kernel since the last reset; the wrappers add one per
+# launch, and the launch's rows to `launch_rows` (a data-parallel rank or a
+# microbatch slice launches on its own block of the batch).
 launch_counts = {"fused_residual_fwd": 0, "fused_residual_bwd": 0}
+launch_rows = dict.fromkeys(launch_counts, 0)
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        launch_rows[name] = 0
 
 
 def passes(precision: str) -> int:
@@ -340,6 +344,7 @@ def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
             _ptr(wsplit), _ptr(partial), _ptr(out), stream)
     _raise_on(code, "fused residual loss forward")
     launch_counts["fused_residual_fwd"] += 1
+    launch_rows["fused_residual_fwd"] += n
     return out
 
 
@@ -369,6 +374,7 @@ def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
             _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream)
     _raise_on(code, "fused residual loss backward")
     launch_counts["fused_residual_bwd"] += 1
+    launch_rows["fused_residual_bwd"] += n
     return dflat, g_e
 
 

@@ -4,6 +4,7 @@ ev-NSFnet/train.py:74-224).
 Usage:
     python -m nsfnet_tpu_torch.train --config configs/re2000_ev.yaml [--dry-run] [--cpu]
         [--resume CKPT | --init-from CKPT]
+    torchrun --nproc_per_node=N -m nsfnet_tpu_torch.train --config ... [--cpu]
 
 Flow: config -> solver -> data -> staged Adam loop with per-stage evaluate
 -> final checkpoint. A long campaign runs as the JAX driver's does:
@@ -30,8 +31,17 @@ where it is installed); every checkpoint gets `eq_losses.mat` beside it.
 Every backbone runs: the MLP, the Fourier-embedded MLP and the KAN
 (`model_variant: kan`, e.g. configs/kan_cavity.yaml). Runs on the CUDA card;
 `--cpu` runs on the CPU, and without a card and without `--cpu` it raises.
-Options of the JAX package's train.py that this port does not run yet (profiling,
-microbatching, multi-GPU) are refused in `unsupported()` rather than ignored.
+`training.microbatches` accumulates each step's gradient over that many
+collocation slices. Under torchrun (or another launcher's world size > 1)
+the driver first joins the process group (parallel/mesh.py: NCCL on
+`cuda:LOCAL_RANK`, gloo under `--cpu`; a detected launch that cannot join
+raises), and each rank trains on its block of the points; rank 0 alone
+logs to the console and writes the scalars and checkpoints, and a SIGTERM
+then exits 3 without the collective save (resume from the newest cadence
+checkpoint). `training.mesh_devices` must equal the number of processes.
+Settings this port cannot honour are refused in `unsupported()` rather
+than ignored (the JAX driver's `--profile` and startup keepalive are not
+ported).
 """
 
 from __future__ import annotations
@@ -44,11 +54,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models.mlp import widen_mlp_params
+from nsfnet_tpu_torch.parallel.mesh import initialize_distributed
 from nsfnet_tpu_torch.training import checkpoint as ckpt
 from nsfnet_tpu_torch.training.solver import PINNSolver
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
@@ -81,14 +93,21 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def unsupported(cfg) -> list:
-    """Config settings this port cannot honour yet."""
+def unsupported(cfg, world_size: int = 1) -> list:
+    """Config settings this port cannot honour in a run of `world_size`
+    processes."""
     t = cfg.training
     out = []
     if cfg.model_variant not in ("nsfnet", "ev-nsfnet", "kan"):
         out.append(f"model_variant {cfg.model_variant!r}")
-    if t.microbatches != 1 or (t.mesh_devices or 1) != 1:
-        out.append("microbatches / mesh_devices > 1")
+    if t.mesh_devices is not None and t.mesh_devices != world_size:
+        out.append(f"mesh_devices {t.mesh_devices} in a run of {world_size} process(es) "
+                   f"(one process per card: torchrun --nproc_per_node={t.mesh_devices})")
+    if t.loss_mode == "L2" and (t.microbatches > 1 or world_size > 1):
+        # an L2 norm is not a sum of per-slice or per-rank parts (the JAX solver refuses it too)
+        out.append("loss_mode L2 with microbatches or several processes")
+    if world_size > 1 and t.seed is None:
+        out.append("seed: null over several processes (each would draw its own points)")
     if t.loss_mode != "MSE" and any(st.optimizer == "lm" for st in t.training_stages):
         out.append(f"an lm stage under loss_mode {t.loss_mode!r} (LM minimises the MSE loss)")
     return out
@@ -97,8 +116,13 @@ def unsupported(cfg) -> list:
 def build_solver(cfg, device=None) -> PINNSolver:
     """The solver of a config (nsfnet_tpu/train.py:77-117): `model_variant:
     kan` is the KAN backbone without the EVM net."""
+    return PINNSolver(**solver_kwargs(cfg), device=device)
+
+
+def solver_kwargs(cfg) -> dict:
+    """PINNSolver's keyword arguments for a config (no device)."""
     variant = cfg.model_variant
-    return PINNSolver(
+    return dict(
         Re=cfg.physics.Re,
         layers=cfg.network.layers,
         layers_1=cfg.network.layers_1 if variant == "ev-nsfnet" else None,
@@ -131,12 +155,18 @@ def build_solver(cfg, device=None) -> PINNSolver:
         adaptive_bc_weight=cfg.training.adaptive_bc_weight,
         adaptive_bc_ema=cfg.training.adaptive_bc_ema,
         adaptive_bc_max=cfg.training.adaptive_bc_max,
-        device=device,
+        microbatches=cfg.training.microbatches,
+        mesh_devices=cfg.training.mesh_devices,
     )
 
 
 def build_data(cfg) -> CavityData:
-    return CavityData(
+    return CavityData(**data_kwargs(cfg))
+
+
+def data_kwargs(cfg) -> dict:
+    """CavityData's keyword arguments for a config."""
+    return dict(
         N_f=cfg.training.N_f,
         sort_training_points=cfg.training.sort_training_points,
         sdf_enabled=cfg.training.sdf_weighting.enabled,
@@ -199,6 +229,17 @@ def warm_start(solver: PINNSolver, cfg, data: CavityData, init_from: str) -> int
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # the process group first, as the JAX driver does (nsfnet_tpu/train.py:130-144)
+    joined = not dist.is_initialized()
+    rank, world, local_rank = initialize_distributed("cpu" if args.cpu else "cuda")
+    try:
+        return _main(args, rank, world, local_rank)
+    finally:
+        if joined and dist.is_initialized():  # the group this call joined
+            dist.destroy_process_group()
+
+
+def _main(args, rank: int, world: int, local_rank: int) -> int:
     if os.path.exists(args.config):
         cm = ConfigManager.from_file(args.config)
     else:
@@ -206,9 +247,12 @@ def main(argv=None) -> int:
         cm = ConfigManager()
     cfg = cm.config
 
-    logger = get_logger(cfg.experiment_name)
+    logger = get_logger(cfg.experiment_name, rank=rank)
+    if dist.is_initialized():
+        logger.info(f"process group: backend {dist.get_backend()}, "
+                    f"rank {rank} of {world}, local rank {local_rank}")
     problems = cm.validate() + [f"not supported by the PyTorch port yet: {u}"
-                                for u in unsupported(cfg)]
+                                for u in unsupported(cfg, world)]
     logger.header("Experiment Configuration")
     cm.print_config(printer=logger.info)
     for w in problems:
@@ -223,7 +267,9 @@ def main(argv=None) -> int:
         logger.error("--init-from and --resume are mutually exclusive")
         return 2
 
-    solver = build_solver(cfg, device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else (f"cuda:{local_rank}"
+                                     if dist.is_initialized() else None)
+    solver = build_solver(cfg, device=device)
     data = build_data(cfg)
     solver.attach_dataset(data)
     solver.set_boundary_data(X=data.boundary_data())
@@ -284,7 +330,7 @@ def main(argv=None) -> int:
     stages = cfg.training.training_stages
     logger.info(f"training: total epochs={sum(st.epochs for st in stages):,} "
                 f"over {len(stages)} stages")
-    if cfg.training.enable_tensorboard:
+    if cfg.training.enable_tensorboard and rank == 0:
         run_name = f"{cfg.experiment_name}_{time.strftime('%Y%m%d_%H%M%S')}"
         solver.tb_writer = ScalarWriter(os.path.join(cfg.training.tb_log_dir, run_name))
     try:
@@ -341,6 +387,12 @@ def main(argv=None) -> int:
                 solver.evaluate(*eval_fields)
         path = solver.save("model_final.ckpt")
     except GracefulStop:
+        if world > 1:
+            # solver.save reaches a collective that a signal to one rank
+            # would deadlock (nsfnet_tpu/train.py:449-457)
+            logger.info("SIGTERM: multi-process run, exiting without a collective save "
+                        "(resume from the newest cadence checkpoint)")
+            return 3
         path = solver.save(f"sigterm_step{solver.global_step}.ckpt")
         logger.info(f"SIGTERM: checkpointed {path}; exiting for --resume")
         return 3

@@ -69,26 +69,46 @@ def _sum_sq(r: torch.Tensor) -> torch.Tensor:
     return r @ r
 
 
+def _joint(reduce, g: torch.Tensor, s: torch.Tensor):
+    """(g, s) summed over the ranks by `reduce` in one collective."""
+    if reduce is None:
+        return g, s
+    out = reduce(torch.cat([g, s.reshape(1)]))
+    return out[:-1], out[-1]
+
+
+def _summed(reduce, t: torch.Tensor) -> torch.Tensor:
+    return t if reduce is None else reduce(t)
+
+
 def run_lm(residual_fn: Callable[[torch.Tensor], torch.Tensor], params: torch.Tensor,
            n_steps: int, cg_iters: int = 50, init_lam: float = 1e-3, max_chunk: int = 10,
            progress: Progress = None,
-           guard: Callable = contextlib.nullcontext) -> Tuple[torch.Tensor, torch.Tensor, float]:
+           guard: Callable = contextlib.nullcontext,
+           reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """Minimize sum(residual_fn(w)**2) over the flat vector w with damped
     Gauss-Newton; n_steps rounded up to whole chunks of max_chunk steps,
     `progress(steps_done, last_loss, lam)` after each and `guard()` entered
-    around each. Returns (w, loss history, final lam)."""
+    around each. Returns (w, loss history, final lam).
+
+    `reduce(t)` sums t over the ranks of a process group: each rank's
+    residual_fn gives its block of the rows, and the Gauss-Newton products
+    J^T (J v), J^T r and the losses are sums over rows, so each is reduced
+    (J^T r with the loss in one collective). Every rank then takes the same
+    CG iterates and the same accept decision."""
 
     def lm_step(w, lam):
         r, vjp_fn = vjp(residual_fn, w)
-        g = vjp_fn(r)[0]  # J^T r = grad / 2
-        loss0 = r @ r
+        g, loss0 = _joint(reduce, vjp_fn(r)[0], r @ r)  # J^T r = grad / 2
 
         def Av(v):
-            return vjp_fn(jvp(residual_fn, (w,), (v,))[1])[0] + lam * v
+            return _summed(reduce, vjp_fn(jvp(residual_fn, (w,), (v,))[1])[0]) + lam * v
 
         delta = _cg(Av, g, cg_iters)
         with torch.no_grad():
-            return _accept(w, lam, delta, loss0, lambda wt: _sum_sq(residual_fn(wt)))
+            return _accept(w, lam, delta, loss0,
+                           lambda wt: _summed(reduce, _sum_sq(residual_fn(wt))))
 
     return _run_chunks(lm_step, params, n_steps, init_lam, max_chunk, progress, guard)
 
@@ -96,7 +116,8 @@ def run_lm(residual_fn: Callable[[torch.Tensor], torch.Tensor], params: torch.Te
 def run_lm_micro(eq_residual_fn: Callable, aux_residual_fn: Callable[[torch.Tensor], torch.Tensor],
                  eq_slices: Sequence, params: torch.Tensor, n_steps: int, cg_iters: int = 50,
                  init_lam: float = 1e-3, max_chunk: int = 10, progress: Progress = None,
-                 guard: Callable = contextlib.nullcontext
+                 guard: Callable = contextlib.nullcontext,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """run_lm's math with every Gauss-Newton product (J^T J v, J^T r,
     sum r^2) summed over the collocation slices `eq_slices`, the
@@ -104,9 +125,10 @@ def run_lm_micro(eq_residual_fn: Callable, aux_residual_fn: Callable[[torch.Tens
     about one slice's at the cost of one more residual forward per slice and
     CG iteration. `eq_residual_fn(w, slice)` gives a slice's rows (scaled by
     the GLOBAL counts, so the slices together are the full vector's
-    equation rows); `aux_residual_fn(w)` the boundary and supervised rows."""
+    equation rows); `aux_residual_fn(w)` the boundary and supervised rows.
+    `reduce` as in run_lm: the slices and aux rows are this rank's."""
 
-    def loss_of(w):
+    def local_loss(w):
         acc = torch.zeros((), dtype=w.dtype, device=w.device)
         for sl in eq_slices:
             acc = acc + _sum_sq(eq_residual_fn(w, sl))
@@ -123,17 +145,18 @@ def run_lm_micro(eq_residual_fn: Callable, aux_residual_fn: Callable[[torch.Tens
 
     def lm_step(w, lam):
         with torch.no_grad():
-            loss0 = loss_of(w)
+            loss0 = local_loss(w)
         ra, vjp_a = vjp(aux_residual_fn, w)
         g = per_slice(w, lambda f, r, vjp_fn: vjp_fn(r)[0]) + vjp_a(ra)[0]
+        g, loss0 = _joint(reduce, g, loss0)
 
         def Av(v):
             av = per_slice(w, lambda f, r, vjp_fn: vjp_fn(jvp(f, (w,), (v,))[1])[0])
-            return av + vjp_a(jvp(aux_residual_fn, (w,), (v,))[1])[0] + lam * v
+            return _summed(reduce, av + vjp_a(jvp(aux_residual_fn, (w,), (v,))[1])[0]) + lam * v
 
         delta = _cg(Av, g, cg_iters)
         with torch.no_grad():
-            return _accept(w, lam, delta, loss0, loss_of)
+            return _accept(w, lam, delta, loss0, lambda wt: _summed(reduce, local_loss(wt)))
 
     return _run_chunks(lm_step, params, n_steps, init_lam, max_chunk, progress, guard)
 

@@ -54,7 +54,18 @@ either, in either package: `auto` resolves to `xla` for them, an explicit
 has no streamfunction formulation. `_engine("generic")` puts any net on the
 generic engine (a cross-check of the closed forms).
 
-Left for later slices: microbatching, multi-GPU, .pth import/export.
+Microbatching and data parallelism (nsfnet_tpu/training/solver.py:149-153,
+384-451, 565-600, 1113-1130): `microbatches` > 1 accumulates the step's
+gradient over that many collocation slices (training/step.py). Under a
+torch.distributed process group (train.py brings it up under torchrun;
+one process per card) each rank holds a contiguous block of every padded
+point set (parallel/mesh.py) with the global real-point counts, and every
+step, L-BFGS evaluation, LM product and bc-weight probe sums its local
+gradient and loss parts over the ranks in one collective; the host
+decisions that follow are then the same on every rank. `save` gathers the
+vis_t carry and rank 0 writes; resampling and RAR draw the same points on
+every rank (the same seed, the same scores). `mesh_devices` names the
+world size the run must have. Left for a later slice: .pth import/export.
 """
 
 from __future__ import annotations
@@ -88,8 +99,10 @@ from nsfnet_tpu_torch.training.step import (
     StageScalars,
     make_chunk_runner,
     make_loss_fn,
+    make_microbatched_train_step,
     make_residual_fn,
     make_train_step,
+    reduce_flat,
 )
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
@@ -224,6 +237,8 @@ class PINNSolver:
         adaptive_bc_weight: bool = False,  # grad-norm boundary-weight balancing
         adaptive_bc_ema: float = 0.9,
         adaptive_bc_max: float = 1000.0,
+        microbatches: int = 1,  # gradient-accumulation slices of the collocation batch
+        mesh_devices: Optional[int] = None,  # the world size the run must have (None: any)
         device=None,
     ):
         self.device = resolve_device(device)
@@ -236,6 +251,20 @@ class PINNSolver:
             raise ValueError(f"unknown loss_mode {loss_mode!r}; MSE or L2")
         if formulation not in ("velocity", "streamfunction"):
             raise ValueError(f"unknown formulation {formulation!r}")
+        self.microbatches = max(1, int(microbatches))
+        if loss_mode == "L2" and self.microbatches > 1:
+            raise ValueError("L2 loss mode does not compose with microbatching")
+        # the process group train.py brought up (None: one process)
+        self.group = pmesh.process_group()
+        self.rank, self.world_size = pmesh.rank_and_world(self.group)
+        if mesh_devices is not None and int(mesh_devices) != self.world_size:
+            raise ValueError(
+                f"mesh_devices={mesh_devices} but this run has {self.world_size} process(es): "
+                f"the port runs one process per card; launch {mesh_devices} with torchrun "
+                f"--nproc_per_node={mesh_devices} -m nsfnet_tpu_torch.train ...")
+        if loss_mode == "L2" and self.world_size > 1:
+            # an L2 norm is not a sum of per-rank parts
+            raise ValueError("L2 loss mode is single-program only (like the reference's)")
         self.formulation = formulation
         if formulation == "streamfunction":
             if backbone != "mlp":
@@ -311,8 +340,8 @@ class PINNSolver:
         self.logger.info(
             f"PINNSolver: variant={'ev-nsfnet' if self.evm else 'nsfnet'} "
             f"net={self._net_name()} formulation={formulation} "
-            f"engine={self.engine} loss={loss_mode} "
-            f"device={self.device}"
+            f"engine={self.engine} loss={loss_mode} microbatches={self.microbatches} "
+            f"ranks={self.world_size} device={self.device}"
             + (f" ({torch.cuda.get_device_name(self.device)})"
                if self.device.type == "cuda" else ""))
 
@@ -423,12 +452,25 @@ class PINNSolver:
     # ------------------------------------------------------------ assembly
 
     def _eq_pad_size(self, n_f: int) -> int:
-        return pmesh.padded_size(n_f, 1, lane=ROW_ALIGN)
+        """Padded collocation rows: every rank's block, and every
+        microbatch slice of it, whole ROW_ALIGN tiles (the kernel wrappers
+        refuse any other size; nsfnet_tpu/training/solver.py:441-451)."""
+        return pmesh.padded_size(n_f, self.world_size, lane=ROW_ALIGN * self.microbatches)
+
+    def _shard(self, a: np.ndarray) -> np.ndarray:
+        """This rank's block of a padded host array."""
+        return pmesh.shard_rows(a, self.rank, self.world_size)
 
     def _build_batch(self) -> Batch:
+        """This rank's block of every point set, padded with zero-weight
+        rows, with the GLOBAL real-point counts (nsfnet_tpu/training/
+        solver.py:381-439). Under one process no kernel reads the boundary
+        and supervised sets: they stay unpadded."""
         if self._bc is None or self._eq is None:
             raise RuntimeError("set_boundary_data and set_eq_training_data first")
-        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(self._shard(a))).to(self.device)
+        world = self.world_size
+        pad_to = lambda n: n if world == 1 else pmesh.padded_size(n, world)
 
         x_f, y_f = self._eq
         n_f = x_f.shape[0]
@@ -436,31 +478,34 @@ class PINNSolver:
         w = self._eq_weights if self._eq_weights is not None else np.ones((n_f, 1), np.float32)
 
         x_b, y_b, u_b, v_b = self._bc
-        n_b = x_b.shape[0]  # no kernel reads the boundary set: no padding
+        n_b = x_b.shape[0]
+        nb_pad = pad_to(n_b)
+        bc = lambda a, fill=0.0: dev(pmesh.pad_rows(a, nb_pad, fill))
 
         sup = {}
         if self._sup is not None and self.alpha_s != 0.0:
-            # no kernel reads the supervised set either: no padding
             x_s, y_s, u_s, v_s, p_s = self._sup
-            sup = dict(x_s=dev(x_s), y_s=dev(y_s), u_s=dev(u_s), v_s=dev(v_s),
-                       s_mask=dev(np.ones_like(x_s)), n_s=float(x_s.shape[0]))
+            ns_pad = pad_to(x_s.shape[0])
+            sp = lambda a: dev(pmesh.pad_rows(a, ns_pad))
+            sup = dict(x_s=sp(x_s), y_s=sp(y_s), u_s=sp(u_s), v_s=sp(v_s),
+                       s_mask=sp(np.ones_like(x_s)), n_s=float(x_s.shape[0]))
             if p_s is not None:
                 finite = np.isfinite(p_s).astype(np.float32)
-                sup.update(p_s=dev(np.nan_to_num(p_s)), p_mask=dev(finite),
+                sup.update(p_s=sp(np.nan_to_num(p_s)), p_mask=sp(finite),
                            n_p=float(finite.sum()))
 
         batch = Batch(
             x_f=dev(pmesh.pad_rows(x_f, nf_pad)),
             y_f=dev(pmesh.pad_rows(y_f, nf_pad)),
             eq_w=dev(pmesh.pad_rows(w, nf_pad, 0.0)), n_f=float(n_f),
-            x_b=dev(x_b), y_b=dev(y_b), u_b=dev(u_b), v_b=dev(v_b),
-            b_mask=dev(np.ones((n_b, 1), np.float32)), n_b=float(n_b),
+            x_b=bc(x_b), y_b=bc(y_b), u_b=bc(u_b), v_b=bc(v_b),
+            b_mask=bc(np.ones((n_b, 1), np.float32)), n_b=float(n_b),
             **sup,
         )
         if self.evm:
             vtm = pmesh.pad_rows(self._vis_t_init, nf_pad, self.vis_t0)
             cur = self.state.vis_t_minus
-            if self._vis_stale or cur is None or tuple(cur.shape) != vtm.shape:
+            if self._vis_stale or cur is None or cur.shape[0] * world != nf_pad:
                 self.state.vis_t_minus = dev(vtm)
                 self._vis_stale = False
         return batch
@@ -549,7 +594,12 @@ class PINNSolver:
         if not self._dirty and self._runner is not None:
             return
         self._batch = self._build_batch()
-        train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm)
+        if self.microbatches > 1:
+            train_step = make_microbatched_train_step(self._make_loss(), self.microbatches,
+                                                      self.evm_update_freq, self.evm, self.group)
+        else:
+            train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm,
+                                         self.group)
         self._runner = make_chunk_runner(train_step)
         self._loss_fn = self._make_loss("xla")
         self._dirty = False
@@ -574,7 +624,8 @@ class PINNSolver:
         current batch (nsfnet_tpu/training/solver.py:614-646): the balance
         signal of the adaptive boundary weight. The closed-form exact-fp32
         loss; the raw (unweighted) boundary part is differentiated, so the
-        current weight does not feed back into its own update."""
+        current weight does not feed back into its own update. Under a
+        process group the norms are of the all-reduced gradients."""
         lf, st, b = self._loss_fn, self.state, self._batch
         sc = self._stage_scalars(self.current_lr)
         evm = st.params_evm.detach() if self.evm else None
@@ -584,6 +635,7 @@ class PINNSolver:
             (g_eq,) = torch.autograd.grad(eq, [p])
             _, (loss_b, _) = lf.aux_loss_fn((p, evm), b, sc)
             (g_bc,) = torch.autograd.grad(loss_b, [p])
+            g_eq, g_bc = reduce_flat([g_eq, g_bc], self.group)
             return (g_eq.norm() / (g_bc.norm() + 1e-12)).item()
 
     def _update_adaptive_bc(self):
@@ -652,7 +704,7 @@ class PINNSolver:
         stage_start = time.time()
         done = first = self.state.epoch_in_stage
         last_log_t, last_log_e = stage_start, done
-        pts_per_step = int(self._batch.x_f.shape[0] + self._batch.x_b.shape[0])
+        pts_per_step = int(self._batch.x_f.shape[0] + self._batch.x_b.shape[0]) * self.world_size
         use_eval_track = (advance_on_stall and stall_metric == "eval_error"
                           and self._eval_fields is not None)
         if advance_on_stall and stall_metric == "eval_error" and self._eval_fields is None:
@@ -675,7 +727,10 @@ class PINNSolver:
                     metrics = self.run_steps(n, lr)
                 except DEVICE_ERRORS as err:
                     crashes += 1
-                    if last_ckpt is None or crashes > 3:
+                    # one rank cannot roll back alone: its peers wait in a
+                    # collective, so a multi-process run ends here (and
+                    # --resume takes over, as after a sticky error)
+                    if last_ckpt is None or crashes > 3 or self.world_size > 1:
                         raise
                     self.logger.error(f"device error at stage-epoch {done} ({err}); rolling "
                                       f"back to {last_ckpt} (crash {crashes}/3)")
@@ -748,10 +803,14 @@ class PINNSolver:
         w0, split = self._flat_state()
 
         def value_and_grad(w):
+            # under a process group: the rank's local sums, then the value
+            # and the gradient summed over the ranks in one collective, so
+            # the line search decides alike on every rank
             w = w.detach().requires_grad_(True)
             total, _ = loss(split(w), batch, vtm, sc)
             (g,) = torch.autograd.grad(total, [w])
-            return total.detach(), g
+            g, total = reduce_flat([g, total.detach()], self.group)
+            return total, g
 
         t0 = time.time()
 
@@ -803,6 +862,8 @@ class PINNSolver:
                              f"({done / max(time.time() - t0, 1e-9):.2f} it/s)")
 
         micro = int(microbatches if microbatches is not None else self.lm_microbatches)
+        reduce = None if self.group is None else (
+            lambda t: pmesh.all_reduce_sum_(t.contiguous(), self.group))
         with _exact_fp32():
             if micro > 1:
                 # pad rows carry eq_w = 0: zero residual rows; the global n_f
@@ -815,12 +876,12 @@ class PINNSolver:
                     lambda w_, sl: eq_fn(split(w_), *sl, batch.n_f, sc),
                     lambda w_: aux_fn(split(w_), batch, sc), slices, w0, num_steps,
                     cg_iters=cg_iters, max_chunk=max(1, self.max_chunk // (3 * cg_iters + 8)),
-                    progress=progress, guard=_defer_sigterm)
+                    progress=progress, guard=_defer_sigterm, reduce=reduce)
             else:
                 w, history, lam = run_lm(
                     lambda w_: residual(split(w_), batch, vtm, sc), w0, num_steps,
                     cg_iters=cg_iters, max_chunk=max(1, self.max_chunk // (2 * cg_iters + 4)),
-                    progress=progress, guard=_defer_sigterm)
+                    progress=progress, guard=_defer_sigterm, reduce=reduce)
         history = history.tolist()
         seconds = time.time() - t0
         self._install_flat(w)
@@ -937,6 +998,8 @@ class PINNSolver:
         if self.formulation == "streamfunction":
             with torch.no_grad(), _exact_fp32():
                 extra["PSI_pred"] = grid(self.net(self._host_points(x, y))[:, 0])
+        if self.rank != 0:  # one writer per run
+            return errors
         out_dir = save_dir or os.path.join(self.checkpoint_path, f"Re{self.Re:g}", "test_result")
         os.makedirs(out_dir, exist_ok=True)
         scipy.io.savemat(os.path.join(out_dir, f"cavity_result_loop_{loop}.mat"), {
@@ -985,8 +1048,26 @@ class PINNSolver:
 
     def save(self, filename: str, directory: Optional[str] = None) -> str:
         """Write the full train state (torch.save) and its JSON sidecar,
-        atomically (training/checkpoint.save_state)."""
+        atomically (training/checkpoint.save_state). Under a process group
+        every rank must call it: the vis_t carry is gathered from all ranks,
+        rank 0 alone writes, and a barrier holds every rank until the file
+        is there; every rank gets the path back, so a rollback or resume
+        reads the same file everywhere (nsfnet_tpu/training/solver.py:
+        1113-1130)."""
         path = os.path.join(directory or self._ckpt_dir(), filename)
+        s = self.state
+        vtm = s.vis_t_minus
+        if self.group is not None and vtm is not None:
+            vtm = pmesh.gather_rows(vtm, self.group)
+        if self.rank == 0:
+            self._write(path, vtm)
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.group)
+        return path
+
+    def _write(self, path: str, vis_t_minus) -> None:
         s = self.state
         adam = lambda o: None if o is None else {"mu": o.mu, "nu": o.nu, "count": o.count}
         blob = {
@@ -994,7 +1075,7 @@ class PINNSolver:
             "params_evm": None if s.params_evm is None else s.params_evm.detach(),
             "opt_main": adam(s.opt_main),
             "opt_evm": adam(s.opt_evm),
-            "vis_t_minus": s.vis_t_minus,
+            "vis_t_minus": vis_t_minus,
             "step": s.step,
             "epoch_in_stage": s.epoch_in_stage,
         }
@@ -1009,7 +1090,6 @@ class PINNSolver:
                 {"step": hist[:, 0], "total": hist[:, 1], "eq": hist[:, 2],
                  "bc": hist[:, 3], "eq1": hist[:, 4], "eq2": hist[:, 5],
                  "eq3": hist[:, 6], "eq4": hist[:, 7]})
-        return path
 
     def _read_state(self, path: str):
         """(TrainState, metadata, main leaf shapes or None, EVM leaf shapes
@@ -1043,7 +1123,8 @@ class PINNSolver:
         fan_in). The carry
         keeps the first N_f rows of the writer's (its padding differs), and
         is recomputed from the restored EVM net where the writer had fewer
-        points."""
+        points. Every rank reads the file and keeps its own block of the
+        carry."""
         state, meta, sizes, sizes_evm = self._read_state(path)
         theirs = meta.get("formulation", "velocity")  # no stamp: written before the option
         if theirs != self.formulation:
@@ -1093,7 +1174,7 @@ class PINNSolver:
             else:
                 rows = vtm[:n_f]
             pad = self._eq_pad_size(n_f) - n_f
-            vtm = torch.cat([rows, rows.new_full((pad, 1), self.vis_t0)])
+            vtm = self._shard(torch.cat([rows, rows.new_full((pad, 1), self.vis_t0)]))
             self._vis_stale = False
             self._dirty = True
         self.state.vis_t_minus = vtm

@@ -1,5 +1,7 @@
-"""The training step, the multi-step chunk runner and the least-squares
-residual (port of nsfnet_tpu/training/step.py:53-268, 271-331, 432-455).
+"""The training step (full batch or microbatched, on one process or a
+rank of a process group), the multi-step chunk runner and the
+least-squares residual (port of nsfnet_tpu/training/step.py:53-268,
+271-503).
 
 One step = the reference's full-batch epoch (solve_Adam body,
 ev-NSFnet/pinn_solver.py:456-480), on the device:
@@ -15,7 +17,11 @@ ev-NSFnet/pinn_solver.py:456-480), on the device:
   * Adam on the EVM net only on stage-epochs k*evm_update_freq, k >= 1
     (pinn_solver.py:452-462); frozen steps leave its params AND moments
     untouched, and its gradient is not computed,
-  * the vis_t carry update.
+  * the vis_t carry update;
+  * under a process group, each rank's local sums (over GLOBAL counts) are
+    differentiated and the gradients and loss components all-reduced in
+    one collective per step (`make_grad_fn`); with `n_micro` > 1 the
+    collocation rows run in slices, one graph at a time.
 
 Nothing in a step reads a value back from the device: lr, Re and alpha_evm
 are Python floats and the EVM gate counts on the host, so a chunk of steps
@@ -34,6 +40,7 @@ import torch
 
 from nsfnet_tpu_torch.ops import losses as L
 from nsfnet_tpu_torch.ops import residuals as R
+from nsfnet_tpu_torch.parallel import mesh as pmesh
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
 
 Engine = Callable[..., tuple]  # (flat params, X[N,2]) -> Derivs
@@ -158,6 +165,7 @@ def make_loss_fn(
 
     loss_fn.eq_loss_fn = eq_loss_fn
     loss_fn.aux_loss_fn = aux_loss_fn
+    loss_fn.assemble = assemble
     return loss_fn
 
 
@@ -240,17 +248,97 @@ def adam_update_(p: torch.Tensor, g: torch.Tensor, opt: AdamState, lr: float) ->
     p.sub_(lr * (mu_hat / (nu_hat.sqrt() + ADAM_EPS)))
 
 
-def make_train_step(loss_fn, evm_update_freq: int = 10000, evm: bool = True):
-    """Adam with a runtime learning rate; the EVM update is gated on the
-    stage-epoch counter (ev-NSFnet/pinn_solver.py:456-462)."""
+def components(m: StepMetrics) -> torch.Tensor:
+    """The 7 raw components [loss_b, l1, l2, l3, l4, loss_s, vis_t_mean] of
+    a step's metrics, detached: each a local sum over global counts, so
+    summing them over ranks or slices gives the full batch's, and
+    `assemble(*components, sc)` rebuilds every metric from them."""
+    return torch.stack([m.boundary, m.eq1, m.eq2, m.eq3, m.eq4, m.supervised,
+                        m.vis_t_mean]).detach()
 
+
+def reduce_flat(tensors, group):
+    """Sum a list of tensors over the ranks of `group` in ONE collective:
+    one flat buffer, all-reduced, split back (the JAX package's stacked
+    psum of the components and psum of the gradients, step.py:168-177,
+    :392-393, in one). `group` None: no collective, the tensors as given."""
+    if group is None:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    pmesh.all_reduce_sum_(flat, group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return out
+
+
+def make_grad_fn(loss_fn, n_micro: int = 1, group=None):
+    """(params_all, targets, batch, vis_t_minus, sc) -> (gradients of the
+    total wrt `targets`, the step's StepMetrics, the new vis_t carry).
+
+    torch.distributed.all_reduce has no gradient, so the local total
+    (every component a local sum over GLOBAL counts) is differentiated on
+    each rank, and the gradients and the 7 detached components are then
+    summed over `group` in one collective (`reduce_flat`): the sum of the
+    ranks' gradients is the gradient of the global loss.
+
+    n_micro > 1 is gradient accumulation (nsfnet_tpu/training/step.py:
+    333-430): the collocation rows (x_f, y_f, eq_w, the carry) in n_micro
+    contiguous slices, one autograd.grad of the equation loss per slice,
+    each slice's graph freed before the next (the peak activation memory
+    is one slice's: the point of the feature), then the boundary and
+    supervised part once; the new carry rows are concatenated in slice
+    order. The same sums as the full batch, in another order."""
+    eq_fn, aux_fn, assemble = loss_fn.eq_loss_fn, loss_fn.aux_loss_fn, loss_fn.assemble
+
+    def full(params_all, targets, batch, vtm, sc):
+        total, (metrics, new_vtm) = loss_fn(params_all, batch, vtm, sc)
+        return list(torch.autograd.grad(total, targets)), metrics, new_vtm
+
+    def micro(params_all, targets, batch, vtm, sc):
+        m = batch.x_f.shape[0] // n_micro
+        grads = [torch.zeros_like(t) for t in targets]
+        comps = batch.x_f.new_zeros(7)
+        rows = []
+        for i in range(n_micro):
+            sl = slice(i * m, (i + 1) * m)
+            val, (l1, l2, l3, l4, vmean, nvtm) = eq_fn(
+                params_all, batch.x_f[sl], batch.y_f[sl], batch.eq_w[sl], batch.n_f,
+                None if vtm is None else vtm[sl], sc)
+            for acc, g in zip(grads, torch.autograd.grad(val, targets)):
+                acc.add_(g)
+            comps[1:5] += torch.stack([l1, l2, l3, l4]).detach()
+            comps[6] += vmean.detach()
+            rows.append(nvtm)
+        val, (loss_b, loss_s) = aux_fn(params_all, batch, sc)
+        # the EVM net takes no part in the boundary / supervised loss
+        for acc, g in zip(grads, torch.autograd.grad(val, targets, allow_unused=True)):
+            if g is not None:
+                acc.add_(g)
+        comps[0] += loss_b.detach()
+        comps[5] += loss_s.detach()
+        return grads, assemble(*comps, sc), (None if vtm is None else torch.cat(rows))
+
+    run = micro if n_micro > 1 else full
+
+    def grad_fn(params_all, targets, batch, vtm, sc):
+        grads, metrics, new_vtm = run(params_all, targets, batch, vtm, sc)
+        if group is None:
+            return grads, metrics, new_vtm
+        *grads, comps = reduce_flat(grads + [components(metrics)], group)
+        return grads, assemble(*comps, sc), new_vtm
+
+    return grad_fn
+
+
+def _step_with(grad_fn, evm_update_freq: int, evm: bool):
     def train_step(state: TrainState, batch: Batch, sc: StageScalars) -> StepMetrics:
         do_evm = (evm and state.epoch_in_stage % evm_update_freq == 0
                   and state.epoch_in_stage > 0)
-        total, (metrics, new_vtm) = loss_fn(
-            (state.params, state.params_evm), batch, state.vis_t_minus, sc)
         targets = [state.params] + ([state.params_evm] if do_evm else [])
-        grads = torch.autograd.grad(total, targets)
+        grads, metrics, new_vtm = grad_fn((state.params, state.params_evm), targets, batch,
+                                          state.vis_t_minus, sc)
         adam_update_(state.params, grads[0], state.opt_main, sc.lr)
         if do_evm:
             adam_update_(state.params_evm, grads[1], state.opt_evm, sc.lr)
@@ -260,6 +348,24 @@ def make_train_step(loss_fn, evm_update_freq: int = 10000, evm: bool = True):
         return StepMetrics(*(m.detach() for m in metrics))
 
     return train_step
+
+
+def make_train_step(loss_fn, evm_update_freq: int = 10000, evm: bool = True, group=None):
+    """Adam with a runtime learning rate; the EVM update is gated on the
+    stage-epoch counter (ev-NSFnet/pinn_solver.py:456-462), a host decision
+    that is the same on every rank, so the gradient buffer of the
+    collective has one layout on all of them. `group`: the process group
+    whose ranks each hold a block of the batch (None: one process)."""
+    return _step_with(make_grad_fn(loss_fn, 1, group), evm_update_freq, evm)
+
+
+def make_microbatched_train_step(loss_fn, n_micro: int, evm_update_freq: int = 10000,
+                                 evm: bool = True, group=None):
+    """make_train_step over `n_micro` collocation slices (make_grad_fn;
+    nsfnet_tpu/training/step.py:333-430): N_f beyond one activation
+    footprint. Each slice must stay whole kernel tiles (the solver pads the
+    batch to world x ROW_ALIGN x n_micro rows)."""
+    return _step_with(make_grad_fn(loss_fn, n_micro, group), evm_update_freq, evm)
 
 
 def make_chunk_runner(train_step):

@@ -716,3 +716,67 @@ def test_lm_on_the_card_matches_the_cpu(cuda, micro):
     np.testing.assert_allclose(h, cpu.polish_stats["history"], rtol=5e-4)
     torch.testing.assert_close(card.state.params.cpu(), cpu.state.params, rtol=0, atol=5e-4)
     assert card.global_step == cpu.global_step == 4
+
+
+# --------------------------------------------- microbatching, process groups
+
+@pytest.mark.parametrize("micro", [2, 4])
+def test_microbatched_step_on_the_card_matches_the_full_batch(cuda, tmp_path, micro):
+    """Through kernels 1+2: `micro` launches of each per step, each on its
+    slice of the padded batch, and 6 steps (the EVM gate firing at 3)
+    within float tolerance of the full batch's (the same sums, in another
+    order); the card's microbatched run within 1e-4 of the CPU's."""
+    runs = {}
+    for key, dev, m in (("full", "cuda", 1), ("micro", "cuda", micro), ("cpu", "cpu", micro)):
+        s = _campaign_solver(dev, tmp_path / key, microbatches=m, log_interval=1,
+                             checkpoint_freq=10**9)
+        fr.reset_launch_counts()
+        s.train(num_epoch=6, lr=1e-3)
+        runs[key] = (s, dict(fr.launch_counts), dict(fr.launch_rows))
+    s, counts, rows = runs["micro"]
+    n = s._batch.x_f.shape[0]
+    assert n % (micro * fr.ROW_ALIGN) == 0
+    assert counts == {"fused_residual_fwd": 6 * micro, "fused_residual_bwd": 6 * micro}
+    assert rows == {"fused_residual_fwd": 6 * n, "fused_residual_bwd": 6 * n}
+    assert runs["full"][1] == {"fused_residual_fwd": 6, "fused_residual_bwd": 6}
+    assert runs["cpu"][1] == {"fused_residual_fwd": 0, "fused_residual_bwd": 0}
+    hist = lambda s_: np.asarray([list(m_) for _, m_ in s_.loss_history])
+    np.testing.assert_allclose(hist(s), hist(runs["full"][0]), rtol=1e-5, atol=1e-12)
+    torch.testing.assert_close(s.state.params, runs["full"][0].state.params, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(hist(s), hist(runs["cpu"][0]), rtol=1e-4, atol=1e-9)
+
+
+def test_world_one_nccl_group_matches_no_group_bitwise(cuda, tmp_path, monkeypatch):
+    """A 1-rank NCCL process group (its one all-reduce per step, the carry
+    gathered at save) against no group: bitwise equal params, carry and
+    checkpoint carry."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nsfnet_tpu_torch.parallel import mesh as pmesh
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    alone = _campaign_solver("cuda", tmp_path / "alone", checkpoint_freq=10**9)
+    alone.train(num_epoch=6, lr=1e-3)
+    path_alone = alone.save("end.ckpt")
+    assert pmesh.initialize_distributed("cuda") == (0, 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        grouped = _campaign_solver("cuda", tmp_path / "grouped", checkpoint_freq=10**9)
+        assert grouped.group is not None and grouped.world_size == 1
+        grouped.train(num_epoch=6, lr=1e-3)
+        path_grouped = grouped.save("end.ckpt")
+    finally:
+        dist.destroy_process_group()
+    for key in ("params", "params_evm", "vis_t_minus"):
+        assert torch.equal(getattr(grouped.state, key), getattr(alone.state, key)), key
+    a, b = (torch.load(p, weights_only=True) for p in (path_alone, path_grouped))
+    assert torch.equal(a["vis_t_minus"], b["vis_t_minus"])

@@ -108,6 +108,19 @@ def test_cli_runs_on_the_cpu_when_asked(tmp_path):
 
 
 def test_cli_refuses_what_the_port_does_not_run(tmp_path):
+    """mesh_devices: 2 in a 1-process run (the port runs one process per
+    card: torchrun --nproc_per_node=2), and the L2 loss with microbatches
+    (the JAX solver refuses it too): exit 2 before any training."""
+    for extra in ("  mesh_devices: 2\n", "  microbatches: 2\n  loss_mode: L2\n"):
+        cfg = tmp_path / "refused.yaml"
+        cfg.write_text(TINY.format(out=tmp_path).replace("  N_f: 300\n", "  N_f: 300\n" + extra))
+        assert port_train.main(["--config", str(cfg), "--cpu"]) == 2
+    assert not list(tmp_path.glob("Re100/*/*.ckpt"))
+
+
+def test_cli_trains_microbatched_on_the_cpu(tmp_path):
     cfg = tmp_path / "micro.yaml"
     cfg.write_text(TINY.format(out=tmp_path).replace("  N_f: 300\n", "  N_f: 300\n  microbatches: 2\n"))
-    assert port_train.main(["--config", str(cfg), "--cpu"]) == 2
+    assert port_train.main(["--config", str(cfg), "--cpu"]) == 0
+    final = list(tmp_path.glob("Re100/*/model_final.ckpt"))
+    assert len(final) == 1 and load_metadata(str(final[0]))["global_step"] == 5
