@@ -101,6 +101,24 @@ Phases (any failure exits non-zero before the result line):
           one rank per card) for 10 steps on (i)'s weights: bitwise equal
           ranks, against one process, each rank's launches on 60,000 rows,
           rank 0's gathered carry reloaded by both and 2 more steps;
+      4j. the tools: (i) train.main --resume artifacts/re4000_live/latest.ckpt
+          (a JAX native-sampler state, 6x160, R1 at step 100,000) on
+          configs/re4000_r4b.yaml with R1 ending 40 steps later and R2 cut
+          to 40: draw 0 replayed on the port's native sampler (its sha256),
+          R2's native redraw, a `native: true` final state, kernels 1+2 once
+          per step and 3-6 never; the library's build time and the native
+          and numpy draws' times at N_f 120,000; (ii) test.py over (i)'s
+          checkpoint and artifacts/live_re4000_r4b/latest.ckpt (msgpack)
+          against a synthetic DNS field, on the card and with --cpu; (iii)
+          the exported predict and residual heads of (i)'s state, loaded on
+          cuda and on the CPU, against the solver on 120,000 points, and
+          timed; (iv) save_torch / load_torch of the flagship nets; (v)
+          --profile over a 20-step flagship stage (the trace names kernels
+          1+2); (vi) a 6x289 "high" net, wider than kernels 1-4's tiles
+          take, refused before any data is built (train.py exits 2, the
+          solver raises), 6x288 on kernels 1+2; (vii) the watchdog under
+          torchrun at world 1, stopped by WATCHDOG_DEADLINE_TS after its
+          first checkpoints, then resumed to the end of the stage;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch),
@@ -171,6 +189,16 @@ PAR_GRAD_TOL = 1e-5      # (i): first gradient per tensor, 4 slices vs 1 (summat
 PAR_METRIC_TOL = 1e-3    # (i): metrics after PAR_STEPS steps
 PAR_DP_METRIC_TOL = 1e-4  # (iv): 2 ranks vs 1 process, every logged metric
 PAR_DP_PARAM_TOL = 1e-3   # ... and the params, max|diff| / max|p|
+R4B_CONFIG = "configs/re4000_r4b.yaml"
+LIVE_NATIVE = "artifacts/re4000_live/latest.ckpt"   # native sampler state, 6x160, R1 step 100,000
+LIVE_R4B = "artifacts/live_re4000_r4b/latest.ckpt"   # 6x160, msgpack, R2 step 1,240,000
+TOOLS_SWEEP_TOL = 1e-5   # 4j (ii): the sweep's error scalars, cuda vs CPU (relative)
+TOOLS_EXPORT_TOL = 1e-5  # 4j (iii): exported heads vs the solver, max|diff| / max|ref|
+# 4j (iii): the CPU solver against the cuda one on the same state, max|diff| /
+# max|ref| per head: fp32 summed in two orders; the residual of the
+# re4000_live state read 1.13e-5 on the H100 (PERF.md)
+TOOLS_XDEV_TOL = 5e-5
+WD_DEADLINE_S = 45       # 4j (vii): the first watchdog call's deadline after its start
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -280,6 +308,39 @@ def rel_sums(a, b):
     return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
 
 
+def write_config(root, src, name, stages, top=None, **training):
+    """The config file `src` (a path, or a dict in the config's layout) with
+    its stages replaced, `training` settings updated, checkpoints under
+    root/name, written to root/name.yaml. eval_data stays unless `top`
+    replaces it: its DNS file is not in the repository, and train.py skips
+    the evaluation with a warning."""
+    from nsfnet_tpu_torch.config import ConfigManager
+
+    raw = (ConfigManager.from_file(src).to_dict() if isinstance(src, str)
+           else json.loads(json.dumps(src)))
+    raw.update(top or {})
+    raw["training"].update(checkpoint_dir=os.path.join(root, name), **training)
+    raw["training"]["training_stages"] = stages
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        json.dump(raw, f)  # YAML reads JSON
+    return path
+
+
+def train_spy(train, seen):
+    """PINNSolver.train recording, at each call, the solver, its stage, the
+    mid-stage entry and the collocation points it trains on."""
+    def spy(self, *a, **kw):
+        resume = kw.get("resume_in_stage", False)
+        x_f, y_f = self.eq_points()
+        seen.append({"solver": self, "stage": self.current_stage, "resume": resume,
+                     "entry": self.state.epoch_in_stage if resume else 0,
+                     "global_step": self.global_step, "x_f": x_f.copy(), "y_f": y_f.copy()})
+        return train(self, *a, **kw)
+
+    return spy
+
+
 def rel_max(a, b):
     """max|a - b| / max|b| of two tensors."""
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
@@ -311,6 +372,329 @@ def env_var(name, value):
         os.environ.pop(name, None)
         if old is not None:
             os.environ[name] = old
+
+
+def phase_tools(torch, np, ctx):
+    """4j. the tools on the card: (i) train.main --resume of the native-
+    sampler JAX checkpoint; (ii) the checkpoint sweep on cuda against --cpu;
+    (iii) the exported predict and residual heads on cuda and on the CPU;
+    (iv) .pth save and load; (v) --profile; (vi) the width refusal;
+    (vii) the watchdog under torchrun. Returns {name: ok} and its record."""
+    import hashlib
+
+    import scipy.io
+
+    from nsfnet_tpu_torch import test as sweep_mod
+    from nsfnet_tpu_torch import train as train_mod
+    from nsfnet_tpu_torch.config import ConfigManager
+    from nsfnet_tpu_torch.data import native
+    from nsfnet_tpu_torch.data.cavity import CavityData
+    from nsfnet_tpu_torch.tools import watchdog
+    from nsfnet_tpu_torch.training import checkpoint as ckpt_mod
+    from nsfnet_tpu_torch.training.solver import PINNSolver
+    from nsfnet_tpu_torch.utils import export as export_mod
+
+    card, reset, read, ready_solver = (ctx["card"], ctx["reset_counts"], ctx["read_counts"],
+                                       ctx["ready_solver"])
+    t_phase = time.time()
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    rec, ok = {}, {}
+    seen = []
+    orig_train = PINNSolver.train
+    PINNSolver.train = train_spy(orig_train, seen)
+
+    def newest(name, pattern="*.ckpt"):
+        found = glob.glob(os.path.join(tdir, name, "**", pattern), recursive=True)
+        return max(found, key=os.path.getmtime) if found else None
+
+    def flagship(name, epochs, **training):
+        stages = [{**FLAGSHIP["training"]["training_stages"][0], "epochs": epochs}]
+        return write_config(tdir, FLAGSHIP, name, stages, **training)
+
+    def finite(s):
+        return bool(s.loss_history) and all(math.isfinite(v) for _, m in s.loss_history
+                                            for v in m)
+
+    try:
+        # (i) --resume the native-sampler JAX checkpoint (6x160, R1 at step
+        # 100,000) on re4000_r4b: R1 ends 40 steps later, R2 (a native
+        # redraw) is cut to 40
+        built_here = not native.library_path().exists()
+        t0 = time.perf_counter()
+        native.build()
+        build_s = time.perf_counter() - t0
+        stages = ConfigManager.from_file(R4B_CONFIG).to_dict()["training"]["training_stages"][:2]
+        stages[0]["epochs"], stages[1]["epochs"] = 100_040, 40
+        path = write_config(tdir, R4B_CONFIG, "native", stages)
+        cfg = ConfigManager.from_file(path).config
+        reset()
+        t0 = time.time()
+        rc = train_mod.main(["--config", path, "--resume", LIVE_NATIVE])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = read()
+        meta = ckpt_mod.load_metadata(newest("native", "model_final.ckpt")) or {}
+        solver_n = seen[-1]["solver"]
+        entries = [(e["stage"], e["resume"], e["entry"], e["global_step"]) for e in seen]
+        # the two draws on their own: the state replayed, then the next draw
+        d = train_mod.build_data(cfg)
+        d.boundary_data()
+        d.set_state(ckpt_mod.load_metadata(LIVE_NATIVE)["sampler"])
+        x0, y0 = d.training_data()
+        x1, y1 = d.training_data()
+        replayed = (len(seen) == 2 and np.array_equal(seen[0]["x_f"], x0)
+                    and np.array_equal(seen[0]["y_f"], y0))
+        redrawn = (len(seen) == 2 and np.array_equal(seen[1]["x_f"], x1)
+                   and np.array_equal(seen[1]["y_f"], y1))
+        sha = hashlib.sha256(x0.tobytes() + y0.tobytes()).hexdigest()
+        draw_s = {}
+        for sort in (False, True):
+            for use_native in (True, False):
+                dd = CavityData(**{**train_mod.data_kwargs(cfg), "sort_training_points": sort},
+                                use_native=use_native)
+                dd.boundary_data()
+                t0 = time.perf_counter()
+                dd.training_data()
+                draw_s[f"{'native' if use_native else 'numpy'}{'/sorted' if sort else ''}"] = \
+                    time.perf_counter() - t0
+        sampler = meta.get("sampler", {})
+        ok["i"] = (rc == 0 and finite(solver_n) and d.use_native and replayed and redrawn
+                   and entries == [("R1", True, 100_000, 100_000), ("R2", False, 0, 100_040)]
+                   and meta.get("global_step") == 100_080 and meta.get("stage") == "R2"
+                   and sampler.get("native") is True and sampler.get("draws_next") == 1
+                   and launches == {**dict.fromkeys(launches, 0), "fused_residual_fwd": 80,
+                                    "fused_residual_bwd": 80})
+        print(f"tools (i) --resume {LIVE_NATIVE} (native sampler state) through train.main: "
+              f"exit {rc} in {seconds:.1f} s; stage entries {entries}; draw 0 replayed on the "
+              f"native path {replayed}, sha256 {sha}; R2's native redraw {redrawn}; final step "
+              f"{meta.get('global_step')} stage {meta.get('stage')} sampler native "
+              f"{sampler.get('native')} draws_next {sampler.get('draws_next')}; launches "
+              f"{launches}; ok {ok['i']}")
+        for st, m in solver_n.loss_history:
+            print(f"  step {st}: " + " ".join(f"{k}={v:.4e}" for k, v in m._asdict().items()))
+        print(f"  native library build (g++ -O3 -march=native) {build_s:.2f} s "
+              f"({'built here' if built_here else 'found built'}); one "
+              f"draw at N_f 120,000: " + ", ".join(f"{k} {v:.4f} s" for k, v in draw_s.items())
+              + f" — {card}")
+        rec["native_resume"] = {"rc": rc, "seconds": seconds, "entries": entries,
+                                "sha256": sha, "launches": launches, "final_meta": meta,
+                                "build_s": build_s, "draw_s": draw_s, "ok": ok["i"],
+                                "history": [(st, m._asdict()) for st, m in solver_n.loss_history]}
+
+        # (ii) the sweep of (i)'s checkpoint and of the JAX package's msgpack
+        # checkpoint against a synthetic DNS field, on the card and with --cpu
+        g = np.linspace(0.0, 1.0, 101)
+        X, Y = np.meshgrid(g, g)
+        P = np.cos(np.pi * X) * np.sin(np.pi * Y)
+        P[0, 0] = np.nan
+        mat = os.path.join(tdir, "dns.mat")
+        scipy.io.savemat(mat, {"X_ref": X, "Y_ref": Y, "U_ref": np.sin(np.pi * X) * Y,
+                               "V_ref": -np.sin(np.pi * Y) * X, "P_ref": P})
+        sweep_cfg = write_config(tdir, R4B_CONFIG, "sweep", stages, top={"eval_data": mat})
+        ck_dir = os.path.join(tdir, "sweep_ckpts")
+        os.makedirs(ck_dir)
+        for src, name in ((newest("native", "model_final.ckpt"), "port"), (LIVE_R4B, "jax")):
+            for ext in ("", ".json"):
+                shutil.copy(src + ext, os.path.join(ck_dir, name + ".ckpt" + ext))
+        sweeps, sweep_s = {}, {}
+        reset()
+        for where in ("cuda", "cpu"):
+            out_dir = os.path.join(tdir, f"sweep_{where}")
+            t0 = time.time()
+            rc_s = sweep_mod.main(["--config", sweep_cfg, "--checkpoints",
+                                   os.path.join(ck_dir, "*.ckpt"), "--out", out_dir]
+                                  + (["--cpu"] if where == "cpu" else []))
+            sweep_s[where] = time.time() - t0
+            sweeps[where] = (rc_s, {f: scipy.io.loadmat(os.path.join(out_dir, f))
+                                    for f in sorted(os.listdir(out_dir))})
+        launches_sw = read()
+        files = sorted(sweeps["cuda"][1])
+        scal = ("error_u", "error_v", "error_p", "error_p_gauge")
+        scalar = lambda where, f, k: np.asarray(sweeps[where][1][f][k]).item()
+        err_rel = max(abs(scalar("cuda", f, k) - scalar("cpu", f, k))
+                      / max(abs(scalar("cpu", f, k)), 1e-30) for f in files for k in scal)
+        field_abs = max(float(np.abs(sweeps["cuda"][1][f][k] - sweeps["cpu"][1][f][k]).max())
+                        for f in files for k in ("U_pred", "V_pred", "P_pred", "E_pred"))
+        ok["ii"] = (sweeps["cuda"][0] == sweeps["cpu"][0] == 0 and err_rel <= TOOLS_SWEEP_TOL
+                    and files == ["cavity_result_loop_100080.mat",
+                                  "cavity_result_loop_1240000.mat"]
+                    and files == sorted(sweeps["cpu"][1]) and not any(launches_sw.values()))
+        errs = {f: {k: scalar("cuda", f, k) for k in scal} for f in files}
+        print(f"tools (ii) test.py over (i)'s checkpoint and {LIVE_R4B} (msgpack) against a "
+              f"synthetic 101x101 field: exit {sweeps['cuda'][0]} on cuda ({sweep_s['cuda']:.1f} s),"
+              f" {sweeps['cpu'][0]} with --cpu ({sweep_s['cpu']:.1f} s); files {files}; errors "
+              f"(cuda) {errs}; cuda vs CPU: error scalars max rel diff {err_rel:.3e} (tolerance "
+              f"{TOOLS_SWEEP_TOL:g}), fields max |diff| {field_abs:.3e}; ok {ok['ii']}")
+        rec["sweep"] = {"errors": errs, "err_rel": err_rel, "field_abs": field_abs,
+                        "seconds": sweep_s, "ok": ok["ii"]}
+
+        # (iii) the exported heads of (i)'s state, loaded on cuda and on the CPU,
+        # against the solver on the replayed 120,000 points
+        pe, pr = os.path.join(tdir, "predict.pt2"), os.path.join(tdir, "qc.pt2")
+        t0 = time.time()
+        export_mod.export_predict(solver_n, pe)
+        export_mod.export_residuals(solver_n, pr)
+        export_s = time.time() - t0
+        pts = np.concatenate([x0, y0], axis=1)
+        # the reference on each device: the solver itself, and the same
+        # state in a CPU solver (a residual of this converged state is a
+        # small difference of O(1) terms: fp32 on two devices parts by ~1e-5
+        # of its max, gated at TOOLS_XDEV_TOL)
+        solver_cpu = train_mod.build_solver(cfg, device="cpu")
+        solver_cpu.set_params(tuple((w.cpu(), b.cpu()) for w, b in solver_n.params()),
+                              tuple((w.cpu(), b.cpu()) for w, b in solver_n.params_evm()))
+        solver_cpu.current_re, solver_cpu.alpha_evm = solver_n.current_re, solver_n.alpha_evm
+        refs = {s.device.type: (torch.cat(s.predict((x0, y0)), dim=1).cpu(),
+                                torch.from_numpy(s.residuals_at(x0, y0)))
+                for s in (solver_n, solver_cpu)}
+        exp_err = {}
+        for where in ("cuda", "cpu"):
+            got_p = export_mod.load_predict(pe, device=where)(pts).cpu()
+            got_r = export_mod.load_predict(pr, device=where)(pts).cpu()
+            ref_p, ref_r = refs[where]
+            exp_err[where] = {"predict": rel_max(got_p, ref_p), "residuals": rel_max(got_r, ref_r),
+                              "shapes": [list(got_p.shape), list(got_r.shape)]}
+        cross = {"predict": rel_max(refs["cpu"][0], refs["cuda"][0]),
+                 "residuals": rel_max(refs["cpu"][1], refs["cuda"][1])}
+        del solver_cpu
+        served = export_mod.load_predict(pe, device="cuda")
+        pts_dev = torch.from_numpy(pts).to(ctx["dev"])
+        ms_served_host = cuda_ms(torch, lambda: served(pts), 10)
+        ms_served_dev = cuda_ms(torch, lambda: served(pts_dev), 10)
+        ms_solver = cuda_ms(torch, lambda: solver_n.predict((x0, y0)), 10)
+        ok["iii"] = (all(v["predict"] <= TOOLS_EXPORT_TOL and v["residuals"] <= TOOLS_EXPORT_TOL
+                         and v["shapes"] == [[120_000, 4], [120_000]] for v in exp_err.values())
+                     and all(v <= TOOLS_XDEV_TOL for v in cross.values()))
+        print(f"tools (iii) export of (i)'s 6x160 state on the card ({export_s:.1f} s for both "
+              f"heads): on 120,000 points, max|diff|/max|ref| against solver.predict / "
+              f"solver.residuals_at on the device it was loaded on: {exp_err} (tolerance "
+              f"{TOOLS_EXPORT_TOL:g}); the CPU solver against the cuda one: {cross} "
+              f"(tolerance {TOOLS_XDEV_TOL:g}); predict "
+              f"through the exported program {ms_served_host:.3f} ms from host arrays, "
+              f"{ms_served_dev:.3f} ms from a device tensor, solver.predict {ms_solver:.3f} ms "
+              f"— {card}; ok {ok['iii']}")
+        rec["export"] = {"err": exp_err, "cross_device": cross, "export_s": export_s, "served_host_ms": ms_served_host,
+                         "served_dev_ms": ms_served_dev, "solver_ms": ms_solver, "ok": ok["iii"]}
+        del served, pts_dev
+        torch.cuda.empty_cache()
+
+        # (iv) .pth: the flagship nets written and read back on the card
+        fcfg = ConfigManager.from_dict(FLAGSHIP).config
+        other = json.loads(json.dumps(FLAGSHIP))
+        other["training"]["seed"] = 1
+        a, _ = ready_solver(fcfg)
+        b, _ = ready_solver(ConfigManager.from_dict(other).config)
+        differed = not torch.equal(a.state.params, b.state.params)
+        a.save_torch(os.path.join(tdir, "flagship.pth"))
+        b.load_torch(os.path.join(tdir, "flagship.pth"))
+        ok["iv"] = (differed and torch.equal(a.state.params, b.state.params)
+                    and torch.equal(a.state.params_evm, b.state.params_evm)
+                    and b.state.params.device.type == "cuda")
+        print(f"tools (iv) save_torch / load_torch of the flagship 6x80 + 4x40 nets on the "
+              f"card: params and EVM params bitwise equal {ok['iv']} (different before: "
+              f"{differed})")
+        rec["pth"] = {"ok": ok["iv"]}
+        del a, b
+
+        # (v) --profile: the first stage of 20 flagship steps
+        prof_dir = os.path.join(tdir, "profile")
+        reset()
+        rc_p = train_mod.main(["--config", flagship("profile", 20), "--profile", prof_dir])
+        launches_p = read()
+        traces = glob.glob(os.path.join(prof_dir, "trace_*.json"))
+        names = set()
+        for tr in traces:
+            names |= {ev.get("name", "") for ev in json.load(open(tr)).get("traceEvents", [])}
+        kern = {k: sorted(n for n in names if k in n)[:2] for k in ("loss_fwd_kernel",
+                                                                    "loss_bwd_kernel")}
+        ok["v"] = (rc_p == 0 and len(traces) == 1 and all(kern.values())
+                   and launches_p == {**dict.fromkeys(launches_p, 0), "fused_residual_fwd": 20,
+                                      "fused_residual_bwd": 20})
+        print(f"tools (v) --profile over a 20-step flagship stage: exit {rc_p}, traces "
+              f"{[os.path.getsize(t) for t in traces]} B, kernels named {kern}, launches "
+              f"{launches_p}; ok {ok['v']}")
+        rec["profile"] = {"kernels": kern, "launches": launches_p, "ok": ok["v"]}
+
+        # (vi) the widths at "high": 6x289 has no tile that fits kernels
+        # 1-4's shared memory, so train.py refuses it (exit 2) and the solver
+        # raises, before any data is built; 6x288 keeps kernels 1+2
+        wide = json.loads(json.dumps(FLAGSHIP))
+        wide["network"]["hidden_size"] = 289
+        wide_cfg = write_config(tdir, wide, "wide", FLAGSHIP["training"]["training_stages"][:1])
+        n_seen = len(seen)
+        reset()
+        rc_wide = train_mod.main(["--config", wide_cfg])
+        try:
+            train_mod.build_solver(ConfigManager.from_file(wide_cfg).config)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        refused = {"rc": rc_wide, "raised": raised, "launches": read(),
+                   "trained": len(seen) - n_seen,
+                   "checkpoints": os.path.exists(os.path.join(tdir, "wide"))}
+        narrow = json.loads(json.dumps(FLAGSHIP))
+        narrow["network"]["hidden_size"] = 288
+        s, _ = ready_solver(ConfigManager.from_dict(narrow).config)
+        reset()
+        s.train(num_epoch=3, lr=1e-3)
+        torch.cuda.synchronize()
+        kept = {"engine": s.engine, "launches": read(), "finite": finite(s)}
+        del s
+        torch.cuda.empty_cache()
+        ok["vi"] = (rc_wide == 2 and "hidden width 289" in raised and "'high'" in raised
+                    and not any(refused["launches"].values()) and refused["trained"] == 0
+                    and not refused["checkpoints"]
+                    and kept["engine"] == "pallas" and kept["finite"]
+                    and kept["launches"] == {**dict.fromkeys(kept["launches"], 0),
+                                             "fused_residual_fwd": 3, "fused_residual_bwd": 3})
+        print(f"tools (vi) widths at 'high': 6x289 train.py exit {rc_wide}, the solver raises "
+              f"{raised!r}, no training, no checkpoint directory, launches "
+              f"{refused['launches']}; 6x288 engine {kept['engine']}, launches "
+              f"{kept['launches']}; ok {ok['vi']}")
+        rec["width"] = {"289": refused, "288": kept}
+
+        # (vii) the watchdog under torchrun at world 1: stopped by
+        # WATCHDOG_DEADLINE_TS after its first checkpoints, then a second
+        # call resumes from the newest and runs to the end of the stage
+        wd_cfg, wd_log = flagship("wd", 10**6, checkpoint_freq=200, log_interval=20), \
+            os.path.join(tdir, "wd.log")
+        t0 = time.time()
+        with env_var("WATCHDOG_DEADLINE_TS", str(t0 + WD_DEADLINE_S)):
+            rc_w1 = watchdog.run(wd_cfg, wd_log, torchrun=True, poll=1.0)
+        first_s = time.time() - t0
+        stop = newest("wd")
+        stop_step = (ckpt_mod.load_metadata(stop) or {}).get("global_step", -1) if stop else -1
+        cadence = glob.glob(os.path.join(tdir, "wd", "**", "model_cavity_loop*.ckpt"),
+                            recursive=True)
+        flagship("wd", stop_step + 20, checkpoint_freq=200, log_interval=20)
+        t0 = time.time()
+        rc_w2 = watchdog.run(wd_cfg, wd_log, torchrun=True, poll=1.0)
+        second_s = time.time() - t0
+        final = newest("wd", "model_final.ckpt")
+        final_step = (ckpt_mod.load_metadata(final) or {}).get("global_step") if final else None
+        wlog = open(wd_log).read()
+        ok["vii"] = (rc_w1 == 0 and rc_w2 == 0 and bool(cadence) and stop_step >= 200
+                     and os.path.basename(stop).startswith("sigterm_step")
+                     and "deadline reached - SIGTERM" in wlog
+                     and f"launching (resume: {stop})" in wlog
+                     and wlog.count("training completed") == 1 and final_step == stop_step + 20
+                     and not os.path.exists(os.path.join(".run", "wd.pid")))
+        print(f"tools (vii) watchdog (torchrun, world 1): first call exit {rc_w1} after "
+              f"{first_s:.1f} s (deadline {WD_DEADLINE_S} s), {len(cadence)} cadence "
+              f"checkpoints, stopped at step {stop_step} ({os.path.basename(stop or '')}); "
+              f"second call exit {rc_w2} in {second_s:.1f} s, resumed from the newest, final "
+              f"step {final_step}; ok {ok['vii']}")
+        if not ok["vii"]:
+            print(wlog[-4000:])
+        rec["watchdog"] = {"rc": [rc_w1, rc_w2], "seconds": [first_s, second_s],
+                           "stop_step": stop_step, "final_step": final_step, "ok": ok["vii"]}
+    finally:
+        PINNSolver.train = orig_train
+        shutil.rmtree(tdir, ignore_errors=True)
+    rec["seconds"] = time.time() - t_phase
+    print(f"tools phase: {rec['seconds']:.1f} s on the card")
+    torch.cuda.empty_cache()
+    return ok, rec
 
 
 def main() -> int:
@@ -923,12 +1307,7 @@ def main() -> int:
     seen, timings = [], {"residuals_at": [], "rar": []}
     orig = (PINNSolver.train, PINNSolver.residuals_at, CavityData.rar_training_data)
 
-    def spy_train(self, *a, **kw):
-        resume = kw.get("resume_in_stage", False)
-        seen.append({"solver": self, "stage": self.current_stage, "resume": resume,
-                     "entry": self.state.epoch_in_stage if resume else 0,
-                     "global_step": self.global_step, "x_f": self.eq_points()[0].copy()})
-        return orig[0](self, *a, **kw)
+    spy_train = train_spy(orig[0], seen)
 
     def spy_scores(self, x, y, chunk=32768):
         t0 = time.perf_counter()
@@ -941,17 +1320,6 @@ def main() -> int:
         out = orig[2](self, *a, **kw)
         timings["rar"].append(time.perf_counter() - t0)
         return out
-
-    def write_config(root, src, name, stages, **training):
-        # eval_data stays: its DNS file is not in the repository, and the
-        # driver skips the evaluation with a warning
-        raw = ConfigManager.from_file(src).to_dict()
-        raw["training"].update(checkpoint_dir=os.path.join(root, name), **training)
-        raw["training"]["training_stages"] = stages
-        path = os.path.join(root, f"{name}.yaml")
-        with open(path, "w") as f:
-            json.dump(raw, f)  # YAML reads JSON
-        return path
 
     def campaign_config(src, name, stages, **training):
         return write_config(campaign_dir, src, name, stages, **training)
@@ -1797,6 +2165,13 @@ def main() -> int:
     par = run_parallel()
     ok_parallel = par["ok_i"] and par["ok_ii"] and par["ok_iii"] and par["ok_iv"]
 
+    # ---- 4j. the tools: the native-sampler resume, the sweep, export, .pth,
+    # --profile, the width refusal, the watchdog
+    tools_ctx = {"card": card, "dev": dev, "reset_counts": reset_counts,
+                 "read_counts": read_counts, "ready_solver": ready_solver}
+    ok_tools_by, record["tools"] = phase_tools(torch, np, tools_ctx)
+    ok_tools = all(ok_tools_by.values()) and len(ok_tools_by) == 7
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -2051,7 +2426,8 @@ def main() -> int:
                   default=lambda o: o.item() if hasattr(o, "item") else repr(o))
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
-            and ok_engine and ok_campaign and ok_polish and ok_other and ok_parallel):
+            and ok_engine and ok_campaign and ok_polish and ok_other and ok_parallel
+            and ok_tools):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
@@ -2060,7 +2436,8 @@ def main() -> int:
               f"{ok_p3}, backbones kan_cavity / KAN state / KAN step / Fourier / generic "
               f"engines / LM {ok_o1} / {ok_o2} / {ok_o3} / {ok_o4} / {ok_o5} / {ok_o6}, "
               f"parallel microbatched / N_f 1.2M / torchrun NCCL / 2 ranks {par['ok_i']} / "
-              f"{par['ok_ii']} / {par['ok_iii']} / {par['ok_iv']})",
+              f"{par['ok_ii']} / {par['ok_iii']} / {par['ok_iv']}, tools (i)-(vii) "
+              f"{ok_tools_by})",
               file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))

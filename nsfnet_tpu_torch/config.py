@@ -105,8 +105,9 @@ class TrainingConfig:
     checkpoint_freq: int = 10000
     checkpoint_dir: str = "results"
     seed: int = 42
-    # highest | high | default. The port's kernels accept all three names
-    # and compute exact fp32 for each; tensor-core passes come later.
+    # highest | high | default: the kernels' bf16 tensor-core passes per fp32
+    # product (6 | 3 | 1); the CPU entry points and the closed-form polish
+    # and evaluation paths compute exact fp32 whatever the name.
     matmul_precision: str = "high"
     evm_update_freq: int = 10000  # EVM net trains once per this many steps
     mesh_devices: Optional[int] = None  # None = any world size (JAX: all local devices)
@@ -151,8 +152,8 @@ class TrainingConfig:
     adaptive_bc_weight: bool = False
     adaptive_bc_ema: float = 0.9       # EMA retention per update
     adaptive_bc_max: float = 1000.0    # clip for the target ratio
-    # Max steps per device dispatch in the JAX package; parsed for schema
-    # parity (the port's chunks end at log boundaries).
+    # Most steps queued between two host syncs (a chunk also ends at each
+    # log boundary).
     max_chunk: int = 2000
     training_stages: List[TrainingStage] = field(default_factory=lambda: [
         TrainingStage(0.05, 500000, 1e-3, "Stage 1"),

@@ -14,11 +14,14 @@ The port's copy of nsfnet_tpu/data/cavity.py on its numpy sampling path
     (cavity_data.py:135-142).
   * DNS eval fields from .mat (X/Y/U/V/P_ref) (cavity_data.py:144-160).
 
-For the same seed it draws the same points as the JAX package's
-`CavityData(use_native=False)`, and the two exchange sampler states: a state
-written by either replays bit for bit in the other (`get_state` /
-`set_state`, residual-aware draws included). The native sampler
-(native/pointgen.cpp) is not ported yet: a state it wrote is refused.
+Two sampling paths, as in the JAX package (nsfnet_tpu/data/cavity.py):
+numpy (the default here: `use_native=False`) and the native sampler
+(`use_native=True`: native/pointgen.cpp through data/native.py, which the
+port builds itself). For the same seed and path it draws the same points as
+the JAX package, and the two exchange sampler states: a state written by
+either replays bit for bit in the other (`get_state` / `set_state`,
+residual-aware draws included). A state names the path that wrote it, and
+`set_state` switches the dataset to that path.
 
 All outputs are float32 numpy arrays shaped [N, 1] per channel.
 """
@@ -31,6 +34,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from nsfnet_tpu_torch.data import native
+from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.data.sampling import (
     boundary_distance_box,
     latin_hypercube,
@@ -59,6 +64,7 @@ class CavityData:
     sdf_decay: float = 5.0
     coord_transform: bool = False
     seed: Optional[int] = None
+    use_native: bool = False  # the native sampler (data/native.py) instead of numpy
 
     def __post_init__(self):
         # domain bounds in the TRAINING frame; generation is on the unit square
@@ -66,11 +72,11 @@ class CavityData:
         self.x_min, self.x_max = lo, hi
         self.y_min, self.y_max = lo, hi
         self._rng = np.random.default_rng(self.seed)
-        # recorded for the JAX package's native sampler, which keys its draws
-        # on it; drawn from the stream when no seed is given, as there
+        # the native sampler keys its draws on it; drawn from the stream when
+        # no seed is given, as in the JAX package
         self._native_seed = (self.seed if self.seed is not None
                              else int(self._rng.integers(2**63)))
-        self._draws = 0  # logical draws so far
+        self._draws = 0  # logical draws so far (the native path's draws differ by it)
         self.pts_bc: Optional[np.ndarray] = None
         self.sdf_weights: Optional[np.ndarray] = None
         self._pre_draw_rng_state = self._rng.bit_generator.state
@@ -96,7 +102,7 @@ class CavityData:
             rng_state = self._pre_draw_rng_state
             rar = self._last_rar
         s = {"draws_next": draws_next, "native_seed": int(self._native_seed),
-             "rng_state": rng_state, "native": False}
+             "rng_state": rng_state, "native": bool(self.use_native)}
         if rar is not None:
             s["rar"] = {
                 "pool_mult": int(rar["pool_mult"]),
@@ -108,14 +114,19 @@ class CavityData:
 
     def set_state(self, s: dict) -> None:
         """Install a state from `get_state` (this package's or the JAX
-        package's numpy path); the next draw replays the state's draw."""
-        if s.get("native"):
-            raise RuntimeError(
-                "sampler state was recorded on the JAX package's native sampling path "
-                "(native/libpointgen.so), which the PyTorch port does not run yet "
-                "(ROADMAP Queue 1 item 7): its numpy path would draw other points than "
-                "the checkpointed carry belongs to. --init-from reads no sampler state "
-                "and still takes such a checkpoint.")
+        package's); the next draw replays the state's draw. The dataset takes
+        the writer's sampling path (nsfnet_tpu/data/cavity.py:128-158): a
+        native-path state builds the native library, a numpy-path state on a
+        native dataset replays on numpy, so the points match the checkpointed
+        carry."""
+        if "native" in s and bool(s["native"]) != self.use_native:
+            if s["native"]:
+                native.load()  # raises where the library cannot be built
+            get_logger().warning(
+                f"sampler state was recorded on the {'native' if s['native'] else 'numpy'} "
+                f"sampling path; this dataset follows it (use_native={bool(s['native'])}) "
+                f"so the replayed points match the checkpointed carry")
+            self.use_native = bool(s["native"])
         self._draws = int(s["draws_next"])
         self._native_seed = int(s["native_seed"])
         if s.get("rng_state") is not None:
@@ -179,7 +190,7 @@ class CavityData:
             spec, self._rar_replay = self._rar_replay, None
             keep_idx = np.asarray(spec["keep_idx"], dtype=np.int64)
             pool = self._raw_draw(int(spec["pool_mult"]) * self.N_f)
-            fill = self._raw_draw(self.N_f - keep_idx.shape[0])
+            fill = self._raw_draw(self.N_f - keep_idx.shape[0], salt=3571)
             xye = np.concatenate([pool[keep_idx], fill], axis=0)
             self._last_rar = spec
         else:
@@ -215,7 +226,7 @@ class CavityData:
                              f"{pool.shape[0]} pool points")
         keep_n = min(self.N_f, max(1, int(round(float(top_frac) * self.N_f))))
         keep_idx = np.sort(np.argpartition(-scores, keep_n - 1)[:keep_n]).astype(np.int64)
-        fill = self._raw_draw(self.N_f - keep_n)
+        fill = self._raw_draw(self.N_f - keep_n, salt=3571)
         xye = np.concatenate([pool[keep_idx], fill], axis=0)
         self._pre_draw_rng_state = pre_state
         self._state_is_pre_draw = False
@@ -225,14 +236,18 @@ class CavityData:
         self._draws += 1
         return self._finalize(xye)
 
-    def _raw_draw(self, n: int) -> np.ndarray:
+    def _raw_draw(self, n: int, salt: int = 0) -> np.ndarray:
         """One raw Latin-Hypercube draw of n points on the unit square (the
         generation frame); leaves the logical-draw bookkeeping to the caller.
-        (The JAX package's native path also takes a salt to key a second raw
-        draw within one logical draw; the numpy stream needs none.)"""
+        On the native path it is seeded native_seed + 7919 * draws + salt:
+        `salt` (< 7919) keys a second raw draw within one logical draw (the
+        RAR fill); the numpy stream ignores it."""
         if n <= 0:
             return np.zeros((0, 2), dtype=np.float64)
-        return latin_hypercube(n, [[0.0, 1.0], [0.0, 1.0]], rng=self._rng)
+        bounds = [[0.0, 1.0], [0.0, 1.0]]
+        if self.use_native:
+            return native.lh_sample(n, bounds, self._native_seed + 7919 * self._draws + salt)
+        return latin_hypercube(n, bounds, rng=self._rng)
 
     def _finalize(self, xye: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Generation-frame points -> training-frame columns: coordinate
@@ -240,9 +255,16 @@ class CavityData:
         if self.coord_transform:
             xye = self._to_centered(xye)
         if self.sort_training_points:
-            xye = sort_by_boundary_distance(xye, self.pts_bc)
-        self.sdf_weights = (self._compute_sdf_weights(xye) if self.sdf_enabled
-                            else None)
+            xye = (native.sort_by_distance(xye, self.pts_bc) if self.use_native
+                   else sort_by_boundary_distance(xye, self.pts_bc))
+        if not self.sdf_enabled:
+            self.sdf_weights = None
+        elif self.use_native:
+            self.sdf_weights = native.sdf_weights(
+                xye, self.x_min, self.x_max, float(np.clip(self.sdf_min_weight, 1e-6, 1.0)),
+                max(0.0, float(self.sdf_decay)))
+        else:
+            self.sdf_weights = self._compute_sdf_weights(xye)
         col = lambda a: a.reshape(-1, 1).astype(np.float32)
         return col(xye[:, 0]), col(xye[:, 1])
 

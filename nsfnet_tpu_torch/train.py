@@ -39,14 +39,19 @@ raises), and each rank trains on its block of the points; rank 0 alone
 logs to the console and writes the scalars and checkpoints, and a SIGTERM
 then exits 3 without the collective save (resume from the newest cadence
 checkpoint). `training.mesh_devices` must equal the number of processes.
-Settings this port cannot honour are refused in `unsupported()` rather
-than ignored (the JAX driver's `--profile` and startup keepalive are not
-ported).
+`--profile DIR` records a torch.profiler trace of the first stage into DIR
+(utils/profiling.py). Settings this port cannot honour are refused in
+`unsupported()` rather than ignored, before any data is built: among them
+a net wider than the kernels' tiles take at its precision name
+(`ops.width_refusal`). The JAX package's startup keepalive
+(which guards remote TPU compiles) has no counterpart: nothing compiles at
+start-up here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 import signal
@@ -60,9 +65,11 @@ from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models.mlp import widen_mlp_params
+from nsfnet_tpu_torch.ops import width_refusal
 from nsfnet_tpu_torch.parallel.mesh import initialize_distributed
 from nsfnet_tpu_torch.training import checkpoint as ckpt
-from nsfnet_tpu_torch.training.solver import PINNSolver
+from nsfnet_tpu_torch.training.solver import PINNSolver, resolve_engine
+from nsfnet_tpu_torch.utils.profiling import torch_trace
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
 
@@ -88,16 +95,25 @@ def parse_args(argv=None):
                    help="warm start: the network params only from this checkpoint "
                         "(fresh optimizer, schedule from step 0), widened "
                         "function-preservingly where the config is wider")
+    p.add_argument("--profile", type=str, default=None,
+                   help="record a torch.profiler trace of the first stage into this "
+                        "directory (Chrome trace format)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA card")
     return p.parse_args(argv)
 
 
-def unsupported(cfg, world_size: int = 1) -> list:
+def unsupported(cfg, world_size: int = 1, device_type: str = "cuda") -> list:
     """Config settings this port cannot honour in a run of `world_size`
-    processes."""
-    t = cfg.training
+    processes on `device_type`."""
+    t, n = cfg.training, cfg.network
     out = []
+    backbone = n.backbone if cfg.model_variant != "kan" else "kan"
+    if resolve_engine("auto", device_type, backbone, n.fourier_features,
+                      n.formulation) == "pallas":
+        refused = width_refusal(n.hidden_size, t.matmul_precision, n.formulation)
+        if refused is not None:
+            out.append(refused)
     if cfg.model_variant not in ("nsfnet", "ev-nsfnet", "kan"):
         out.append(f"model_variant {cfg.model_variant!r}")
     if t.mesh_devices is not None and t.mesh_devices != world_size:
@@ -252,7 +268,7 @@ def _main(args, rank: int, world: int, local_rank: int) -> int:
         logger.info(f"process group: backend {dist.get_backend()}, "
                     f"rank {rank} of {world}, local rank {local_rank}")
     problems = cm.validate() + [f"not supported by the PyTorch port yet: {u}"
-                                for u in unsupported(cfg, world)]
+                                for u in unsupported(cfg, world, "cpu" if args.cpu else "cuda")]
     logger.header("Experiment Configuration")
     cm.print_config(printer=logger.info)
     for w in problems:
@@ -374,15 +390,18 @@ def _main(args, rank: int, world: int, local_rank: int) -> int:
                 solver.set_eq_training_data(X=X, weights=data.sdf_weights)
             # a mid-stage resume runs the FULL stage from the restored
             # epoch_in_stage, so the EVM gate's phase stays aligned
-            solver.train(num_epoch=st.epochs if mid_stage else epochs, lr=st.lr,
-                         optimizer=st.optimizer, Re=st.Re or None,
-                         bc_weight=st.bc_weight or None,
-                         resume_in_stage=mid_stage,
-                         advance_on_stall=st.advance_on_stall,
-                         stall_threshold=cfg.training.stall_threshold,
-                         stall_window=cfg.training.stall_window,
-                         stall_min_epochs=st.resolved_stall_min(),
-                         stall_metric=cfg.training.stall_metric)
+            trace = (torch_trace(args.profile, cuda=solver.device.type == "cuda")
+                     if args.profile and i == 0 else contextlib.nullcontext())
+            with trace:
+                solver.train(num_epoch=st.epochs if mid_stage else epochs, lr=st.lr,
+                             optimizer=st.optimizer, Re=st.Re or None,
+                             bc_weight=st.bc_weight or None,
+                             resume_in_stage=mid_stage,
+                             advance_on_stall=st.advance_on_stall,
+                             stall_threshold=cfg.training.stall_threshold,
+                             stall_window=cfg.training.stall_window,
+                             stall_min_epochs=st.resolved_stall_min(),
+                             stall_metric=cfg.training.stall_metric)
             if eval_fields:
                 solver.evaluate(*eval_fields)
         path = solver.save("model_final.ckpt")

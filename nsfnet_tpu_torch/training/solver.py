@@ -65,7 +65,11 @@ gradient and loss parts over the ranks in one collective; the host
 decisions that follow are then the same on every rank. `save` gathers the
 vis_t carry and rank 0 writes; resampling and RAR draw the same points on
 every rank (the same seed, the same scores). `mesh_devices` names the
-world size the run must have. Left for a later slice: .pth import/export.
+world size the run must have.
+
+The reference's `.pth` format (utils/torch_import.py): `save_torch` writes
+the plain velocity MLP's nets as FCNet state_dicts, `load_torch` imports
+them with fresh optimizer moments (nsfnet_tpu/training/solver.py:1233-1310).
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ from nsfnet_tpu_torch.models import convert
 from nsfnet_tpu_torch.models.kan import KAN, flatten_kan
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
 from nsfnet_tpu_torch.ops import residuals as R
+from nsfnet_tpu_torch.ops import width_refusal
 from nsfnet_tpu_torch.ops.derivatives import (derivatives_2d, make_kan_derivatives_2d,
                                               mlp_derivatives_2d, mlp_psi_derivatives_2d,
                                               psi_p_derivatives_2d, psi_p_uv, psi_p_uv_generic)
@@ -104,6 +109,7 @@ from nsfnet_tpu_torch.training.step import (
     make_train_step,
     reduce_flat,
 )
+from nsfnet_tpu_torch.utils import torch_import as ti
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
 
@@ -275,6 +281,10 @@ class PINNSolver:
         self._generic_engine = backbone == "kan" or int(fourier_features) > 0
         self.engine = resolve_engine(engine, self.device.type, backbone,
                                      int(fourier_features), formulation)
+        if self.engine == "pallas":
+            refused = width_refusal(hidden_size, matmul_precision, formulation, num_outs)
+            if refused is not None:
+                raise ValueError(f"engine 'pallas': {refused}")
         self.loss_mode = loss_mode
         self.Re = float(Re)
         self.vis_t0 = 20.0 / self.Re  # ev-NSFnet/pinn_solver.py:67
@@ -1178,6 +1188,55 @@ class PINNSolver:
             self._vis_stale = False
             self._dirty = True
         self.state.vis_t_minus = vtm
+
+    def _require_fcnet(self, what: str, velocity: bool = True):
+        if self.backbone != "mlp" or self.net.fourier_features or (
+                velocity and self.formulation != "velocity"):
+            raise ValueError(f".pth {what} requires the plain velocity-formulation MLP "
+                             f"(the reference's FCNet predicts (u, v, p) directly)")
+
+    def save_torch(self, path: str) -> str:
+        """Write the live nets as reference-format `.pth` state_dicts: the
+        main net at `path`, the EVM net at `<path>_evm`
+        (nsfnet_tpu/training/solver.py:1233-1249), so they replay in the
+        reference's tooling (ev-NSFnet/test.py:27-99)."""
+        self._require_fcnet("export")
+        return ti.save_torch_params(self.params(), path, self.params_evm())
+
+    def load_torch(self, net_params: str, net_params_1: Optional[str] = None):
+        """Import reference-format `.pth` state_dicts (the published
+        checkpoints, ev-NSFnet/pinn_solver.py:108-120) into the live nets:
+        params only, fresh optimizer moments and a carry from the imported
+        EVM net, as a reference restart (nsfnet_tpu/training/solver.py:
+        1251-1310). Without `net_params_1` the `<net_params>_evm` sibling is
+        read where it exists."""
+        self._require_fcnet("import", velocity=False)
+        params = ti.load_torch_params(net_params)
+        expect = tuple(w for w, _ in self.net.leaf_shapes())
+        if ti.params_shapes(params) != expect:
+            raise ValueError(f"imported net shapes {ti.params_shapes(params)} != configured "
+                             f"{expect} — check layers/hidden_size against the checkpoint's "
+                             f"architecture")
+        params_evm = None
+        if self.evm:
+            if net_params_1 is None and os.path.exists(net_params + "_evm"):
+                net_params_1 = net_params + "_evm"
+            if not net_params_1 and self.rank == 0:
+                self.logger.warning(
+                    f"no EVM state_dict given and {net_params}_evm does not exist — the "
+                    f"EVM net keeps its random initialization (vis_t / Re_eff are "
+                    f"meaningless until it trains)")
+            if net_params_1:
+                params_evm = ti.load_torch_params(net_params_1)
+                expect_e = tuple(w for w, _ in self.net_1.leaf_shapes())
+                if ti.params_shapes(params_evm) != expect_e:
+                    raise ValueError(f"imported EVM shapes {ti.params_shapes(params_evm)} "
+                                     f"!= configured {expect_e}")
+        dev = lambda p: tuple((w.to(self.device), b.to(self.device)) for w, b in p)
+        self.set_params(dev(params), dev(params_evm) if params_evm is not None else None)
+        if self.rank == 0:
+            self.logger.info(f"imported torch params from {net_params}"
+                             + (f" + {net_params_1}" if net_params_1 else ""))
 
     # --------------------------------------------------------------- logging
 

@@ -181,10 +181,23 @@ def test_stop_while_scoring_leaves_the_state_as_it_was():
     assert _json(d.get_state()) == before
 
 
-def test_native_sampler_state_is_refused():
+def test_native_sampler_state_is_refused(monkeypatch, tmp_path):
+    """A native-path state (the JAX package's native sampler) needs the
+    native library: where it cannot be built (no C++ compiler here) it is
+    refused before any point is drawn; with the compiler the dataset takes
+    the native path (tests/test_torch_native.py holds its points)."""
+    from nsfnet_tpu_torch.data import native
+
     state = json.load(open(os.path.join(ROOT, "artifacts", "re4000_ext",
                                         "final_state.ckpt.json")))["sampler"]
     assert state["native"] is True
     d, _ = _pair()
-    with pytest.raises(RuntimeError, match="native sampling path.*not run yet"):
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)  # no library built yet
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
         d.set_state(state)
+    assert d.use_native is False and d.get_state()["native"] is False
+    monkeypatch.delenv("CXX")
+    d.set_state(state)
+    assert d.use_native is True and d.get_state()["native"] is True

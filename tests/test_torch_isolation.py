@@ -62,7 +62,32 @@ def test_importing_the_port_loads_no_jax():
     assert {"nsfnet_tpu_torch.training.solver", "nsfnet_tpu_torch.training.checkpoint",
             "nsfnet_tpu_torch.training.lbfgs", "nsfnet_tpu_torch.training.lm",
             "nsfnet_tpu_torch.models.kan"} <= set(loaded)
+    assert NEW_MODULES <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
+    # the figures import matplotlib inside each function (the card's machine has none)
+    assert "matplotlib" not in loaded
+
+
+NEW_MODULES = {"nsfnet_tpu_torch.data.native", "nsfnet_tpu_torch.utils.torch_import",
+               "nsfnet_tpu_torch.test", "nsfnet_tpu_torch.utils.profiling",
+               "nsfnet_tpu_torch.utils.export", "nsfnet_tpu_torch.utils.visualization",
+               "nsfnet_tpu_torch.tools.watchdog"}
+
+
+def test_the_tool_modules_import_without_jax_or_a_build():
+    """The tools' modules in a fresh interpreter: no JAX, nothing of
+    nsfnet_tpu, and no build at import (the native sampler and the kernels
+    build at first use)."""
+    code = (f"import importlib, json, sys\n"
+            f"for m in {sorted(NEW_MODULES)!r}: importlib.import_module(m)\n"
+            "from nsfnet_tpu_torch.data import native\n"
+            "from nsfnet_tpu_torch.ops import _build\n"
+            "print(json.dumps([sorted(sys.modules), native._LIB is None, not _build._loaded]))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    loaded, no_lib, no_kernels = json.loads(out.strip().splitlines()[-1])
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert no_lib and no_kernels
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
