@@ -30,6 +30,9 @@
 // stored) and its 132 persistent blocks with 32-point tiles halve the
 // gradient partial's read-modify-write (ops/fused_residual.py bwd_traffic);
 // the elementwise loops keep several global loads in flight per thread.
+// Both kernels take tc_mlp.cuh's two plans, one instance each (STREAM): the
+// resident plan where a block with both carries fits, else the streamed
+// plan, so every width runs (ops/fused_residual.loss_plan).
 
 #include "tc_mlp.cuh"
 
@@ -68,14 +71,16 @@ __device__ Res residual_at(const float* hb, int p, int tile, int k, float e, flo
   return r;
 }
 
-template <int NP>
+// STREAM: the streamed plan (tc_mlp.cuh), a template flag so that the
+// resident plan's instances carry no code of it.
+template <int NP, bool STREAM>
 __global__ void __launch_bounds__(kTcThreads, 1)
 loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                 const float* __restrict__ e, const float* __restrict__ vis_t,
                 const float* __restrict__ eq_w, const bf16* __restrict__ wsplit, int n,
-                TcShapes sh, float re, float scale, int evm, float* partial) {
+                TcShapes sh, float re, float scale, int evm, float* partial, float* carries) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const TcRegions R = carve(smem, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const TcRegions R = tc_regions<STREAM>(smem, carries, sh, NP);
   const int T = sh.tile, h = sh.h, k = sh.k;
   const int n_out = evm ? 4 : 3;
   const long wh = head_off(sh.n_hidden, h);
@@ -86,7 +91,8 @@ loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
     __syncthreads();  // the previous tile's readers of the buffers / red are done
-    const bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, nullptr);
+    const bf16* cur =
+        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, nullptr);
     tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
     for (int p = threadIdx.x; p < T; p += blockDim.x) {
@@ -110,15 +116,15 @@ loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   if (threadIdx.x < 4) partial[blockIdx.x * 4 + threadIdx.x] = threadIdx.x < n_out ? acc : 0.f;
 }
 
-template <int NP>
+template <int NP, bool STREAM>
 __global__ void __launch_bounds__(kTcThreads, 1)
 loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
                 const float* __restrict__ e, const float* __restrict__ vis_t,
                 const float* __restrict__ eq_w, const bf16* __restrict__ wsplit, int n,
                 TcShapes sh, float re, float scale, int evm, const float* __restrict__ ct,
-                float* scratch, float* dpart, float* g_e) {
+                float* scratch, float* dpart, float* g_e, float* carries) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const TcRegions R = carve(smem, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP));
+  const TcRegions R = tc_regions<STREAM>(smem, carries, sh, NP);
   const int T = sh.tile, h = sh.h, k = sh.k, L = sh.n_hidden, TK = T * k, rows = 5 * T;
   const long P = n_params(L, h, k);
   float* dp = dpart + blockIdx.x * P;
@@ -135,7 +141,8 @@ loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
     __syncthreads();
-    bf16* cur = tc_forward<NP>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.wb, tape);
+    bf16* cur =
+        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, tape);
     bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
     tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, hb, sh);
     __syncthreads();
@@ -191,19 +198,19 @@ loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
     tc_head_backward<NP, 3>(x, flat, n0, n, cur, R.whs, R.ghp, hb, tape, other, R.dbs, dp, sh);
     __syncthreads();
     flush_sums(R.dbs, T / 8, L - 1, dp, h, sh.hp);
-    tc_reverse<NP>(x, flat, wsplit, n0, n, other, cur, R.wb, R.dbs, tape, dp, sh);
+    tc_reverse<NP, STREAM>(x, flat, wsplit, n0, n, other, cur, R.sa, R.wb, R.dbs, tape, dp, sh);
   }
 }
 
 // What the pair takes: the residual algebra reads (u, v, p), so the head is
-// 3 wide; a batch padded to 16 rows; a tile of 16 or 32; a panel that tiles
-// the padded width; 1-3 parts; a block that fits.
-int check_loss_args(int n, int h, int k, int tile, int panel, int n_hidden, int n_blocks,
-                    int parts, size_t smem) {
-  const int hp = pad16(h);
+// 3 wide; a batch padded to 16 rows; a tile of 16 or 32; a plan the sweep
+// takes (tc_plan_ok); 1-3 parts; a block that fits; the streamed plan's
+// global regions.
+int check_loss_args(int n, int h, int k, int tile, int panel, int kpanel, int n_hidden,
+                    int n_blocks, int parts, size_t smem, const float* carries) {
   if (k != 3 || n <= 0 || n % 16 != 0 || h <= 0 || n_hidden < 1 || n_blocks <= 0 ||
-      (tile != 16 && tile != 32) || panel <= 0 || panel % 16 != 0 || hp % panel != 0 ||
-      parts < 1 || parts > 3 || smem > (size_t)kMaxSmem)
+      (tile != 16 && tile != 32) || !tc_plan_ok(pad16(h), tile, panel, kpanel) || parts < 1 ||
+      parts > 3 || smem > (size_t)kMaxSmem || (kpanel && !carries))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -211,14 +218,16 @@ int check_loss_args(int n, int h, int k, int tile, int panel, int n_hidden, int 
 template <int NP>
 int launch_fwd(const float* x, const float* flat, const float* e, const float* vis_t,
                const float* eq_w, bf16* wsplit, int n, TcShapes sh, int n_blocks, float re,
-               float scale, int evm, float* partial, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(loss_fwd_kernel<NP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+               float scale, int evm, float* partial, float* carries, size_t smem,
+               cudaStream_t s) {
+  const auto kernel = sh.kpanel ? loss_fwd_kernel<NP, true> : loss_fwd_kernel<NP, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int bad = launch_split<NP>(flat, sh, wsplit, s);
   if (bad) return bad;
-  loss_fwd_kernel<NP><<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh,
-                                                         re, scale, evm, partial);
+  kernel<<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh, re, scale,
+                                            evm, partial, carries);
   return (int)cudaGetLastError();
 }
 
@@ -226,14 +235,15 @@ template <int NP>
 int launch_bwd(const float* x, const float* flat, const float* e, const float* vis_t,
                const float* eq_w, bf16* wsplit, int n, TcShapes sh, int n_blocks, float re,
                float scale, int evm, const float* ct, float* scratch, float* dpart, float* g_e,
-               size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(loss_bwd_kernel<NP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+               float* carries, size_t smem, cudaStream_t s) {
+  const auto kernel = sh.kpanel ? loss_bwd_kernel<NP, true> : loss_bwd_kernel<NP, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int bad = launch_split<NP>(flat, sh, wsplit, s);
   if (bad) return bad;
-  loss_bwd_kernel<NP><<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh,
-                                                         re, scale, evm, ct, scratch, dpart, g_e);
+  kernel<<<n_blocks, kTcThreads, smem, s>>>(x, flat, e, vis_t, eq_w, wsplit, n, sh, re, scale,
+                                            evm, ct, scratch, dpart, g_e, carries);
   return (int)cudaGetLastError();
 }
 
@@ -241,14 +251,21 @@ int launch_bwd(const float* x, const float* flat, const float* e, const float* v
 
 extern "C" {
 
-// Shared memory one block of either kernel uses, in bytes.
-int nsf_fused_loss_smem_bytes(int tile, int panel, int h, int k, int parts) {
-  return (int)tc_smem(tile, panel, pad16(h), k, parts).total();
+// Shared memory one block of either kernel uses, in bytes (kpanel 0: the
+// resident plan).
+int nsf_fused_loss_smem_bytes(int tile, int panel, int h, int k, int parts, int kpanel) {
+  return (int)tc_smem(tile, panel, pad16(h), k, parts, kpanel).total();
 }
 
 // Floats of backward tape one block uses; the wrapper allocates n_blocks of them.
 long nsf_fused_loss_scratch_floats(int tile, int h, int n_hidden) {
   return tc_scratch_floats(tile, pad16(h), n_hidden);
+}
+
+// Floats of the streamed plan's global regions one block uses (either
+// kernel; the wrapper allocates n_blocks of them on that plan only).
+long nsf_fused_loss_carry_floats(int tile, int h, int k, int parts) {
+  return tc_carry_floats(tile, pad16(h), k, parts);
 }
 
 // Bytes of the launch's split copy of the hidden weights (either kernel).
@@ -258,49 +275,54 @@ long nsf_fused_loss_weight_bytes(int n_hidden, int h, int parts) {
 
 // Forward: out[0..n_out) = per-equation weighted sums of squares.
 // partial: [n_blocks, 4] scratch; wsplit: nsf_fused_loss_weight_bytes of
-// scratch. Returns a cudaError_t code (0 = launched).
+// scratch. The plan: (tile, panel, kpanel), kpanel 0 the resident plan;
+// the streamed plan's carries: [n_blocks, nsf_fused_loss_carry_floats]
+// (null on the resident plan). Returns a cudaError_t code (0 = launched).
 int nsf_fused_loss_fwd(const float* x, const float* flat, const float* e, const float* vis_t,
                        const float* eq_w, int n, int n_hidden, int h, int k, int tile,
                        int panel, int n_blocks, int parts, float re, float scale, int evm,
-                       void* wsplit, float* partial, float* out, void* stream) {
-  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts).total();
-  int bad = check_loss_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
+                       void* wsplit, float* partial, float* out, void* stream, int kpanel,
+                       float* carries) {
+  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts, kpanel).total();
+  int bad = check_loss_args(n, h, k, tile, panel, kpanel, n_hidden, n_blocks, parts, smem,
+                            carries);
   if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel};
+  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel, kpanel};
   bf16* ws = static_cast<bf16*>(wsplit);
   int err = parts == 1   ? launch_fwd<1>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, partial, smem, s)
+                                         scale, evm, partial, carries, smem, s)
             : parts == 2 ? launch_fwd<2>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, partial, smem, s)
+                                         scale, evm, partial, carries, smem, s)
                          : launch_fwd<3>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, partial, smem, s);
+                                         scale, evm, partial, carries, smem, s);
   if (err) return err;
   sum_partials<<<1, 32, 0, s>>>(partial, n_blocks, 4, evm ? 4 : 3, out);
   return (int)cudaGetLastError();
 }
 
 // Backward: dflat = d(sum_i ct[i] * S_i)/dparams in the flat layout, and
-// g_e[N] = its cotangent wrt e (EVM only). wsplit as for the forward;
-// scratch: [n_blocks, nsf_fused_loss_scratch_floats], dpart: [n_blocks,
-// n_params]. Returns a cudaError_t code (0 = launched).
+// g_e[N] = its cotangent wrt e (EVM only). wsplit, the plan and carries as
+// for the forward; scratch: [n_blocks, nsf_fused_loss_scratch_floats],
+// dpart: [n_blocks, n_params]. Returns a cudaError_t code (0 = launched).
 int nsf_fused_loss_bwd(const float* x, const float* flat, const float* e, const float* vis_t,
                        const float* eq_w, int n, int n_hidden, int h, int k, int tile,
                        int panel, int n_blocks, int parts, float re, float scale, int evm,
                        void* wsplit, const float* ct, float* scratch, float* dpart, float* dflat,
-                       float* g_e, void* stream) {
-  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts).total();
-  int bad = check_loss_args(n, h, k, tile, panel, n_hidden, n_blocks, parts, smem);
+                       float* g_e, void* stream, int kpanel, float* carries) {
+  const size_t smem = tc_smem(tile, panel, pad16(h), k, parts, kpanel).total();
+  int bad = check_loss_args(n, h, k, tile, panel, kpanel, n_hidden, n_blocks, parts, smem,
+                            carries);
   if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel};
+  TcShapes sh{n_hidden, h, pad16(h), k, tile, panel, kpanel};
   bf16* ws = static_cast<bf16*>(wsplit);
   int err = parts == 1   ? launch_bwd<1>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, ct, scratch, dpart, g_e, smem, s)
+                                         scale, evm, ct, scratch, dpart, g_e, carries, smem, s)
             : parts == 2 ? launch_bwd<2>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, ct, scratch, dpart, g_e, smem, s)
+                                         scale, evm, ct, scratch, dpart, g_e, carries, smem, s)
                          : launch_bwd<3>(x, flat, e, vis_t, eq_w, ws, n, sh, n_blocks, re,
-                                         scale, evm, ct, scratch, dpart, g_e, smem, s);
+                                         scale, evm, ct, scratch, dpart, g_e, carries, smem, s);
   if (err) return err;
   return (int)sum_gradient_partials(dpart, n_blocks, n_params(n_hidden, h, k), dflat, s);
 }

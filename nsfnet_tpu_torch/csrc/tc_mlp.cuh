@@ -38,12 +38,24 @@
 // The head (K outputs) runs the same passes on the CUDA cores: a bf16 x bf16
 // product is exact in fp32, so its result is that of the tensor cores.
 //
-// Widths. H is zero-padded to Hp, a multiple of 16, in shared memory and in
+// Widths. H is zero-padded to Hp, a multiple of 16, in the carries and in
 // the launch's split copy of the weights: padded weight rows / columns and
 // bias are zero, so padded units have t = 0
 // and feed nothing (the role of _pad_params_lanes, pallas_mlp.py:371-413).
-// Only real entries reach the gradient. A weight too large for shared memory
-// is staged in column (forward) or row (backward) panels of `panel` units.
+// Only real entries reach the gradient.
+//
+// Two plans (TcShapes::kpanel). The resident plan (kpanel = 0) keeps both
+// packed carries in shared memory and stages the weight in column (forward)
+// or row (backward) panels of `panel` units. Its carries grow with H, so it
+// stops at some width (ops/fused_residual.pick_loss_tile). The streamed plan
+// (kpanel > 0), taken only where no resident plan fits, keeps the carries,
+// the head weight parts and the column sums in a block-private global
+// scratch (tc_carry_floats) and stages per product a K-panel of the A
+// operand [NP][5T][kpanel] and a [kpanel x panel] tile of the weight parts:
+// its shared memory does not grow with H. Each warp then owns at most one
+// 16-point x 16-unit output unit of an N-panel and accumulates it over the
+// K-panels in registers, in the resident plan's k order, so that at equal
+// tiles the two plans give bitwise-equal outputs.
 //
 // Backward tape. The recompute keeps, per tanh layer, only t and the four
 // pre-activation tangents (fp32, [5][T][Hp]; t alone for the analytic first
@@ -81,29 +93,66 @@ struct TcShapes {
   int hp;        // padded width, a multiple of 16
   int k;         // head outputs
   int tile;      // points per tile: 16 or 32
-  int panel;     // weight panel width, a multiple of 16 dividing hp
+  int panel;     // weight panel width (resident: divides hp; streamed: the N-panel)
+  int kpanel;    // 0: the resident plan; else the streamed plan's K-panel
 };
 
 // Shared memory of one block, in bytes, region by region (16-byte aligned):
-// two carry buffers [NP][5T][Hp+8] bf16, the weight panel, the head weight
-// parts [NP][Hp][K] bf16, the head streams [5][T][K], the head cotangent
-// parts [NP][5T][K], the loss terms [4][T], the column sums [T/8][3][Hp].
+// two carry buffers [NP][5T][Hp+8] bf16 (resident only), the streamed A
+// panel [NP][5T][kpanel+8] (streamed only), the weight panel, the head
+// weight parts [NP][Hp][K] bf16 (resident only), the head streams [5][T][K],
+// the head cotangent parts [NP][5T][K], the loss terms [4][T], the column
+// sums [T/8][3][Hp] (resident only).
 struct TcSmem {
-  size_t carry, wbuf, whs, hb, ghp, red, dbs;
-  __host__ __device__ size_t total() const { return 2 * carry + wbuf + whs + hb + ghp + red + dbs; }
+  size_t carry, sa, wbuf, whs, hb, ghp, red, dbs;
+  __host__ __device__ size_t total() const {
+    return 2 * carry + sa + wbuf + whs + hb + ghp + red + dbs;
+  }
 };
 
-__host__ __device__ inline TcSmem tc_smem(int tile, int panel, int hp, int k, int np) {
+__host__ __device__ inline TcSmem tc_smem(int tile, int panel, int hp, int k, int np,
+                                          int kpanel = 0) {
   TcSmem s;
-  s.carry = round16((size_t)np * 5 * tile * (hp + 8) * 2);
-  size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
-  s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
-  s.whs = round16((size_t)np * hp * k * 2);
+  if (kpanel == 0) {
+    s.carry = round16((size_t)np * 5 * tile * (hp + 8) * 2);
+    s.sa = 0;
+    size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
+    s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
+    s.whs = round16((size_t)np * hp * k * 2);
+    s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
+  } else {
+    // the weight tile, forward [kpanel][panel+8] or backward [panel][kpanel+8],
+    // or the dW product's cotangent panel [5T][kpanel+8]
+    s.carry = s.whs = s.dbs = 0;
+    const size_t a = (size_t)5 * tile * (kpanel + 8);
+    size_t fwd = (size_t)kpanel * (panel + 8), bwd = (size_t)panel * (kpanel + 8);
+    size_t w = fwd > bwd ? fwd : bwd;
+    s.sa = round16((size_t)np * a * 2);
+    s.wbuf = round16((size_t)np * (w > a ? w : a) * 2);
+  }
   s.hb = round16((size_t)5 * tile * k * 4);
   s.ghp = round16((size_t)np * 5 * tile * k * 4);
   s.red = round16((size_t)4 * tile * 4);
-  s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
   return s;
+}
+
+// The streamed plan's global regions of one block, in floats: the two
+// carries [NP][5T][Hp+8] bf16, the head weight parts [NP][Hp][K] bf16, the
+// column sums [T/8][3][Hp].
+__host__ __device__ inline size_t tc_carry_bytes(int tile, int hp, int np) {
+  return round16((size_t)np * 5 * tile * (hp + 8) * 2);
+}
+__host__ __device__ inline long tc_carry_floats(int tile, int hp, int k, int np) {
+  return (long)((2 * tc_carry_bytes(tile, hp, np) + round16((size_t)np * hp * k * 2) +
+                 round16((size_t)(tile / 8) * 3 * hp * 4)) / 4);
+}
+
+// Whether (tile, panel, kpanel) is a plan the sweep takes for padded width
+// hp: resident, a panel that tiles hp; streamed, an N-panel whose 16 x 16
+// units are at most one per warp and a K-panel, both multiples of 16.
+__host__ __device__ inline bool tc_plan_ok(int hp, int tile, int panel, int kpanel) {
+  if (panel <= 0 || panel % 16 != 0 || kpanel < 0 || kpanel % 16 != 0) return false;
+  return kpanel == 0 ? hp % panel == 0 : (tile / 16) * (panel / 16) <= kTcWarps;
 }
 
 // Scratch floats of one block: t0 [T][Hp], then [5][T][Hp] (t, z_x, z_y,
@@ -117,7 +166,7 @@ __device__ inline long tc_tape_off(int l, int tile, int hp) {
 
 // The regions of tc_smem in one block's dynamic shared memory.
 struct TcRegions {
-  bf16 *buf_a, *buf_b, *wb, *whs;
+  bf16 *buf_a, *buf_b, *sa, *wb, *whs;
   float *hb, *ghp, *red, *dbs;
 };
 
@@ -125,13 +174,33 @@ __device__ inline TcRegions carve(unsigned char* smem, const TcSmem& L) {
   TcRegions r;
   r.buf_a = reinterpret_cast<bf16*>(smem);
   r.buf_b = reinterpret_cast<bf16*>(smem + L.carry);
-  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry);
-  unsigned char* f = smem + 2 * L.carry + L.wbuf;
+  r.sa = reinterpret_cast<bf16*>(smem + 2 * L.carry);
+  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry + L.sa);
+  unsigned char* f = smem + 2 * L.carry + L.sa + L.wbuf;
   r.whs = reinterpret_cast<bf16*>(f);
   r.hb = reinterpret_cast<float*>(f + L.whs);
   r.ghp = reinterpret_cast<float*>(f + L.whs + L.hb);
   r.red = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp);
   r.dbs = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp + L.red);
+  return r;
+}
+
+// The block's regions under either plan: on the streamed plan the carries,
+// the head weight parts and the column sums are this block's part of
+// `carries` (tc_carry_floats per block).
+template <bool STREAM>
+__device__ inline TcRegions tc_regions(unsigned char* smem, float* carries, const TcShapes& sh,
+                                       int np) {
+  TcRegions r = carve(smem, tc_smem(sh.tile, sh.panel, sh.hp, sh.k, np, STREAM ? sh.kpanel : 0));
+  if constexpr (STREAM) {
+    unsigned char* g = reinterpret_cast<unsigned char*>(
+        carries + blockIdx.x * tc_carry_floats(sh.tile, sh.hp, sh.k, np));
+    const size_t c = tc_carry_bytes(sh.tile, sh.hp, np);
+    r.buf_a = reinterpret_cast<bf16*>(g);
+    r.buf_b = reinterpret_cast<bf16*>(g + c);
+    r.whs = reinterpret_cast<bf16*>(g + 2 * c);
+    r.dbs = reinterpret_cast<float*>(g + 2 * c + round16((size_t)np * sh.hp * sh.k * 2));
+  }
   return r;
 }
 
@@ -287,30 +356,43 @@ int launch_split(const float* flat, const TcShapes& sh, bf16* wsplit, cudaStream
   return (int)cudaGetLastError();
 }
 
-// Rows [r0, r0+nr) x columns [c0, c0+nc) of the layer's parts wl[NP][hp][hp]
-// into wb[NP][nr][nc+8], 8 bf16 (16 bytes) at a time.
-template <int NP>
-__device__ void stage_panel(bf16* wb, const bf16* __restrict__ wl, int hp, int r0, int nr,
-                            int c0, int nc) {
-  const int ld = nc + 8, row8 = nc / 8, per_part = nr * row8, total = NP * per_part;
+// Rows [r0, r0+nr) x columns [c0, c0+nc) of each of the NP parts of src
+// (part stride src_part, row stride src_ld) into dst[NP][nr][dst_ld], 8
+// bf16 (16 bytes) at a time. RO: src is read-only for the kernel's life
+// (the split weights: the non-coherent cache path); a carry that the block
+// writes is read with plain loads.
+template <int NP, bool RO>
+__device__ void stage_tile(bf16* dst, int dst_ld, const bf16* src, int src_ld, long src_part,
+                           int r0, int nr, int c0, int nc) {
+  const int row8 = nc / 8, per_part = nr * row8, total = NP * per_part;
   for (int base = threadIdx.x; base < total; base += kBatch * blockDim.x) {
     uint4 v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = base + u * blockDim.x;
       const int i = idx / per_part, rem = idx - i * per_part, r = rem / row8;
-      if (idx < total)
-        v[u] = __ldg(reinterpret_cast<const uint4*>(
-            wl + ((long)i * hp + r0 + r) * hp + c0 + 8 * (rem - r * row8)));
+      if (idx < total) {
+        const uint4* p = reinterpret_cast<const uint4*>(
+            src + i * src_part + (long)(r0 + r) * src_ld + c0 + 8 * (rem - r * row8));
+        v[u] = RO ? __ldg(p) : *p;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = base + u * blockDim.x;
       if (idx >= total) break;
       const int i = idx / per_part, rem = idx - i * per_part, r = rem / row8;
-      *reinterpret_cast<uint4*>(wb + ((long)i * nr + r) * ld + 8 * (rem - r * row8)) = v[u];
+      *reinterpret_cast<uint4*>(dst + ((long)i * nr + r) * dst_ld + 8 * (rem - r * row8)) = v[u];
     }
   }
+}
+
+// Rows [r0, r0+nr) x columns [c0, c0+nc) of the layer's parts wl[NP][hp][hp]
+// into wb[NP][nr][nc+8].
+template <int NP>
+__device__ void stage_panel(bf16* wb, const bf16* __restrict__ wl, int hp, int r0, int nr,
+                            int c0, int nc) {
+  stage_tile<NP, true>(wb, nc + 8, wl, hp, (long)hp * hp, r0, nr, c0, nc);
 }
 
 // Head weight [h, k] -> whs[NP][hp][k] bf16 parts.
@@ -327,33 +409,28 @@ __device__ void stage_head(bf16* whs, const float* __restrict__ wh, int h, int h
 
 // ------------------------------------------------------------ products
 
-// One warp's unit of a row product: the 16-point group pg x the 16 columns
-// nb*16.. of the panel, all five streams: acc[q][tile][4] += in[q] x W.
-// in: carry parts [NP][5T][hp+8]; wb: the panel, [NP][hp][panel+8] (forward,
-// W[k][n]: BT = true) or [NP][panel][hp+8] (backward, W[n][k]: BT = false).
+// One warp's unit of a row product over kn of the k dimension: the 16-point
+// group pg x the 16 columns nb*16.. of the panel, all five streams:
+// acc[q][tile][4] += in[q] x W. in: carry parts, part stride apart, row
+// stride lda; wb: the weight parts, part stride bpart, row stride ldb,
+// W[k][n] (forward: BT = true) or W[n][k] (backward: BT = false).
 template <int NP, bool BT>
-__device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int tile, int hp,
-                                            int panel, int pg, int nb, float acc[5][2][4]) {
+__device__ __forceinline__ void row_mma(const bf16* in, int lda, long apart, const bf16* wb,
+                                        int ldb, long bpart, int kn, int tile, int pg, int nb,
+                                        float (&acc)[5][2][4]) {
   const int lane = threadIdx.x & 31, mi = lane >> 3;
-  const int ld = hp + 8, rows = 5 * tile;
-#pragma unroll
-  for (int q = 0; q < 5; ++q)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][t][e] = 0.0f;
-  for (int k0 = 0; k0 < hp; k0 += 16) {
+  for (int k0 = 0; k0 < kn; k0 += 16) {
     uint32_t b[NP][4];
 #pragma unroll
     for (int j = 0; j < NP; ++j) {
       if (BT) {
         const int kr = k0 + (lane & 7) + ((mi & 1) << 3);
         const int nn = nb * 16 + ((mi >> 1) << 3);
-        ldsm_x4_t(b[j], wb + ((long)j * hp + kr) * (panel + 8) + nn);
+        ldsm_x4_t(b[j], wb + j * bpart + (long)kr * ldb + nn);
       } else {
         const int nn = nb * 16 + (lane & 7) + ((mi >> 1) << 3);
         const int kc = k0 + ((mi & 1) << 3);
-        ldsm_x4(b[j], wb + ((long)j * panel + nn) * ld + kc);
+        ldsm_x4(b[j], wb + j * bpart + (long)nn * ldb + kc);
       }
     }
 #pragma unroll
@@ -362,22 +439,44 @@ __device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int 
       const int r = q * tile + pg * 16 + (lane & 15);
       const int kc = k0 + ((lane >> 4) << 3);
 #pragma unroll
-      for (int i = 0; i < NP; ++i) ldsm_x4(a[i], in + ((long)i * rows + r) * ld + kc);
+      for (int i = 0; i < NP; ++i) ldsm_x4(a[i], in + i * apart + (long)r * lda + kc);
       mma_passes<NP>(acc[q], a, b);
     }
   }
 }
 
+__device__ __forceinline__ void zero_acc(float (&acc)[5][2][4]) {
+#pragma unroll
+  for (int q = 0; q < 5; ++q)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][t][e] = 0.0f;
+}
+
+// The resident plan's unit: the whole k dimension. in: carry parts
+// [NP][5T][hp+8]; wb: the panel, [NP][hp][panel+8] (forward, BT = true) or
+// [NP][panel][hp+8] (backward, BT = false).
+template <int NP, bool BT>
+__device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int tile, int hp,
+                                            int panel, int pg, int nb, float (&acc)[5][2][4]) {
+  zero_acc(acc);
+  row_mma<NP, BT>(in, hp + 8, (long)5 * tile * (hp + 8), wb, BT ? panel + 8 : hp + 8,
+                  BT ? (long)hp * (panel + 8) : (long)panel * (hp + 8), hp, tile, pg, nb, acc);
+}
+
 // dW[m][j] += sum_r P[r][m] Gz[r][j] over the S T rows of the tile (S
-// streams of T points, stream-major), for the real m, j < h; dw is the
-// layer's [h, h] block of the block's partial. One warp per 16 x 16 block of
-// dW, owned by the same thread in every tile.
-template <int NP, int S = 5>
-__device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, int h, int hp) {
+// streams of T points, stream-major), for the real m, j < h, over the
+// columns [m0, m0+mc) of P and [j0, j0+jc) of Gz; P and Gz hold those
+// columns at row stride ld. dw is the layer's [h, h] block of the block's
+// partial. One warp per 16 x 16 block of dW.
+template <int NP, int S>
+__device__ void dw_block(const bf16* P, const bf16* Gz, int ld, float* dw, int tile, int h,
+                         int m0, int mc, int j0, int jc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3;
   const int g = lane >> 2, cq = lane & 3;
-  const int ld = hp + 8, rows = S * tile, nbs = hp / 16;
-  for (int u = warp; u < nbs * nbs; u += kTcWarps) {
+  const int rows = S * tile, mbs = mc / 16, nbs = jc / 16;
+  for (int u = warp; u < mbs * nbs; u += kTcWarps) {
     const int mb = u / nbs, nb = u - mb * nbs;
     // the partial's entries of this block, loaded before the products hide them
     float old[2][4];
@@ -385,7 +484,7 @@ __device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, i
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = mb * 16 + g + 8 * (e >> 1), j = nb * 16 + t * 8 + 2 * cq + (e & 1);
+        const int m = m0 + mb * 16 + g + 8 * (e >> 1), j = j0 + nb * 16 + t * 8 + 2 * cq + (e & 1);
         old[t][e] = m < h && j < h ? dw[(long)m * h + j] : 0.f;
       }
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -404,9 +503,36 @@ __device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, i
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = mb * 16 + g + 8 * (e >> 1), j = nb * 16 + t * 8 + 2 * cq + (e & 1);
+        const int m = m0 + mb * 16 + g + 8 * (e >> 1), j = j0 + nb * 16 + t * 8 + 2 * cq + (e & 1);
         if (m < h && j < h) dw[(long)m * h + j] = old[t][e] + acc[t][e];
       }
+  }
+}
+
+// The resident plan's dW product: P and Gz whole in shared memory.
+template <int NP, int S = 5>
+__device__ void dw_product(const bf16* P, const bf16* Gz, float* dw, int tile, int h, int hp) {
+  dw_block<NP, S>(P, Gz, hp + 8, dw, tile, h, 0, hp, 0, hp);
+}
+
+// The streamed plan's dW product: P and Gz in global memory, staged in
+// column panels of kp units (P's into sa, Gz's into sb). The caller
+// synchronises after it before the buffers are reused.
+template <int NP, int S = 5>
+__device__ void dw_streamed(const bf16* P, const bf16* Gz, float* dw, bf16* sa, bf16* sb,
+                            int tile, int h, int hp, int kp) {
+  const int rows = S * tile, ld = hp + 8;
+  const long part = (long)rows * ld;
+  for (int m0 = 0; m0 < hp; m0 += kp) {
+    const int mc = min(kp, hp - m0);
+    for (int j0 = 0; j0 < hp; j0 += kp) {
+      const int jc = min(kp, hp - j0);
+      __syncthreads();  // the previous panels' readers are done
+      if (j0 == 0) stage_tile<NP, false>(sa, kp + 8, P, ld, part, 0, rows, m0, mc);
+      stage_tile<NP, false>(sb, kp + 8, Gz, ld, part, 0, rows, j0, jc);
+      __syncthreads();
+      dw_block<NP, S>(sa, sb, kp + 8, dw, tile, h, m0, mc, j0, jc);
+    }
   }
 }
 
@@ -480,15 +606,81 @@ __device__ void tc_first_layer(const float* __restrict__ x, long n0, int n,
   }
 }
 
+// The tanh epilogue of one warp's unit (pg, nb) of the panel at c0: the
+// carry parts into nxt and, with lt != nullptr, t and the tangents into the
+// tape.
+template <int NP>
+__device__ __forceinline__ void fwd_epilogue(float (&acc)[5][2][4], int pg, int nb, int c0,
+                                             const float* __restrict__ bias, bf16* nxt, float* lt,
+                                             const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp;
+  const int lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int col = c0 + nb * 16 + t * 8 + 2 * cq;
+    const float bb0 = col < h ? bias[col] : 0.f, bb1 = col + 1 < h ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = pg * 16 + g + 8 * half, e = 2 * half;
+      const float t0 = tanhf(acc[0][t][e] + bb0), t1 = tanhf(acc[0][t][e + 1] + bb1);
+      float v0[5], v1[5];
+      carry_from_t(t0, acc[1][t][e], acc[2][t][e], acc[3][t][e], acc[4][t][e], v0);
+      carry_from_t(t1, acc[1][t][e + 1], acc[2][t][e + 1], acc[3][t][e + 1], acc[4][t][e + 1],
+                   v1);
+      store_pair<NP>(nxt, T, hp, p, col, v0, v1);
+      if (lt) {
+        st2(lt + (long)p * hp + col, t0, t1);
+#pragma unroll
+        for (int q = 1; q < 5; ++q)
+          st2(lt + ((long)q * T + p) * hp + col, acc[q][t][e], acc[q][t][e + 1]);
+      }
+    }
+  }
+}
+
+// The streamed plan's N-panel at c0 (width min(panel, hp - c0)): stages the
+// K-panels of `in` into sa and of the weight parts into wb, accumulates the
+// warp's unit over them and returns whether the warp owns a unit (then
+// (pg, nb) name it). BT as in row_mma: wl is the layer's parts
+// [NP][hp][hp], read as W[k][n] (forward) or W[n][k] (backward).
+template <int NP, bool BT>
+__device__ __forceinline__ bool streamed_unit(const bf16* in, const bf16* __restrict__ wl,
+                                              bf16* sa, bf16* wb, int c0, const TcShapes& sh,
+                                              int& pg, int& nb, float (&acc)[5][2][4]) {
+  const int T = sh.tile, hp = sh.hp, nc = sh.panel, kp = sh.kpanel, rows = 5 * T;
+  const int warp = threadIdx.x >> 5;
+  const int ncur = min(nc, hp - c0), nbs = ncur / 16;
+  const bool has = warp < (T / 16) * nbs;
+  pg = warp / nbs;
+  nb = warp - pg * nbs;
+  zero_acc(acc);
+  for (int k0 = 0; k0 < hp; k0 += kp) {
+    const int kc = min(kp, hp - k0);
+    __syncthreads();  // the previous K-panel's readers are done
+    stage_tile<NP, false>(sa, kp + 8, in, hp + 8, (long)rows * (hp + 8), 0, rows, k0, kc);
+    if (BT)
+      stage_tile<NP, true>(wb, nc + 8, wl, hp, (long)hp * hp, k0, kc, c0, ncur);
+    else
+      stage_tile<NP, true>(wb, kp + 8, wl, hp, (long)hp * hp, c0, ncur, k0, kc);
+    __syncthreads();
+    if (has)
+      row_mma<NP, BT>(sa, kp + 8, (long)rows * (kp + 8), wb, BT ? nc + 8 : kp + 8,
+                      BT ? (long)kc * (nc + 8) : (long)ncur * (kp + 8), kc, T, pg, nb, acc);
+  }
+  return has;
+}
+
 // Packed forward of tile n0 through the hidden layers, with the product
 // layers on the tensor cores. Returns the buffer that holds the last carry.
-// With tape != nullptr keeps t and the tangents of every layer.
-template <int NP>
+// With tape != nullptr keeps t and the tangents of every layer. STREAM: the
+// streamed plan (a template flag, so that the resident plan's instances
+// carry no code of it); sa: its A panel.
+template <int NP, bool STREAM>
 __device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict__ flat,
                             const bf16* __restrict__ wsplit, long n0, int n, const TcShapes& sh,
-                            bf16* buf_a, bf16* buf_b, bf16* wb, float* tape) {
+                            bf16* buf_a, bf16* buf_b, bf16* sa, bf16* wb, float* tape) {
   const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int warp = threadIdx.x >> 5;
   tc_first_layer<NP>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
   bf16* cur = buf_a;
   bf16* nxt = buf_b;
@@ -498,34 +690,20 @@ __device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
     float* lt = tape ? tape + tc_tape_off(l, T, hp) : nullptr;
     for (int c0 = 0; c0 < hp; c0 += nc) {
+      float acc[5][2][4];
+      if constexpr (STREAM) {
+        int pg, nb;
+        if (streamed_unit<NP, true>(cur, wl, sa, wb, c0, sh, pg, nb, acc))
+          fwd_epilogue<NP>(acc, pg, nb, c0, bias, nxt, lt, sh);
+        continue;
+      }
       __syncthreads();  // readers of the previous panel / writers of cur are done
       stage_panel<NP>(wb, wl, hp, 0, hp, c0, nc);
       __syncthreads();
       for (int u = warp; u < units; u += kTcWarps) {
         const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
-        float acc[5][2][4];
         row_product<NP, true>(cur, wb, T, hp, nc, pg, nb, acc);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int col = c0 + nb * 16 + t * 8 + 2 * cq;
-          const float bb0 = col < h ? bias[col] : 0.f, bb1 = col + 1 < h ? bias[col + 1] : 0.f;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int p = pg * 16 + g + 8 * half, e = 2 * half;
-            const float t0 = tanhf(acc[0][t][e] + bb0), t1 = tanhf(acc[0][t][e + 1] + bb1);
-            float v0[5], v1[5];
-            carry_from_t(t0, acc[1][t][e], acc[2][t][e], acc[3][t][e], acc[4][t][e], v0);
-            carry_from_t(t1, acc[1][t][e + 1], acc[2][t][e + 1], acc[3][t][e + 1],
-                         acc[4][t][e + 1], v1);
-            store_pair<NP>(nxt, T, hp, p, col, v0, v1);
-            if (lt) {
-              st2(lt + (long)p * hp + col, t0, t1);
-#pragma unroll
-              for (int q = 1; q < 5; ++q)
-                st2(lt + ((long)q * T + p) * hp + col, acc[q][t][e], acc[q][t][e + 1]);
-            }
-          }
-        }
+        fwd_epilogue<NP>(acc, pg, nb, c0, bias, nxt, lt, sh);
       }
     }
     bf16* tmp = cur;  // the next layer's first panel synchronises before reading
@@ -696,82 +874,115 @@ __device__ void flush_sums(const float* dbs, int groups, int layer, float* dp, i
   }
 }
 
+// The tape entries of one warp's unit (pg, nb) of the panel at c0 at layer
+// l - 1 (lt): t and, above the first layer, the four tangents.
+__device__ __forceinline__ void load_tape(float2 (&tp)[2][2][5], const float* lt, int l, int pg,
+                                          int nb, int c0, const TcShapes& sh) {
+  const int hp = sh.hp, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const long S = (long)sh.tile * hp;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int q = 0; q < 5; ++q)
+        tp[t][half][q] = q == 0 || l > 1
+            ? ld2(lt + q * S + (long)(pg * 16 + g + 8 * half) * hp + c0 + nb * 16 + t * 8 + 2 * cq)
+            : make_float2(0.f, 0.f);
+}
+
+// The g_z epilogue of one warp's unit (pg, nb) of the panel at c0 at layer
+// l: Gz_{l-1} parts into other and its column sums into dbs (or, at l = 1,
+// the first layer's terms).
+template <int NP>
+__device__ __forceinline__ void rev_epilogue(float (&acc)[5][2][4], float2 (&tp)[2][2][5], int l,
+                                             int pg, int nb, int c0,
+                                             const float* __restrict__ x,
+                                             const float* __restrict__ flat, long n0, int n,
+                                             bf16* other, float* dbs, const TcShapes& sh) {
+  const int T = sh.tile, h = sh.h, hp = sh.hp;
+  const int lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int col = c0 + nb * 16 + t * 8 + 2 * cq;
+    float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = pg * 16 + g + 8 * half, e = 2 * half;
+      float G0[5], G1[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        G0[q] = acc[q][t][e];
+        G1[q] = acc[q][t][e + 1];
+      }
+      const float2 tt = tp[t][half][0];
+      if (l > 1) {
+        const float2 zx = tp[t][half][1], zy = tp[t][half][2];
+        const float2 zxx = tp[t][half][3], zyy = tp[t][half][4];
+        float z0[5], z1[5];
+        gz_from(tt.x, zx.x, zy.x, zxx.x, zyy.x, G0, z0);
+        gz_from(tt.y, zx.y, zy.y, zxx.y, zyy.y, G1, z1);
+        store_pair<NP>(other, T, hp, p, col, z0, z1);
+        s[0][0] += z0[0];
+        s[1][0] += z1[0];
+      } else {
+        const bool live = n0 + p < n;
+        const float px = live ? x[2 * (n0 + p)] : 0.f;
+        const float py = live ? x[2 * (n0 + p) + 1] : 0.f;
+        if (col < h) first_terms(tt.x, flat[col], flat[h + col], px, py, G0, s[0]);
+        if (col + 1 < h) first_terms(tt.y, flat[col + 1], flat[h + col + 1], px, py, G1, s[1]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (l > 1 && a > 0) break;
+      const float v0 = sum_over_rows(s[0][a]), v1 = sum_over_rows(s[1][a]);
+      if (g == 0) st2(dbs + ((long)pg * 3 + a) * hp + col, v0, v1);
+    }
+  }
+}
+
 // The product layers in reverse, from gz (the last tanh layer's
 // pre-activation cotangent parts) down to the first layer's terms. other:
-// the second carry buffer; dbs: column sums. Both carry buffers are
-// overwritten. The caller synchronises before the call.
-template <int NP>
+// the second carry buffer; dbs: column sums; STREAM and sa as for
+// tc_forward. Both carry buffers are overwritten. The caller synchronises
+// before the call.
+template <int NP, bool STREAM>
 __device__ void tc_reverse(const float* __restrict__ x, const float* __restrict__ flat,
                            const bf16* __restrict__ wsplit, long n0, int n, bf16* gz,
-                           bf16* other, bf16* wb, float* dbs, const float* tape, float* dp,
-                           const TcShapes& sh) {
+                           bf16* other, bf16* sa, bf16* wb, float* dbs, const float* tape,
+                           float* dp, const TcShapes& sh) {
   const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int pgs = T / 16, units = pgs * (nc / 16);
   for (int l = L - 1; l >= 1; --l) {
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
     rebuild_carry<NP>(tape, flat, l - 1, other, sh);
     __syncthreads();
-    dw_product<NP>(other, gz, dp + hidden_off(l, h), T, h, hp);
+    if constexpr (STREAM)
+      dw_streamed<NP>(other, gz, dp + hidden_off(l, h), sa, wb, T, h, hp, sh.kpanel);
+    else
+      dw_product<NP>(other, gz, dp + hidden_off(l, h), T, h, hp);
     const float* lt = tape + tc_tape_off(l - 1, T, hp);
-    const long S = (long)T * hp;
     for (int c0 = 0; c0 < hp; c0 += nc) {
+      float acc[5][2][4];
+      float2 tp[2][2][5];
+      if constexpr (STREAM) {
+        int pg, nb;
+        if (streamed_unit<NP, false>(gz, wl, sa, wb, c0, sh, pg, nb, acc)) {
+          load_tape(tp, lt, l, pg, nb, c0, sh);
+          rev_epilogue<NP>(acc, tp, l, pg, nb, c0, x, flat, n0, n, other, dbs, sh);
+        }
+        continue;
+      }
       __syncthreads();  // the dW product / the previous panel are done with other, wb
       stage_panel<NP>(wb, wl, hp, c0, nc, 0, hp);
       __syncthreads();
       for (int u = warp; u < units; u += kTcWarps) {
         const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
-        float2 tp[2][2][5];  // this unit's tape entries, in flight during the products
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int half = 0; half < 2; ++half)
-#pragma unroll
-            for (int q = 0; q < 5; ++q)
-              tp[t][half][q] = q == 0 || l > 1
-                  ? ld2(lt + q * S + (long)(pg * 16 + g + 8 * half) * hp + c0 + nb * 16 + t * 8 + 2 * cq)
-                  : make_float2(0.f, 0.f);
-        float acc[5][2][4];
+        load_tape(tp, lt, l, pg, nb, c0, sh);  // in flight during the products
         row_product<NP, false>(gz, wb, T, hp, nc, pg, nb, acc);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int col = c0 + nb * 16 + t * 8 + 2 * cq;
-          float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int p = pg * 16 + g + 8 * half, e = 2 * half;
-            float G0[5], G1[5];
-#pragma unroll
-            for (int q = 0; q < 5; ++q) {
-              G0[q] = acc[q][t][e];
-              G1[q] = acc[q][t][e + 1];
-            }
-            const float2 tt = tp[t][half][0];
-            if (l > 1) {
-              const float2 zx = tp[t][half][1], zy = tp[t][half][2];
-              const float2 zxx = tp[t][half][3], zyy = tp[t][half][4];
-              float z0[5], z1[5];
-              gz_from(tt.x, zx.x, zy.x, zxx.x, zyy.x, G0, z0);
-              gz_from(tt.y, zx.y, zy.y, zxx.y, zyy.y, G1, z1);
-              store_pair<NP>(other, T, hp, p, col, z0, z1);
-              s[0][0] += z0[0];
-              s[1][0] += z1[0];
-            } else {
-              const bool live = n0 + p < n;
-              const float px = live ? x[2 * (n0 + p)] : 0.f;
-              const float py = live ? x[2 * (n0 + p) + 1] : 0.f;
-              if (col < h) first_terms(tt.x, flat[col], flat[h + col], px, py, G0, s[0]);
-              if (col + 1 < h)
-                first_terms(tt.y, flat[col + 1], flat[h + col + 1], px, py, G1, s[1]);
-            }
-          }
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            if (l > 1 && a > 0) break;
-            const float v0 = sum_over_rows(s[0][a]), v1 = sum_over_rows(s[1][a]);
-            if (g == 0) st2(dbs + ((long)pg * 3 + a) * hp + col, v0, v1);
-          }
-        }
+        rev_epilogue<NP>(acc, tp, l, pg, nb, c0, x, flat, n0, n, other, dbs, sh);
       }
     }
     __syncthreads();

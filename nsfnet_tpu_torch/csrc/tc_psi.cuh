@@ -71,28 +71,68 @@ __device__ __forceinline__ float at(float (&acc)[PsiTile<T>::MT][4], int q, int 
 }
 
 // Shared memory of one block, in bytes, region by region (16-byte aligned):
-// two carry buffers [NP][S T][Hp+8] bf16, the weight panel, the head weight
-// parts [NP][Hp][K] bf16, the head cotangents [13][T][K], their parts
-// [NP][13T][K], the column sums [T/8][3][Hp].
+// two carry buffers [NP][S T][Hp+8] bf16 (resident plan only), the streamed
+// plan's A panel [NP][S T][kpanel+8], the weight panel, the head weight parts
+// [NP][Hp][K] bf16 (resident only), the head cotangents [13][T][K], their
+// parts [NP][13T][K], the column sums [T/8][3][Hp] (resident only). The two
+// plans are tc_mlp.cuh's (kpanel 0: resident).
 struct PsiSmem {
-  size_t carry, wbuf, whs, hb, ghp, dbs;
-  __host__ __device__ size_t total() const { return 2 * carry + wbuf + whs + hb + ghp + dbs; }
+  size_t carry, sa, wbuf, whs, hb, ghp, dbs;
+  __host__ __device__ size_t total() const {
+    return 2 * carry + sa + wbuf + whs + hb + ghp + dbs;
+  }
 };
 
-__host__ __device__ inline PsiSmem psi_smem(int tile, int panel, int hp, int k, int np) {
+__host__ __device__ inline int psi_streams_of(int tile) { return tile == 16 ? kPsi : kPsi + 1; }
+
+__host__ __device__ inline PsiSmem psi_smem(int tile, int panel, int hp, int k, int np,
+                                            int kpanel = 0) {
   PsiSmem s;
-  s.carry = round16((size_t)np * (tile == 16 ? kPsi : kPsi + 1) * tile * (hp + 8) * 2);
-  size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
-  s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
-  s.whs = round16((size_t)np * hp * k * 2);
+  const size_t rows = (size_t)psi_streams_of(tile) * tile;
+  if (kpanel == 0) {
+    s.carry = round16((size_t)np * rows * (hp + 8) * 2);
+    s.sa = 0;
+    size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
+    s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
+    s.whs = round16((size_t)np * hp * k * 2);
+    s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
+  } else {
+    // the weight tile, forward [kpanel][panel+8] or backward [panel][kpanel+8],
+    // or the dW product's cotangent panel [S T][kpanel+8]
+    s.carry = s.whs = s.dbs = 0;
+    const size_t a = rows * (kpanel + 8);
+    size_t fwd = (size_t)kpanel * (panel + 8), bwd = (size_t)panel * (kpanel + 8);
+    size_t w = fwd > bwd ? fwd : bwd;
+    s.sa = round16((size_t)np * a * 2);
+    s.wbuf = round16((size_t)np * (w > a ? w : a) * 2);
+  }
   s.hb = round16((size_t)kPsi * tile * k * 4);
   s.ghp = round16((size_t)np * kPsi * tile * k * 4);
-  s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
   return s;
 }
 
+// The streamed plan's global regions of one block, in floats: the two
+// carries [NP][S T][Hp+8] bf16, the head weight parts [NP][Hp][K] bf16, the
+// column sums [T/8][3][Hp].
+__host__ __device__ inline size_t psi_carry_bytes(int tile, int hp, int np) {
+  return round16((size_t)np * psi_streams_of(tile) * tile * (hp + 8) * 2);
+}
+__host__ __device__ inline long psi_carry_floats(int tile, int hp, int k, int np) {
+  return (long)((2 * psi_carry_bytes(tile, hp, np) + round16((size_t)np * hp * k * 2) +
+                 round16((size_t)(tile / 8) * 3 * hp * 4)) / 4);
+}
+
+// Whether (tile, panel, kpanel) is a plan the order-3 sweep takes for padded
+// width hp: resident, a panel that tiles hp; streamed, 16-point tiles, an
+// N-panel of at most one 8-column unit per warp and a K-panel, both
+// multiples of 16.
+__host__ __device__ inline bool psi_plan_ok(int hp, int tile, int panel, int kpanel) {
+  if (panel <= 0 || panel % 16 != 0 || kpanel < 0 || kpanel % 16 != 0) return false;
+  return kpanel == 0 ? hp % panel == 0 : tile == 16 && panel / 8 <= kTcWarps;
+}
+
 struct PsiRegions {
-  bf16 *buf_a, *buf_b, *wb, *whs;
+  bf16 *buf_a, *buf_b, *sa, *wb, *whs;
   float *hb, *ghp, *dbs;
 };
 
@@ -100,12 +140,33 @@ __device__ inline PsiRegions psi_carve(unsigned char* smem, const PsiSmem& L) {
   PsiRegions r;
   r.buf_a = reinterpret_cast<bf16*>(smem);
   r.buf_b = reinterpret_cast<bf16*>(smem + L.carry);
-  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry);
-  unsigned char* f = smem + 2 * L.carry + L.wbuf;
+  r.sa = reinterpret_cast<bf16*>(smem + 2 * L.carry);
+  r.wb = reinterpret_cast<bf16*>(smem + 2 * L.carry + L.sa);
+  unsigned char* f = smem + 2 * L.carry + L.sa + L.wbuf;
   r.whs = reinterpret_cast<bf16*>(f);
   r.hb = reinterpret_cast<float*>(f + L.whs);
   r.ghp = reinterpret_cast<float*>(f + L.whs + L.hb);
   r.dbs = reinterpret_cast<float*>(f + L.whs + L.hb + L.ghp);
+  return r;
+}
+
+// The block's regions under either plan: on the streamed plan the carries,
+// the head weight parts and the column sums are this block's part of
+// `carries` (psi_carry_floats per block).
+template <bool STREAM>
+__device__ inline PsiRegions psi_regions(unsigned char* smem, float* carries, const TcShapes& sh,
+                                         int np) {
+  PsiRegions r =
+      psi_carve(smem, psi_smem(sh.tile, sh.panel, sh.hp, sh.k, np, STREAM ? sh.kpanel : 0));
+  if constexpr (STREAM) {
+    unsigned char* g = reinterpret_cast<unsigned char*>(
+        carries + blockIdx.x * psi_carry_floats(sh.tile, sh.hp, sh.k, np));
+    const size_t c = psi_carry_bytes(sh.tile, sh.hp, np);
+    r.buf_a = reinterpret_cast<bf16*>(g);
+    r.buf_b = reinterpret_cast<bf16*>(g + c);
+    r.whs = reinterpret_cast<bf16*>(g + 2 * c);
+    r.dbs = reinterpret_cast<float*>(g + 2 * c + round16((size_t)np * sh.hp * sh.k * 2));
+  }
   return r;
 }
 
@@ -141,38 +202,85 @@ __device__ __forceinline__ void mma_passes_n8(float acc[4], const uint32_t a[NP]
     for (int j = 0; j + i < NP; ++j) mma_bf16(acc, a[i], b[j][0], b[j][1]);
 }
 
-// One warp's unit of a row product: the tile's S T rows x the 8 columns
-// nb*8.. of the panel: acc[mt][4] += in[mt] x W for the MT m16 tiles.
-// in: carry parts [NP][S T][hp+8]; wb: the panel, [NP][hp][panel+8]
-// (forward, W[k][n]: BT = true) or [NP][panel][hp+8] (backward, W[n][k]).
+// One warp's unit of a row product over kn of the k dimension: the tile's
+// S T rows x the 8 columns nb*8.. of the panel: acc[mt][4] += in[mt] x W for
+// the MT m16 tiles. in: carry parts, part stride apart, row stride lda; wb:
+// the weight parts, part stride bpart, row stride ldb, W[k][n] (forward: BT
+// = true) or W[n][k] (backward).
 template <int NP, int T, bool BT>
-__device__ __forceinline__ void psi_row_product(const bf16* in, const bf16* wb, int hp, int panel,
-                                                int nb, float (&acc)[PsiTile<T>::MT][4]) {
-  constexpr int MT = PsiTile<T>::MT, rows = PsiTile<T>::S * T;
-  const int lane = threadIdx.x & 31, ld = hp + 8;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.0f;
-  for (int k0 = 0; k0 < hp; k0 += 16) {
+__device__ __forceinline__ void psi_row_mma(const bf16* in, int lda, long apart, const bf16* wb,
+                                            int ldb, long bpart, int kn, int nb,
+                                            float (&acc)[PsiTile<T>::MT][4]) {
+  constexpr int MT = PsiTile<T>::MT;
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < kn; k0 += 16) {
     uint32_t b[NP][2];  // lanes 0-7 address k rows 0-7, lanes 8-15 rows 8-15
     const int kh = ((lane >> 3) & 1) << 3;
 #pragma unroll
     for (int j = 0; j < NP; ++j) {
       if (BT)
-        ldsm_x2_t(b[j], wb + ((long)j * hp + k0 + (lane & 7) + kh) * (panel + 8) + nb * 8);
+        ldsm_x2_t(b[j], wb + j * bpart + (long)(k0 + (lane & 7) + kh) * ldb + nb * 8);
       else
-        ldsm_x2(b[j], wb + ((long)j * panel + nb * 8 + (lane & 7)) * ld + k0 + kh);
+        ldsm_x2(b[j], wb + j * bpart + (long)(nb * 8 + (lane & 7)) * ldb + k0 + kh);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       uint32_t a[NP][4];
       const int r = mt * 16 + (lane & 15), kc = k0 + ((lane >> 4) << 3);
 #pragma unroll
-      for (int i = 0; i < NP; ++i) ldsm_x4(a[i], in + ((long)i * rows + r) * ld + kc);
+      for (int i = 0; i < NP; ++i) ldsm_x4(a[i], in + i * apart + (long)r * lda + kc);
       mma_passes_n8<NP>(acc[mt], a, b);
     }
   }
+}
+
+template <int T>
+__device__ __forceinline__ void psi_zero_acc(float (&acc)[PsiTile<T>::MT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < PsiTile<T>::MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.0f;
+}
+
+// The resident plan's unit: the whole k dimension. in: carry parts
+// [NP][S T][hp+8]; wb: the panel, [NP][hp][panel+8] (forward, W[k][n]: BT =
+// true) or [NP][panel][hp+8] (backward, W[n][k]).
+template <int NP, int T, bool BT>
+__device__ __forceinline__ void psi_row_product(const bf16* in, const bf16* wb, int hp, int panel,
+                                                int nb, float (&acc)[PsiTile<T>::MT][4]) {
+  constexpr int rows = PsiTile<T>::S * T;
+  psi_zero_acc<T>(acc);
+  psi_row_mma<NP, T, BT>(in, hp + 8, (long)rows * (hp + 8), wb, BT ? panel + 8 : hp + 8,
+                         BT ? (long)hp * (panel + 8) : (long)panel * (hp + 8), hp, nb, acc);
+}
+
+// The streamed plan's N-panel at c0 (width min(panel, hp - c0)): stages the
+// K-panels of `in` into sa and of the weight parts wl [NP][hp][hp] into wb,
+// accumulates the warp's 8-column unit over them and returns whether the
+// warp owns one (unit = the warp).
+template <int NP, int T, bool BT>
+__device__ __forceinline__ bool psi_streamed_unit(const bf16* in, const bf16* __restrict__ wl,
+                                                  bf16* sa, bf16* wb, int c0, const TcShapes& sh,
+                                                  float (&acc)[PsiTile<T>::MT][4]) {
+  constexpr int rows = PsiTile<T>::S * T;
+  const int hp = sh.hp, nc = sh.panel, kp = sh.kpanel;
+  const int warp = threadIdx.x >> 5, ncur = min(nc, hp - c0);
+  const bool has = warp < ncur / 8;
+  psi_zero_acc<T>(acc);
+  for (int k0 = 0; k0 < hp; k0 += kp) {
+    const int kc = min(kp, hp - k0);
+    __syncthreads();  // the previous K-panel's readers are done
+    stage_tile<NP, false>(sa, kp + 8, in, hp + 8, (long)rows * (hp + 8), 0, rows, k0, kc);
+    if (BT)
+      stage_tile<NP, true>(wb, nc + 8, wl, hp, (long)hp * hp, k0, kc, c0, ncur);
+    else
+      stage_tile<NP, true>(wb, kp + 8, wl, hp, (long)hp * hp, c0, ncur, k0, kc);
+    __syncthreads();
+    if (has)
+      psi_row_mma<NP, T, BT>(sa, kp + 8, (long)rows * (kp + 8), wb, BT ? nc + 8 : kp + 8,
+                             BT ? (long)kc * (nc + 8) : (long)ncur * (kp + 8), kc, warp, acc);
+  }
+  return has;
 }
 
 // ------------------------------------------------------------ the algebra
@@ -305,18 +413,52 @@ __device__ void psi_first_layer_tc(const float* __restrict__ x, long n0, int n,
   }
 }
 
+// The order-3 epilogue of one warp's unit u of the panel at c0: the carry
+// parts into nxt and, with TAPE, t and the 12 tangents into lt.
+template <int NP, int T, bool TAPE>
+__device__ __forceinline__ void psi_fwd_epilogue(float (&acc)[PsiTile<T>::MT][4], int u, int c0,
+                                                 const float* __restrict__ bias, bf16* nxt,
+                                                 float* lt, const TcShapes& sh) {
+  constexpr int S = PsiTile<T>::S;
+  const int h = sh.h, hp = sh.hp, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int col = c0 + u * 8 + 2 * cq;
+  const float bb0 = col < h ? bias[col] : 0.f, bb1 = col + 1 < h ? bias[col + 1] : 0.f;
+#pragma unroll
+  for (int hf = 0; hf < PsiTile<T>::HALVES; ++hf) {
+    const int p = g + 8 * hf;
+    float z0[12], z1[12];
+#pragma unroll
+    for (int q = 1; q < kPsi; ++q) {
+      z0[q - 1] = at<T>(acc, q, hf, 0);
+      z1[q - 1] = at<T>(acc, q, hf, 1);
+    }
+    const float t0 = tanhf(at<T>(acc, 0, hf, 0) + bb0);
+    const float t1 = tanhf(at<T>(acc, 0, hf, 1) + bb1);
+    float v0[kPsi], v1[kPsi];
+    psi_carry(t0, z0, v0);
+    psi_carry(t1, z1, v1);
+    store_pair<NP, kPsi, S>(nxt, T, hp, p, col, v0, v1);
+    if constexpr (TAPE) {
+      st2(lt + (long)p * hp + col, t0, t1);
+#pragma unroll
+      for (int q = 1; q < kPsi; ++q) st2(lt + ((long)q * T + p) * hp + col, z0[q - 1], z1[q - 1]);
+    }
+  }
+}
+
 // Packed forward of tile n0 through the hidden layers, with the product
 // layers on the tensor cores; with TAPE (the backward's recompute) keeping
 // t and the tangents of every layer in the tape. Returns the buffer that
-// holds the last carry.
-template <int NP, int T, bool TAPE = true>
+// holds the last carry. STREAM: the streamed plan (a template flag, as in
+// tc_forward); sa: its A panel.
+template <int NP, int T, bool STREAM, bool TAPE = true>
 __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __restrict__ flat,
                                 const bf16* __restrict__ wsplit, long n0, int n,
-                                const TcShapes& sh, bf16* buf_a, bf16* buf_b, bf16* wb,
+                                const TcShapes& sh, bf16* buf_a, bf16* buf_b, bf16* sa, bf16* wb,
                                 float* tape) {
-  constexpr int MT = PsiTile<T>::MT, S = PsiTile<T>::S;
+  constexpr int MT = PsiTile<T>::MT;
   const int h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int warp = threadIdx.x >> 5;
   psi_first_layer_tc<NP, T, TAPE>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
   bf16* cur = buf_a;
   bf16* nxt = buf_b;
@@ -325,36 +467,18 @@ __device__ bf16* psi_tc_forward(const float* __restrict__ x, const float* __rest
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
     float* lt = TAPE ? tape + psi_tape_off(l, T, hp) : nullptr;
     for (int c0 = 0; c0 < hp; c0 += nc) {
+      float acc[MT][4];
+      if constexpr (STREAM) {
+        if (psi_streamed_unit<NP, T, true>(cur, wl, sa, wb, c0, sh, acc))
+          psi_fwd_epilogue<NP, T, TAPE>(acc, warp, c0, bias, nxt, lt, sh);
+        continue;
+      }
       __syncthreads();  // readers of the previous panel / writers of cur are done
       stage_panel<NP>(wb, wl, hp, 0, hp, c0, nc);
       __syncthreads();
       for (int u = warp; u < nc / 8; u += kTcWarps) {
-        float acc[MT][4];
         psi_row_product<NP, T, true>(cur, wb, hp, nc, u, acc);
-        const int col = c0 + u * 8 + 2 * cq;
-        const float bb0 = col < h ? bias[col] : 0.f, bb1 = col + 1 < h ? bias[col + 1] : 0.f;
-#pragma unroll
-        for (int hf = 0; hf < PsiTile<T>::HALVES; ++hf) {
-          const int p = g + 8 * hf;
-          float z0[12], z1[12];
-#pragma unroll
-          for (int q = 1; q < kPsi; ++q) {
-            z0[q - 1] = at<T>(acc, q, hf, 0);
-            z1[q - 1] = at<T>(acc, q, hf, 1);
-          }
-          const float t0 = tanhf(at<T>(acc, 0, hf, 0) + bb0);
-          const float t1 = tanhf(at<T>(acc, 0, hf, 1) + bb1);
-          float v0[kPsi], v1[kPsi];
-          psi_carry(t0, z0, v0);
-          psi_carry(t1, z1, v1);
-          store_pair<NP, kPsi, S>(nxt, T, hp, p, col, v0, v1);
-          if constexpr (TAPE) {
-            st2(lt + (long)p * hp + col, t0, t1);
-#pragma unroll
-            for (int q = 1; q < kPsi; ++q)
-              st2(lt + ((long)q * T + p) * hp + col, z0[q - 1], z1[q - 1]);
-          }
-        }
+        psi_fwd_epilogue<NP, T, TAPE>(acc, u, c0, bias, nxt, lt, sh);
       }
     }
     bf16* tmp = cur;  // the next layer's first panel synchronises before reading
@@ -512,77 +636,113 @@ __device__ void psi_head_backward(const float* __restrict__ x, const float* __re
   }
 }
 
+// The tape entries of one warp's unit u of the panel at c0 at layer l - 1
+// (lt): t and, above the first layer, the 12 tangents.
+template <int T>
+__device__ __forceinline__ void psi_load_tape(float2 (&tp)[PsiTile<T>::HALVES][kPsi],
+                                              const float* __restrict__ lt, int l, int u, int c0,
+                                              const TcShapes& sh) {
+  const int hp = sh.hp, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int col = c0 + u * 8 + 2 * cq;
+  const long SS = (long)T * hp;
+#pragma unroll
+  for (int hf = 0; hf < PsiTile<T>::HALVES; ++hf)
+#pragma unroll
+    for (int q = 0; q < kPsi; ++q)
+      tp[hf][q] = q == 0 || l > 1 ? ld2(lt + q * SS + (long)(g + 8 * hf) * hp + col)
+                                  : make_float2(0.f, 0.f);
+}
+
+// The order-3 adjoint's epilogue of one warp's unit u of the panel at c0 at
+// layer l: Gz_{l-1} parts into other and its column sums into dbs (or, at
+// l = 1, the first layer's terms).
+template <int NP, int T>
+__device__ __forceinline__ void psi_rev_epilogue(float (&acc)[PsiTile<T>::MT][4],
+                                                 float2 (&tp)[PsiTile<T>::HALVES][kPsi], int l,
+                                                 int u, int c0, const float* __restrict__ x,
+                                                 const float* __restrict__ flat, long n0, int n,
+                                                 bf16* other, float* dbs, const TcShapes& sh) {
+  constexpr int S = PsiTile<T>::S;
+  const int h = sh.h, hp = sh.hp, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int col = c0 + u * 8 + 2 * cq;
+  float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int hf = 0; hf < PsiTile<T>::HALVES; ++hf) {
+    const int p = g + 8 * hf;
+    float G0[kPsi], G1[kPsi];
+#pragma unroll
+    for (int q = 0; q < kPsi; ++q) {
+      G0[q] = at<T>(acc, q, hf, 0);
+      G1[q] = at<T>(acc, q, hf, 1);
+    }
+    if (l > 1) {
+      float z0[12], z1[12], o0[kPsi], o1[kPsi];
+#pragma unroll
+      for (int q = 1; q < kPsi; ++q) {
+        z0[q - 1] = tp[hf][q].x;
+        z1[q - 1] = tp[hf][q].y;
+      }
+      psi_gz(tp[hf][0].x, z0, G0, o0);
+      psi_gz(tp[hf][0].y, z1, G1, o1);
+      store_pair<NP, kPsi, S>(other, T, hp, p, col, o0, o1);
+      s[0][0] += o0[0];
+      s[1][0] += o1[0];
+    } else {
+      const bool live = n0 + p < n;
+      const float px = live ? x[2 * (n0 + p)] : 0.f;
+      const float py = live ? x[2 * (n0 + p) + 1] : 0.f;
+      if (col < h) psi_first_terms(tp[hf][0].x, flat[col], flat[h + col], px, py, G0, s[0]);
+      if (col + 1 < h)
+        psi_first_terms(tp[hf][0].y, flat[col + 1], flat[h + col + 1], px, py, G1, s[1]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (l > 1 && a > 0) break;
+    const float v0 = sum_over_rows(s[0][a]), v1 = sum_over_rows(s[1][a]);
+    if (g == 0) st2(dbs + (long)a * hp + col, v0, v1);
+  }
+}
+
 // The product layers in reverse, from gz (the last tanh layer's
 // pre-activation cotangent parts) down to the first layer's terms. other:
-// the second carry buffer; dbs: column sums. Both carry buffers are
-// overwritten. The caller synchronises before the call.
-template <int NP, int T>
+// the second carry buffer; dbs: column sums; STREAM and sa as for
+// psi_tc_forward. Both carry buffers are overwritten. The caller
+// synchronises before the call.
+template <int NP, int T, bool STREAM>
 __device__ void psi_reverse(const float* __restrict__ x, const float* __restrict__ flat,
                             const bf16* __restrict__ wsplit, long n0, int n, bf16* gz,
-                            bf16* other, bf16* wb, float* dbs, const float* __restrict__ tape,
-                            float* dp, const TcShapes& sh) {
+                            bf16* other, bf16* sa, bf16* wb, float* dbs,
+                            const float* __restrict__ tape, float* dp, const TcShapes& sh) {
   constexpr int MT = PsiTile<T>::MT, S = PsiTile<T>::S, HALVES = PsiTile<T>::HALVES;
   const int h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = lane & 3;
+  const int warp = threadIdx.x >> 5;
   for (int l = L - 1; l >= 1; --l) {
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
     psi_rebuild<NP, T>(tape, flat, l - 1, other, sh);
     __syncthreads();
-    dw_product<NP, S>(other, gz, dp + hidden_off(l, h), T, h, hp);
+    if constexpr (STREAM)
+      dw_streamed<NP, S>(other, gz, dp + hidden_off(l, h), sa, wb, T, h, hp, sh.kpanel);
+    else
+      dw_product<NP, S>(other, gz, dp + hidden_off(l, h), T, h, hp);
     const float* lt = tape + psi_tape_off(l - 1, T, hp);
-    const long SS = (long)T * hp;
     for (int c0 = 0; c0 < hp; c0 += nc) {
+      float acc[MT][4];
+      float2 tp[HALVES][kPsi];
+      if constexpr (STREAM) {
+        if (psi_streamed_unit<NP, T, false>(gz, wl, sa, wb, c0, sh, acc)) {
+          psi_load_tape<T>(tp, lt, l, warp, c0, sh);
+          psi_rev_epilogue<NP, T>(acc, tp, l, warp, c0, x, flat, n0, n, other, dbs, sh);
+        }
+        continue;
+      }
       __syncthreads();  // the dW product / the previous panel are done with other, wb
       stage_panel<NP>(wb, wl, hp, c0, nc, 0, hp);
       __syncthreads();
       for (int u = warp; u < nc / 8; u += kTcWarps) {
-        const int col = c0 + u * 8 + 2 * cq;
-        float2 tp[HALVES][kPsi];  // this thread's tape entries, in flight during the products
-#pragma unroll
-        for (int hf = 0; hf < HALVES; ++hf)
-#pragma unroll
-          for (int q = 0; q < kPsi; ++q)
-            tp[hf][q] = q == 0 || l > 1 ? ld2(lt + q * SS + (long)(g + 8 * hf) * hp + col)
-                                        : make_float2(0.f, 0.f);
-        float acc[MT][4];
+        psi_load_tape<T>(tp, lt, l, u, c0, sh);  // in flight during the products
         psi_row_product<NP, T, false>(gz, wb, hp, nc, u, acc);
-        float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int hf = 0; hf < HALVES; ++hf) {
-          const int p = g + 8 * hf;
-          float G0[kPsi], G1[kPsi];
-#pragma unroll
-          for (int q = 0; q < kPsi; ++q) {
-            G0[q] = at<T>(acc, q, hf, 0);
-            G1[q] = at<T>(acc, q, hf, 1);
-          }
-          if (l > 1) {
-            float z0[12], z1[12], o0[kPsi], o1[kPsi];
-#pragma unroll
-            for (int q = 1; q < kPsi; ++q) {
-              z0[q - 1] = tp[hf][q].x;
-              z1[q - 1] = tp[hf][q].y;
-            }
-            psi_gz(tp[hf][0].x, z0, G0, o0);
-            psi_gz(tp[hf][0].y, z1, G1, o1);
-            store_pair<NP, kPsi, S>(other, T, hp, p, col, o0, o1);
-            s[0][0] += o0[0];
-            s[1][0] += o1[0];
-          } else {
-            const bool live = n0 + p < n;
-            const float px = live ? x[2 * (n0 + p)] : 0.f;
-            const float py = live ? x[2 * (n0 + p) + 1] : 0.f;
-            if (col < h) psi_first_terms(tp[hf][0].x, flat[col], flat[h + col], px, py, G0, s[0]);
-            if (col + 1 < h)
-              psi_first_terms(tp[hf][0].y, flat[col + 1], flat[h + col + 1], px, py, G1, s[1]);
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          if (l > 1 && a > 0) break;
-          const float v0 = sum_over_rows(s[0][a]), v1 = sum_over_rows(s[1][a]);
-          if (g == 0) st2(dbs + (long)a * hp + col, v0, v1);
-        }
+        psi_rev_epilogue<NP, T>(acc, tp, l, u, c0, x, flat, n0, n, other, dbs, sh);
       }
     }
     __syncthreads();

@@ -16,7 +16,11 @@ and its gradient wrt the main-net parameters and the EVM output e:
 The CUDA sources (fused_residual.cu, tc_mlp.cuh) say what bounds them
 (operations) and how the design deals with the TPU kernels' sequential-grid
 accumulation (a fixed grid of persistent blocks, per-block partials, an
-ordered second pass: bitwise deterministic).
+ordered second pass: bitwise deterministic). Every width runs: `loss_plan`
+takes the resident plan (both packed carries of a tile in shared memory,
+`pick_loss_tile`) where it fits, else the streamed plan (the carries in a
+block-private global scratch, `carry_floats`, staged through shared memory
+a K-panel at a time), as the JAX kernels drop to smaller tiles.
 
 Precision. Every hidden-layer and head product of the pair runs on bf16
 parts of its operands, as the JAX kernels do: "default" one pass, "high"
@@ -40,7 +44,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +64,27 @@ _MAX_SMEM = 232_448    # bytes of shared memory a block may use on sm_90
 # 1-4 take 32-point tiles where they fit, else 16 (kernels 5+6: 16 or 8).
 LOSS_BLOCKS = 132
 LOSS_TILES = (32, 16)
+# The streamed plan (tc_mlp.cuh): 16-point tiles, the widest K-panel of these
+# that fits, N-panels of at most one 16 x 16 unit per warp (10 warps).
+STREAM_TILE = 16
+STREAM_KPANELS = (128, 64, 32, 16)
+TC_WARPS = 10
+
+
+class Plan(NamedTuple):
+    """How a tensor-core sweep lays out one block (tc_mlp.cuh, tc_psi.cuh):
+    the points per tile, the weight panel (resident: a divisor of the padded
+    width; streamed: the N-panel) and the K-panel, 0 for the resident plan
+    (both carries in shared memory), else the streamed plan (the carries in
+    a block-private global scratch, staged K-panel by K-panel)."""
+    tile: int
+    panel: int
+    kpanel: int = 0
+
+    @property
+    def streamed(self) -> bool:
+        return self.kpanel > 0
+
 
 # Launches of each kernel since the last reset; the wrappers add one per
 # launch, and the launch's rows to `launch_rows` (a data-parallel rank or a
@@ -88,32 +113,76 @@ def _round16(b: int) -> int:
     return -(-b // 16) * 16
 
 
-def loss_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 3) -> int:
-    """Shared memory of one block of kernels 1+2, for choosing the tile
-    without the library; the source's tc_smem (nsf_fused_loss_smem_bytes)
-    owns the layout and must agree (tests/test_torch_gpu.py checks)."""
+def loss_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 3,
+                    kpanel: int = 0) -> int:
+    """Shared memory of one block of kernels 1-4 on the plan (tile, panel,
+    kpanel), for choosing the plan without the library; the source's
+    tc_smem (nsf_fused_loss_smem_bytes) owns the layout and must agree
+    (tests/test_torch_gpu.py checks)."""
     hp = _pad16(h)
+    common = (_round16(5 * tile * k * 4) + _round16(parts * 5 * tile * k * 4)
+              + _round16(4 * tile * 4))
+    if kpanel:
+        a = 5 * tile * (kpanel + 8)
+        w = max(kpanel * (panel + 8), panel * (kpanel + 8), a)
+        return _round16(parts * a * 2) + _round16(parts * w * 2) + common
     carry = _round16(parts * 5 * tile * (hp + 8) * 2)
     wbuf = _round16(parts * max(hp * (panel + 8), panel * (hp + 8)) * 2)
-    rest = (_round16(parts * hp * k * 2) + _round16(5 * tile * k * 4)
-            + _round16(parts * 5 * tile * k * 4) + _round16(4 * tile * 4)
+    return (2 * carry + wbuf + _round16(parts * hp * k * 2) + common
             + _round16((tile // 8) * 3 * hp * 4))
-    return 2 * carry + wbuf + rest
+
+
+def carry_floats(tile: int, h: int, k: int, parts: int) -> int:
+    """Floats of the streamed plan's global regions of one block of kernels
+    1-4 (the two carries, the head weight parts, the column sums): the
+    library's tc_carry_floats (nsf_fused_loss_carry_floats)."""
+    hp = _pad16(h)
+    return (2 * _round16(parts * 5 * tile * (hp + 8) * 2) + _round16(parts * hp * k * 2)
+            + _round16((tile // 8) * 3 * hp * 4)) // 4
 
 
 def pick_loss_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
-    """(tile, panel) of kernels 1+2: the largest tile of LOSS_TILES, then the
-    widest weight panel (a multiple of 16 dividing the padded width), whose
-    block fits in shared memory. At the flagship width 80 the whole weight
-    and 32 points fit at every name; "highest" is refused from H = 193 on."""
+    """(tile, panel) of the resident plan of kernels 1-4: the largest tile of
+    LOSS_TILES, then the widest weight panel (a multiple of 16 dividing the
+    padded width), whose block fits in shared memory with both carries. At
+    the flagship width 80 the whole weight and 32 points fit at every name;
+    none fits from H = 561 on at "default", 289 at "high", 193 at "highest"
+    (`loss_plan` then streams the carries)."""
     hp = _pad16(h)
     panels = [p for p in range(hp, 0, -16) if hp % p == 0]
     for tile in LOSS_TILES:
         for panel in panels:
             if loss_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
                 return tile, panel
-    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit the "
+    raise ValueError(f"hidden width {h} at precision {precision!r}: no resident plan fits the "
                      f"kernel's shared memory")
+
+
+def streamed_panel(h: int, max_panel: int) -> int:
+    """The streamed plan's N-panel: the padded width cut into the fewest
+    panels of at most `max_panel` units, as even as multiples of 16 allow."""
+    hp = _pad16(h)
+    n_panels = -(-hp // max_panel)
+    return _round16(-(-hp // n_panels))
+
+
+def loss_plan(h: int, precision: str = "high", k: int = 3) -> Plan:
+    """The plan of kernels 1-4: the resident plan (`pick_loss_tile`) where
+    one fits, else the streamed plan: STREAM_TILE points, the N-panel of
+    `streamed_panel`, the widest K-panel of STREAM_KPANELS whose block fits.
+    Its shared memory does not grow with H, so every width plans."""
+    try:
+        return Plan(*pick_loss_tile(h, precision, k))
+    except ValueError:
+        pass
+    hp, parts = _pad16(h), PARTS[precision]
+    panel = streamed_panel(h, 16 * TC_WARPS * 16 // STREAM_TILE)
+    for kpanel in STREAM_KPANELS:
+        kpanel = min(kpanel, hp)
+        if loss_smem_bytes(STREAM_TILE, panel, h, parts, k, kpanel) <= _MAX_SMEM:
+            return Plan(STREAM_TILE, panel, kpanel)
+    raise ValueError(f"a head of {k} outputs at precision {precision!r} does not fit the "
+                     f"streamed plan's shared memory")
 
 
 def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
@@ -146,7 +215,7 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     design (16-point tiles storing every carry and tangent)."""
     n_hidden, h = len(sizes) - 2, sizes[1]
     p = param_count(sizes)
-    tile, _ = pick_loss_tile(h, precision)
+    tile = loss_plan(h, precision).tile
     tiles, hp = -(-n // tile), _pad16(h)
     layer = tile * hp * 4
     written = tiles * layer * (1 + 5 * (n_hidden - 1))
@@ -268,14 +337,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_residual")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     common = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i]
-    lib.nsf_fused_loss_fwd.argtypes = common + [p, p, p, p]
+    lib.nsf_fused_loss_fwd.argtypes = common + [p, p, p, p, i, p]
     lib.nsf_fused_loss_fwd.restype = i
-    lib.nsf_fused_loss_bwd.argtypes = common + [p, p, p, p, p, p, p]
+    lib.nsf_fused_loss_bwd.argtypes = common + [p, p, p, p, p, p, p, i, p]
     lib.nsf_fused_loss_bwd.restype = i
-    lib.nsf_fused_loss_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.nsf_fused_loss_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.nsf_fused_loss_smem_bytes.restype = i
     lib.nsf_fused_loss_scratch_floats.argtypes = [i, i, i]
     lib.nsf_fused_loss_scratch_floats.restype = ctypes.c_long
+    lib.nsf_fused_loss_carry_floats.argtypes = [i, i, i, i]
+    lib.nsf_fused_loss_carry_floats.restype = ctypes.c_long
     lib.nsf_fused_loss_weight_bytes.argtypes = [i, i, i]
     lib.nsf_fused_loss_weight_bytes.restype = ctypes.c_long
     return lib
@@ -287,11 +358,20 @@ def _weight_split(sizes, precision, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _carries(sizes, plan, precision, dev) -> Optional[torch.Tensor]:
+    """The streamed plan's global regions, LOSS_BLOCKS blocks of them; None
+    on the resident plan."""
+    if not plan.streamed:
+        return None
+    floats = _lib().nsf_fused_loss_carry_floats(plan.tile, sizes[1], sizes[-1], PARTS[precision])
+    return torch.empty(LOSS_BLOCKS * floats, dtype=torch.float32, device=dev)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision):
+def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan):
     n = x.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
@@ -305,17 +385,16 @@ def _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision):
             raise ValueError(f"{name}: need contiguous float32 {shape} on {x.device}")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
-    tile, panel = pick_loss_tile(sizes[1], precision, sizes[-1])
     if n % ROW_ALIGN != 0:
         raise ValueError(f"batch {n} must be padded to a multiple of {ROW_ALIGN}")
-    return n, (tile, panel)
+    return n, plan or loss_plan(sizes[1], precision, sizes[-1])
 
 
-def _launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision):
+def _launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision):
     n_hidden = len(sizes) - 2
     return [_ptr(x), _ptr(flat), _ptr(e) if evm else None, _ptr(vis_t) if evm else None,
-            _ptr(eq_w), x.shape[0], n_hidden, sizes[1], sizes[-1], *tiling, LOSS_BLOCKS,
-            PARTS[precision], float(re), float(scale), int(evm)]
+            _ptr(eq_w), x.shape[0], n_hidden, sizes[1], sizes[-1], plan.tile, plan.panel,
+            LOSS_BLOCKS, PARTS[precision], float(re), float(scale), int(evm)]
 
 
 class KernelLaunchError(RuntimeError):
@@ -330,18 +409,20 @@ def _raise_on(code: int, what: str):
 def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               e: Optional[torch.Tensor], vis_t: Optional[torch.Tensor],
               eq_w: torch.Tensor, re: float, scale: float, evm: bool,
-              precision: str = "high") -> torch.Tensor:
-    """Kernel 1: the [3|4] weighted sums of squares."""
+              precision: str = "high", plan: Optional[Plan] = None) -> torch.Tensor:
+    """Kernel 1: the [3|4] weighted sums of squares, on `plan` (by default
+    `loss_plan`'s)."""
     e = e.contiguous() if evm else None
-    n, tiling = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision)
+    n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
     partial = torch.empty(LOSS_BLOCKS * 4, dtype=torch.float32, device=x.device)
     out = torch.empty(4 if evm else 3, dtype=torch.float32, device=x.device)
     wsplit = _weight_split(sizes, precision, x.device)
+    carries = _carries(sizes, plan, precision, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _lib().nsf_fused_loss_fwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision),
-            _ptr(wsplit), _ptr(partial), _ptr(out), stream)
+            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
+            _ptr(wsplit), _ptr(partial), _ptr(out), stream, plan.kpanel, _ptr(carries))
     _raise_on(code, "fused residual loss forward")
     launch_counts["fused_residual_fwd"] += 1
     launch_rows["fused_residual_fwd"] += n
@@ -351,27 +432,31 @@ def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
 def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               e: Optional[torch.Tensor], vis_t: Optional[torch.Tensor],
               eq_w: torch.Tensor, re: float, ct: torch.Tensor, scale: float,
-              evm: bool, precision: str = "high") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel 2: (d(ct . S)/dflat, d(ct . S)/de) — the latter None if vanilla."""
+              evm: bool, precision: str = "high",
+              plan: Optional[Plan] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel 2: (d(ct . S)/dflat, d(ct . S)/de) — the latter None if
+    vanilla — on `plan` (by default `loss_plan`'s)."""
     e = e.contiguous() if evm else None
-    n, tiling = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision)
+    n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
     n_out = 4 if evm else 3
     ct = ct.to(device=x.device, dtype=torch.float32).contiguous().reshape(-1)
     if ct.numel() != n_out:
         raise ValueError(f"ct: need {n_out} cotangents, got {ct.numel()}")
     p = param_count(sizes)
     dev = x.device
-    block_floats = _lib().nsf_fused_loss_scratch_floats(tiling[0], sizes[1], len(sizes) - 2)
+    block_floats = _lib().nsf_fused_loss_scratch_floats(plan.tile, sizes[1], len(sizes) - 2)
     scratch = torch.empty(LOSS_BLOCKS * block_floats, dtype=torch.float32, device=dev)
     dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     g_e = torch.empty((n, 1), dtype=torch.float32, device=dev) if evm else None
     wsplit = _weight_split(sizes, precision, dev)
+    carries = _carries(sizes, plan, precision, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _lib().nsf_fused_loss_bwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, tiling, precision),
-            _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream)
+            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
+            _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream,
+            plan.kpanel, _ptr(carries))
     _raise_on(code, "fused residual loss backward")
     launch_counts["fused_residual_bwd"] += 1
     launch_rows["fused_residual_bwd"] += n

@@ -30,8 +30,9 @@ parts of their operands at the name's passes, as the JAX kernels do:
 (`fused_residual.emulated_derivatives`); `precision=None` is exact fp32.
 
 Tiles come from this card's shared memory, not from the TPU kernel's
-TILE = 512: both kernels take the tile and weight panel of the tensor-core
-sweep's count (`pick_bwd_tile`, the rule of kernels 1+2). The TPU engine's
+TILE = 512: both kernels take the plan of the tensor-core sweep's count
+(`fused_residual.loss_plan`, the rule of kernels 1+2): the resident plan where it fits
+(`pick_bwd_tile`), else the streamed plan, so every width runs. The TPU engine's
 `lane_pad` option (pallas_mlp.py:371-413) zero-pads hidden widths to the
 MXU's 128 lanes and changes no result; the kernels pad to their own
 granule, so it is not carried over.
@@ -62,11 +63,11 @@ def reset_launch_counts() -> None:
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
-    """(tile, panel) of kernel 4: the rule of kernels 1+2 (the same
-    tensor-core sweep and shared-memory count, tc_smem), at the net's head
-    width; the source's nsf_mlp_streams_bwd_smem_bytes must agree
-    (tests/test_torch_gpu.py checks). 32 points with the whole weight at
-    4x120 and 6x80 at "high"."""
+    """(tile, panel) of the resident plan of kernels 3+4: the rule of
+    kernels 1+2 (the same tensor-core sweep and shared-memory count,
+    tc_smem), at the net's head width; the source's
+    nsf_mlp_streams_smem_bytes must agree (tests/test_torch_gpu.py checks).
+    32 points with the whole weight at 4x120 and 6x80 at "high"."""
     return fr.pick_loss_tile(h, precision, k)
 
 
@@ -124,14 +125,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mlp_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
     common = [p, p, i, i, i, i]
-    lib.nsf_mlp_streams_fwd.argtypes = common + [i, i, i, i] + [p] * 7
+    lib.nsf_mlp_streams_fwd.argtypes = common + [i, i, i, i] + [p] * 7 + [i, p]
     lib.nsf_mlp_streams_fwd.restype = i
-    lib.nsf_mlp_streams_bwd.argtypes = common + [i, i, i, i] + [p] * 10
+    lib.nsf_mlp_streams_bwd.argtypes = common + [i, i, i, i] + [p] * 10 + [i, p]
     lib.nsf_mlp_streams_bwd.restype = i
-    lib.nsf_mlp_streams_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.nsf_mlp_streams_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.nsf_mlp_streams_smem_bytes.restype = i
     lib.nsf_mlp_streams_tape_floats.argtypes = [i, i, i]
     lib.nsf_mlp_streams_tape_floats.restype = ctypes.c_long
+    lib.nsf_mlp_streams_carry_floats.argtypes = [i, i, i, i]
+    lib.nsf_mlp_streams_carry_floats.restype = ctypes.c_long
     lib.nsf_mlp_streams_weight_bytes.argtypes = [i, i, i]
     lib.nsf_mlp_streams_weight_bytes.restype = ctypes.c_long
     return lib
@@ -169,47 +172,67 @@ def _weight_split(lib, sizes, parts, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _carries(lib, sizes, plan, parts, dev) -> Optional[torch.Tensor]:
+    """The streamed plan's global regions, LOSS_BLOCKS blocks of them; None
+    on the resident plan."""
+    if not plan.streamed:
+        return None
+    floats = lib.nsf_mlp_streams_carry_floats(plan.tile, sizes[1], sizes[-1], parts)
+    return torch.empty(LOSS_BLOCKS * floats, dtype=torch.float32, device=dev)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-                precision: str = "high") -> Derivs:
-    """Kernel 3: the five [N,K] streams, at the name's bf16 passes."""
+                precision: str = "high", plan: Optional[fr.Plan] = None) -> Derivs:
+    """Kernel 3: the five [N,K] streams, at the name's bf16 passes, on
+    `plan` (by default `fused_residual.loss_plan`'s)."""
     _check_precision(precision)
     n = _check_inputs(flat, sizes, x)
-    tile, panel = pick_bwd_tile(sizes[1], precision, sizes[-1])
+    plan = plan or fr.loss_plan(sizes[1], precision, sizes[-1])
     parts, dev, lib = PARTS[precision], x.device, _lib()
     wsplit = _weight_split(lib, sizes, parts, dev)
+    carries = _carries(lib, sizes, plan, parts, dev)
     out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev) for _ in range(5))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
-                                       parts, wsplit.data_ptr(), *(o.data_ptr() for o in out),
-                                       stream)
+        code = lib.nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                       LOSS_BLOCKS, parts, wsplit.data_ptr(),
+                                       *(o.data_ptr() for o in out), stream, plan.kpanel,
+                                       _ptr(carries))
     _raise_on(code, "mlp streams forward")
     launch_counts["mlp_streams_fwd"] += 1
     return out
 
 
 def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-                cts: Sequence[torch.Tensor], precision: str = "high") -> torch.Tensor:
+                cts: Sequence[torch.Tensor], precision: str = "high",
+                plan: Optional[fr.Plan] = None) -> torch.Tensor:
     """Kernel 4: the gradient wrt the flat weights from five [N,K]
-    cotangents, at the name's bf16 passes."""
+    cotangents, at the name's bf16 passes, on `plan` (by default
+    `fused_residual.loss_plan`'s)."""
     if len(cts) != 5:
         raise ValueError(f"need the five streams' cotangents, got {len(cts)}")
     _check_precision(precision)
     n = _check_inputs(flat, sizes, x, cts)
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    tile, panel = pick_bwd_tile(h, precision, k)
+    plan = plan or fr.loss_plan(h, precision, k)
     parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
-    tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(tile, h, n_hidden),
+    tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(plan.tile, h, n_hidden),
                        dtype=torch.float32, device=dev)
     wsplit = _weight_split(lib, sizes, parts, dev)
+    carries = _carries(lib, sizes, plan, parts, dev)
     dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
-                                       parts, wsplit.data_ptr(), *(c.data_ptr() for c in cts),
-                                       tape.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
-                                       stream)
+        code = lib.nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                       LOSS_BLOCKS, parts, wsplit.data_ptr(),
+                                       *(c.data_ptr() for c in cts), tape.data_ptr(),
+                                       dpart.data_ptr(), dflat.data_ptr(), stream, plan.kpanel,
+                                       _ptr(carries))
     _raise_on(code, "mlp streams backward")
     launch_counts["mlp_streams_bwd"] += 1
     return dflat

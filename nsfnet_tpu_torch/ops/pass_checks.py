@@ -24,6 +24,18 @@ which their fp32 sums round differs. Per stream, norm-wise
 sums rounded once (`fused_residual.sums_rounded_once`), counting the carries
 whose bf16 parts differ between the two and the share of the distance that
 lies on their points.
+
+The separation bar tells the names apart only while the kernel's own fp32
+accumulation (mma.sync adds a product chunk of 16 into the fp32 accumulator
+per step, K / 16 steps per pass) moves an output less than bf16x3's
+truncation does. Both grow with the product depth K, the accumulation
+faster: on the H100 the kernels read 0.49-0.68 up to K = 352 and 1.03
+(five streams) / 1.21 (order 3) at K = 1024, where the witness still reads
+0.33 / 0.37 and the plain "highest" passes 0.99 (PERF.md, section 6).
+HIGH_SEP_MAX_K is the deepest K at which the bar is gated; deeper, the
+figure is reported and the name is held by the streamed plan's bitwise
+equality with the resident plan at a resident tile (the same passes) and by
+the point-wise bars against the plain passes and exact fp32.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 from nsfnet_tpu_torch.ops import fused_residual as fr
 
 HIGH_SEP = 0.8
+HIGH_SEP_MAX_K = 352
 DEFAULT_NORM_TOL = 2e-3
 
 

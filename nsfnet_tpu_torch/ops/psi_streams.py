@@ -35,9 +35,11 @@ reaches the kernels as the number of parts (`fused_residual.PARTS`).
 
 Tiles come from this card's shared memory, not from the TPU kernels' VMEM
 budgets (`fwd_tile_for_psi` / `bwd_tile_for_psi`) or their
-NSFNET_PALLAS_PSI_*_TILE knobs: both kernels take kernel 6's rule (16 or 8
-points and a weight panel, `pick_bwd_tile`). Every tile divides ROW_ALIGN,
-so the solver's padding is that of the other engines.
+NSFNET_PALLAS_PSI_*_TILE knobs: both kernels take kernel 6's plan
+(`psi_plan`): the resident plan where it fits (16 or 8 points and a weight
+panel, `pick_bwd_tile`), else the streamed plan (tc_mlp.cuh), so every
+width runs, as the JAX kernels' smallest tiles do. Every tile divides
+ROW_ALIGN, so the solver's padding is that of the other engines.
 """
 
 from __future__ import annotations
@@ -52,12 +54,15 @@ from nsfnet_tpu_torch.models.mlp import Params, param_count, unflatten_params
 from nsfnet_tpu_torch.ops import _build, mlp_streams
 from nsfnet_tpu_torch.ops.derivatives import (N_PSI_STREAMS, Derivs, assemble_psi_bundle,
                                               mlp_psi_streams, tanh_chain)
-from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, LOSS_BLOCKS, PARTS, _pad16,
-                                                 _raise_on, _round16, pass_dot)
+from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, LOSS_BLOCKS, PARTS, STREAM_KPANELS,
+                                                 TC_WARPS, Plan, _pad16, _raise_on, _round16,
+                                                 pass_dot, streamed_panel)
 from nsfnet_tpu_torch.ops.mlp_streams import _check_inputs, _check_precision, _launch_args
 
-# Kernels 5+6: 16-point tiles where they fit, else 8 (the 13 streams padded to 14)
+# Kernels 5+6: 16-point tiles where they fit, else 8 (the 13 streams padded to
+# 14); the streamed plan takes 16-point tiles
 PSI_BWD_TILES = (16, 8)
+PSI_STREAM_TILE = 16
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"psi_streams_fwd": 0, "psi_streams_bwd": 0}
@@ -68,33 +73,71 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2) -> int:
-    """Shared memory of one block of kernel 5 or 6, for choosing the tile
-    without the library; the source's psi_smem (nsf_psi_streams_smem_bytes)
-    owns the layout and must agree (tests/test_torch_gpu.py checks)."""
+def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2,
+                   kpanel: int = 0) -> int:
+    """Shared memory of one block of kernel 5 or 6 on the plan (tile, panel,
+    kpanel), for choosing the plan without the library; the source's
+    psi_smem (nsf_psi_streams_smem_bytes) owns the layout and must agree
+    (tests/test_torch_gpu.py checks)."""
     hp = _pad16(h)
-    streams = N_PSI_STREAMS if tile == 16 else N_PSI_STREAMS + 1
-    carry = _round16(parts * streams * tile * (hp + 8) * 2)
+    rows = (N_PSI_STREAMS if tile == 16 else N_PSI_STREAMS + 1) * tile
+    common = (_round16(N_PSI_STREAMS * tile * k * 4)
+              + _round16(parts * N_PSI_STREAMS * tile * k * 4))
+    if kpanel:
+        a = rows * (kpanel + 8)
+        w = max(kpanel * (panel + 8), panel * (kpanel + 8), a)
+        return _round16(parts * a * 2) + _round16(parts * w * 2) + common
+    carry = _round16(parts * rows * (hp + 8) * 2)
     wbuf = _round16(parts * max(hp * (panel + 8), panel * (hp + 8)) * 2)
-    rest = (_round16(parts * hp * k * 2) + _round16(N_PSI_STREAMS * tile * k * 4)
-            + _round16(parts * N_PSI_STREAMS * tile * k * 4) + _round16((tile // 8) * 3 * hp * 4))
-    return 2 * carry + wbuf + rest
+    return (2 * carry + wbuf + _round16(parts * hp * k * 2) + common
+            + _round16((tile // 8) * 3 * hp * 4))
+
+
+def carry_floats(tile: int, h: int, k: int, parts: int) -> int:
+    """Floats of the streamed plan's global regions of one block of kernels
+    5+6 (the two carries, the head weight parts, the column sums): the
+    library's psi_carry_floats (nsf_psi_streams_carry_floats)."""
+    hp = _pad16(h)
+    rows = (N_PSI_STREAMS if tile == 16 else N_PSI_STREAMS + 1) * tile
+    return (2 * _round16(parts * rows * (hp + 8) * 2) + _round16(parts * hp * k * 2)
+            + _round16((tile // 8) * 3 * hp * 4)) // 4
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 2) -> Tuple[int, int]:
-    """(tile, panel) of kernels 5 and 6: the largest tile of PSI_BWD_TILES,
-    then the widest weight panel (a multiple of 16 dividing the padded width), whose
-    block fits in shared memory. 16 points and the whole weight at 4x40 and
-    at 6x80 up to "high"; 8 points at 6x80 "highest" and at 4x120 "high" /
-    "highest". A width and name that fits neither raises."""
+    """(tile, panel) of the resident plan of kernels 5 and 6: the largest
+    tile of PSI_BWD_TILES, then the widest weight panel (a multiple of 16
+    dividing the padded width), whose block fits in shared memory with both
+    carries. 16 points and the whole weight at 4x40 and at 6x80 up to
+    "high"; 8 points at 6x80 "highest" and at 4x120 "high" / "highest";
+    none from H = 433 on at "default", 209 at "high", 145 at "highest"
+    (`psi_plan` then streams the carries)."""
     hp = _pad16(h)
     panels = [p for p in range(hp, 0, -16) if hp % p == 0]
     for tile in PSI_BWD_TILES:
         for panel in panels:
             if bwd_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
                 return tile, panel
-    raise ValueError(f"hidden width {h} at precision {precision!r} does not fit kernels 5+6's "
-                     f"shared memory")
+    raise ValueError(f"hidden width {h} at precision {precision!r}: no resident plan fits "
+                     f"kernels 5+6's shared memory")
+
+
+def psi_plan(h: int, precision: str = "high", k: int = 2) -> Plan:
+    """The plan of kernels 5+6: the resident plan (`pick_bwd_tile`) where one
+    fits, else the streamed plan: PSI_STREAM_TILE points (13 streams), an
+    N-panel of at most one 8-column unit per warp (`streamed_panel`), the
+    widest K-panel of STREAM_KPANELS whose block fits. Every width plans."""
+    try:
+        return Plan(*pick_bwd_tile(h, precision, k))
+    except ValueError:
+        pass
+    hp, parts = _pad16(h), PARTS[precision]
+    panel = streamed_panel(h, 8 * TC_WARPS)
+    for kpanel in STREAM_KPANELS:
+        kpanel = min(kpanel, hp)
+        if bwd_smem_bytes(PSI_STREAM_TILE, panel, h, parts, k, kpanel) <= _MAX_SMEM:
+            return Plan(PSI_STREAM_TILE, panel, kpanel)
+    raise ValueError(f"a head of {k} outputs at precision {precision!r} does not fit the "
+                     f"streamed plan's shared memory")
 
 
 def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
@@ -121,7 +164,7 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     read once)."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
     p = param_count(sizes)
-    tile, _ = pick_bwd_tile(h, precision, k)
+    tile = psi_plan(h, precision, k).tile
     tiles, hp = -(-n // tile), _pad16(h)
     layer = tile * hp * 4
     written = tiles * layer * (1 + 13 * (n_hidden - 1))
@@ -189,14 +232,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("psi_streams")
     p, i = ctypes.c_void_p, ctypes.c_int
     common = [p, p, i, i, i, i]
-    lib.nsf_psi_streams_fwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p]
+    lib.nsf_psi_streams_fwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p, i, p]
     lib.nsf_psi_streams_fwd.restype = i
-    lib.nsf_psi_streams_bwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p, p, p, p]
+    lib.nsf_psi_streams_bwd.argtypes = common + [i, i, i, i, p, ctypes.POINTER(p), p, p, p, p,
+                                                 i, p]
     lib.nsf_psi_streams_bwd.restype = i
-    lib.nsf_psi_streams_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.nsf_psi_streams_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.nsf_psi_streams_smem_bytes.restype = i
     lib.nsf_psi_streams_tape_floats.argtypes = [i, i, i]
     lib.nsf_psi_streams_tape_floats.restype = ctypes.c_long
+    lib.nsf_psi_streams_carry_floats.argtypes = [i, i, i, i]
+    lib.nsf_psi_streams_carry_floats.restype = ctypes.c_long
     lib.nsf_psi_streams_weight_bytes.argtypes = [i, i, i]
     lib.nsf_psi_streams_weight_bytes.restype = ctypes.c_long
     return lib
@@ -212,46 +258,64 @@ def _weight_split(lib, sizes, parts, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _carries(lib, sizes, plan, parts, dev) -> Optional[torch.Tensor]:
+    """The streamed plan's global regions, LOSS_BLOCKS blocks of them; None
+    on the resident plan."""
+    if not plan.streamed:
+        return None
+    floats = lib.nsf_psi_streams_carry_floats(plan.tile, sizes[1], sizes[-1], parts)
+    return torch.empty(LOSS_BLOCKS * floats, dtype=torch.float32, device=dev)
+
+
 def psi_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-            precision: str = "high") -> Tuple[torch.Tensor, ...]:
-    """Kernel 5: the thirteen raw [N,K] streams, at the name's bf16 passes."""
+            precision: str = "high", plan: Optional[Plan] = None) -> Tuple[torch.Tensor, ...]:
+    """Kernel 5: the thirteen raw [N,K] streams, at the name's bf16 passes,
+    on `plan` (by default `psi_plan`'s)."""
     _check_precision(precision)
     n = _check_inputs(flat, sizes, x)
-    tile, panel = pick_bwd_tile(sizes[1], precision, sizes[-1])
+    plan = plan or psi_plan(sizes[1], precision, sizes[-1])
     parts, dev, lib = PARTS[precision], x.device, _lib()
     wsplit = _weight_split(lib, sizes, parts, dev)
+    carries = _carries(lib, sizes, plan, parts, dev)
     out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev)
                 for _ in range(N_PSI_STREAMS))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
-                                       parts, wsplit.data_ptr(), _pointers(out), stream)
+        code = lib.nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                       LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(out),
+                                       stream, plan.kpanel,
+                                       None if carries is None else carries.data_ptr())
     _raise_on(code, "psi streams forward")
     launch_counts["psi_streams_fwd"] += 1
     return out
 
 
 def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
-            cts: Sequence[torch.Tensor], precision: str = "high") -> torch.Tensor:
+            cts: Sequence[torch.Tensor], precision: str = "high",
+            plan: Optional[Plan] = None) -> torch.Tensor:
     """Kernel 6: the gradient wrt the flat weights from thirteen [N,K]
-    cotangents, at the name's bf16 passes."""
+    cotangents, at the name's bf16 passes, on `plan` (by default
+    `psi_plan`'s)."""
     if len(cts) != N_PSI_STREAMS:
         raise ValueError(f"need the {N_PSI_STREAMS} streams' cotangents, got {len(cts)}")
     _check_precision(precision)
     n = _check_inputs(flat, sizes, x, cts)
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    tile, panel = pick_bwd_tile(h, precision, k)
+    plan = plan or psi_plan(h, precision, k)
     parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
-    tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(tile, h, n_hidden),
+    tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(plan.tile, h, n_hidden),
                        dtype=torch.float32, device=dev)
     wsplit = _weight_split(lib, sizes, parts, dev)
+    carries = _carries(lib, sizes, plan, parts, dev)
     dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
     dflat = torch.empty(p, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_psi_streams_bwd(*_launch_args(flat, sizes, x), tile, panel, LOSS_BLOCKS,
-                                       parts, wsplit.data_ptr(), _pointers(cts), tape.data_ptr(),
-                                       dpart.data_ptr(), dflat.data_ptr(), stream)
+        code = lib.nsf_psi_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                       LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(cts),
+                                       tape.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
+                                       stream, plan.kpanel,
+                                       None if carries is None else carries.data_ptr())
     _raise_on(code, "psi streams backward")
     launch_counts["psi_streams_bwd"] += 1
     return dflat

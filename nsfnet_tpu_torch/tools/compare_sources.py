@@ -1,7 +1,7 @@
 """Do the kernels give the outputs of another copy of the CUDA sources?
 
     python -m nsfnet_tpu_torch.tools.compare_sources <directory with *.cu / *.cuh>
-        [--kernels 1,2,3,4,5,6]
+        [--kernels 1,2,3,4,5,6] [--time]
 
 Builds the libraries from this checkout's csrc/ and from the given directory
 (for example the csrc/ of an earlier commit, unpacked with `git archive`),
@@ -11,15 +11,19 @@ N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 at
 6x80 with EVM only), every kernel at the precision name "high":
 
   * a kernel whose design is the same in both copies must be bitwise equal
-    (torch.equal);
+    (torch.equal); a copy from before the streamed plan (its C interface
+    takes no kpanel and no carries) is called through that interface, on
+    the resident plan both copies share at these widths;
   * a kernel of the other copy from before its tensor-core design (exact
     fp32 on the CUDA cores, called through its old C interface: kernels
     1+2 before the tensor-core pair, kernels 4 and 6 before the tensor-core
     backwards, kernels 3 and 5 before the tensor-core forwards) is reported
     as the largest relative difference, max|a - b| / max|b| per output.
 
-Exits 1 when a kernel that must be bitwise equal differs. Use it after
-touching a header the kernels share.
+With --time it also times each kernel of both builds with CUDA events, in
+turns in one process (this checkout, the other, the other, this), for
+kernels whose design both copies share. Exits 1 when a kernel that must be
+bitwise equal differs. Use it after touching a header the kernels share.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from nsfnet_tpu_torch.ops import psi_streams as psi
 
 CASES = {"6x80": 120_000, "4x120": 40_000}
 LEGACY_BLOCKS = 264  # the CUDA-core kernels' fixed grid
+_load = _build.load  # the legacy calls below set their own argument types
 
 
 def _inputs(sizes, n, dev):
@@ -141,15 +146,101 @@ def _modern(csrc: Path, source: str, header: str) -> bool:
     return f'"{header}"' in (csrc / source).read_text()
 
 
-def run_kernels(csrc: Path, kernels) -> dict:
+class _Truncated:
+    """An entry point of a library from before the streamed plan, called
+    with the current interface: the trailing plan arguments (kpanel, and the
+    carries of the forwards and backwards) are dropped, and must be those of
+    the resident plan (0, None)."""
+
+    def __init__(self, fn, drop):
+        self._fn, self._drop = fn, drop
+
+    @property
+    def argtypes(self):
+        return self._fn.argtypes
+
+    @argtypes.setter
+    def argtypes(self, types):
+        self._fn.argtypes = types[:-self._drop]
+
+    @property
+    def restype(self):
+        return self._fn.restype
+
+    @restype.setter
+    def restype(self, t):
+        self._fn.restype = t
+
+    def __call__(self, *args):
+        if any(args[len(args) - self._drop:]):
+            raise ValueError("a copy from before the streamed plan runs the resident plan only")
+        return self._fn(*args[:-self._drop])
+
+
+class _NoCarries:
+    """`*_carry_floats` of a library from before the streamed plan."""
+    argtypes = restype = None
+
+    def __call__(self, *args):
+        return 0
+
+
+class _Unplanned:
+    """A library built from sources from before the streamed plan, seen
+    through the current C interface."""
+    APPENDED = (("_fwd", 2), ("_bwd", 2), ("_smem_bytes", 1))
+
+    def __init__(self, lib):
+        self._lib, self._fns = lib, {}
+
+    def __getattr__(self, name):
+        if name not in self._fns:
+            drop = dict((s, d) for s, d in self.APPENDED if name.endswith(s))
+            self._fns[name] = (_NoCarries() if name.endswith("_carry_floats")
+                               else _Truncated(getattr(self._lib, name), *drop.values())
+                               if drop else getattr(self._lib, name))
+        return self._fns[name]
+
+
+def _ms(fn, iters=10):
+    """Mean ms of fn() on the card over `iters` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_kernels(csrc: Path, kernels, timed: bool = False) -> dict:
     """Outputs of the chosen kernels built from `csrc`, by case and kernel:
-    (name, tensors, bitwise) with bitwise False for a design from before the
-    tensor cores."""
+    (name, tensors, bitwise, ms) with bitwise False for a design from before
+    the tensor cores; ms (timed, and bitwise only) the kernel's mean time,
+    else None."""
     _build.CSRC = Path(csrc).resolve()
     _build._loaded.clear()
     for mod in (fr, ms, psi):
         mod._lib.cache_clear()
+    header = _build.CSRC / "tc_mlp.cuh"
+    if not header.exists() or "kpanel" not in header.read_text():
+        _build.load = lambda name: _Unplanned(_load(name))
+    try:
+        return _run(kernels, timed)
+    finally:
+        _build.load = _load
+        for mod in (fr, ms, psi):
+            mod._lib.cache_clear()
+
+
+def _run(kernels, timed) -> dict:
     dev, out = torch.device("cuda", 0), {}
+
+    def entry(name, call, modern):
+        return (name, call(), modern, _ms(call) if timed and modern else None)
+
     if kernels & {1, 2}:
         sizes = layer_sizes(2, 3, 6, 80)
         n = CASES["6x80"]
@@ -161,13 +252,16 @@ def run_kernels(csrc: Path, kernels) -> dict:
         modern = _modern(_build.CSRC, "fused_residual.cu", "tc_mlp.cuh")
         if modern:
             args = (flat, sizes, x, e, vis_t, eq_w, 2000.0)
-            fwd = [fr.fused_fwd(*args, 1.0, True, "high")]
-            bwd = list(fr.fused_bwd(*args, ct, 1.0, True, "high"))
+            out["6x80"] = {
+                1: entry("fused_residual_fwd", lambda: [fr.fused_fwd(*args, 1.0, True, "high")],
+                         True),
+                2: entry("fused_residual_bwd",
+                         lambda: list(fr.fused_bwd(*args, ct, 1.0, True, "high")), True)}
         else:
-            fwd, bwd = _legacy_pair(_build.load("fused_residual"), flat, sizes, x, e, vis_t,
+            fwd, bwd = _legacy_pair(_load("fused_residual"), flat, sizes, x, e, vis_t,
                                     eq_w, 2000.0, ct)
-        out["6x80"] = {1: ("fused_residual_fwd", fwd, modern),
-                       2: ("fused_residual_bwd", bwd, modern)}
+            out["6x80"] = {1: ("fused_residual_fwd", fwd, False, None),
+                           2: ("fused_residual_bwd", bwd, False, None)}
     engines = ((3, 4, 3, 5, "mlp_streams", ms.streams_fwd, ms.streams_bwd, "tc_mlp.cuh"),
                (5, 6, 2, 13, "psi_streams", psi.psi_fwd, psi.psi_bwd, "tc_psi.cuh"))
     for case, n in CASES.items():
@@ -182,13 +276,13 @@ def run_kernels(csrc: Path, kernels) -> dict:
             # the CUDA-core forwards ran forward_tile / psi_forward_tile
             fwd_modern = "forward_tile(" not in (_build.CSRC / f"{name}.cu").read_text()
             bwd_modern = _modern(_build.CSRC, f"{name}.cu", header)
-            lib, prefix = _build.load(name), f"nsf_{name}"
-            outs = (list(fwd(flat, sizes, x, "high")) if fwd_modern
-                    else _legacy_fwd(lib, prefix, flat, sizes, x, n_streams))
-            grads = ([bwd(flat, sizes, x, cts, "high")] if bwd_modern
-                     else _legacy_bwd(lib, prefix, flat, sizes, x, cts))
-            got[kf] = (f"{name}_fwd", outs, fwd_modern)
-            got[kb] = (f"{name}_bwd", grads, bwd_modern)
+            lib, prefix = _load(name), f"nsf_{name}"
+            got[kf] = entry(f"{name}_fwd", lambda: list(fwd(flat, sizes, x, "high"))
+                            if fwd_modern else _legacy_fwd(lib, prefix, flat, sizes, x, n_streams),
+                            fwd_modern)
+            got[kb] = entry(f"{name}_bwd", lambda: [bwd(flat, sizes, x, cts, "high")]
+                            if bwd_modern else _legacy_bwd(lib, prefix, flat, sizes, x, cts),
+                            bwd_modern)
     torch.cuda.synchronize()
     return {case: {k: v for k, v in got.items() if k in kernels} for case, got in out.items()}
 
@@ -198,6 +292,8 @@ def main(argv=None) -> int:
     ap.add_argument("csrc", type=Path)
     ap.add_argument("--kernels", default="1,2,3,4,5,6",
                     help="comma-separated kernel numbers, 1-6 (default: all)")
+    ap.add_argument("--time", action="store_true",
+                    help="also time both builds' kernels, in turns in this process")
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
     kernels = {int(k) for k in a.kernels.split(",")}
     if not kernels <= set(range(1, 7)):
@@ -207,7 +303,9 @@ def main(argv=None) -> int:
         return 1
     here = _build.CSRC
     try:
-        mine, theirs = run_kernels(here, kernels), run_kernels(a.csrc, kernels)
+        mine, theirs = run_kernels(here, kernels, a.time), run_kernels(a.csrc, kernels, a.time)
+        if a.time:  # the second turn, in the other order
+            again = (run_kernels(a.csrc, kernels, True), run_kernels(here, kernels, True))
     finally:
         _build.CSRC = here
         _build._loaded.clear()
@@ -215,8 +313,12 @@ def main(argv=None) -> int:
             mod._lib.cache_clear()
     same = True
     for case, got in mine.items():
-        for k, (name, tensors, _) in sorted(got.items()):
-            _, ref, bitwise = theirs[case][k]
+        for k, (name, tensors, _, ms_) in sorted(got.items()):
+            _, ref, bitwise, their_ms = theirs[case][k]
+            if a.time and ms_ is not None and their_ms is not None:
+                print(f"{name} {case}: {ms_:.4f} / {again[1][case][k][3]:.4f} ms here, "
+                      f"{their_ms:.4f} / {again[0][case][k][3]:.4f} ms from {a.csrc} "
+                      f"(turns: here, there, there, here; {torch.cuda.get_device_name(0)})")
             if not bitwise:
                 rel = max(((t - r).abs().max() / r.abs().max()).item()
                           for t, r in zip(tensors, ref))

@@ -41,9 +41,10 @@ then exits 3 without the collective save (resume from the newest cadence
 checkpoint). `training.mesh_devices` must equal the number of processes.
 `--profile DIR` records a torch.profiler trace of the first stage into DIR
 (utils/profiling.py). Settings this port cannot honour are refused in
-`unsupported()` rather than ignored, before any data is built: among them
-a net wider than the kernels' tiles take at its precision name
-(`ops.width_refusal`). The JAX package's startup keepalive
+`unsupported()` rather than ignored, before any data is built. The kernels
+take every width (a net too wide for a block's shared memory streams its
+carries through it: ops/fused_residual.loss_plan, ops/psi_streams.psi_plan).
+The JAX package's startup keepalive
 (which guards remote TPU compiles) has no counterpart: nothing compiles at
 start-up here.
 """
@@ -65,10 +66,9 @@ from nsfnet_tpu_torch.config import ConfigManager
 from nsfnet_tpu_torch.data.cavity import CavityData
 from nsfnet_tpu_torch.logger import get_logger
 from nsfnet_tpu_torch.models.mlp import widen_mlp_params
-from nsfnet_tpu_torch.ops import width_refusal
 from nsfnet_tpu_torch.parallel.mesh import initialize_distributed
 from nsfnet_tpu_torch.training import checkpoint as ckpt
-from nsfnet_tpu_torch.training.solver import PINNSolver, resolve_engine
+from nsfnet_tpu_torch.training.solver import PINNSolver
 from nsfnet_tpu_torch.utils.profiling import torch_trace
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
@@ -103,17 +103,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def unsupported(cfg, world_size: int = 1, device_type: str = "cuda") -> list:
+def unsupported(cfg, world_size: int = 1) -> list:
     """Config settings this port cannot honour in a run of `world_size`
-    processes on `device_type`."""
-    t, n = cfg.training, cfg.network
+    processes."""
+    t = cfg.training
     out = []
-    backbone = n.backbone if cfg.model_variant != "kan" else "kan"
-    if resolve_engine("auto", device_type, backbone, n.fourier_features,
-                      n.formulation) == "pallas":
-        refused = width_refusal(n.hidden_size, t.matmul_precision, n.formulation)
-        if refused is not None:
-            out.append(refused)
     if cfg.model_variant not in ("nsfnet", "ev-nsfnet", "kan"):
         out.append(f"model_variant {cfg.model_variant!r}")
     if t.mesh_devices is not None and t.mesh_devices != world_size:
@@ -268,7 +262,7 @@ def _main(args, rank: int, world: int, local_rank: int) -> int:
         logger.info(f"process group: backend {dist.get_backend()}, "
                     f"rank {rank} of {world}, local rank {local_rank}")
     problems = cm.validate() + [f"not supported by the PyTorch port yet: {u}"
-                                for u in unsupported(cfg, world, "cpu" if args.cpu else "cuda")]
+                                for u in unsupported(cfg, world)]
     logger.header("Experiment Configuration")
     cm.print_config(printer=logger.info)
     for w in problems:

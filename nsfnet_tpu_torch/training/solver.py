@@ -88,7 +88,6 @@ from nsfnet_tpu_torch.models import convert
 from nsfnet_tpu_torch.models.kan import KAN, flatten_kan
 from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, unflatten_params
 from nsfnet_tpu_torch.ops import residuals as R
-from nsfnet_tpu_torch.ops import width_refusal
 from nsfnet_tpu_torch.ops.derivatives import (derivatives_2d, make_kan_derivatives_2d,
                                               mlp_derivatives_2d, mlp_psi_derivatives_2d,
                                               psi_p_derivatives_2d, psi_p_uv, psi_p_uv_generic)
@@ -281,10 +280,6 @@ class PINNSolver:
         self._generic_engine = backbone == "kan" or int(fourier_features) > 0
         self.engine = resolve_engine(engine, self.device.type, backbone,
                                      int(fourier_features), formulation)
-        if self.engine == "pallas":
-            refused = width_refusal(hidden_size, matmul_precision, formulation, num_outs)
-            if refused is not None:
-                raise ValueError(f"engine 'pallas': {refused}")
         self.loss_mode = loss_mode
         self.Re = float(Re)
         self.vis_t0 = 20.0 / self.Re  # ev-NSFnet/pinn_solver.py:67

@@ -119,7 +119,7 @@ def test_tile_choice_agrees_with_the_library(cuda, h):
         for tile in fr.LOSS_TILES:
             for panel in range(16, hp + 1, 16):
                 if hp % panel == 0:
-                    assert (fr._lib().nsf_fused_loss_smem_bytes(tile, panel, h, 3, parts)
+                    assert (fr._lib().nsf_fused_loss_smem_bytes(tile, panel, h, 3, parts, 0)
                             == fr.loss_smem_bytes(tile, panel, h, parts))
     for name in fr.PRECISIONS:
         assert fr.loss_smem_bytes(*fr.pick_loss_tile(h, name), h, fr.PARTS[name]) <= fr._MAX_SMEM
@@ -467,10 +467,10 @@ def test_backward_tile_choice_agrees_with_the_library(cuda, h):
         for k in (1, 2, 3):
             for panel in panels:
                 for tile in fr.LOSS_TILES:
-                    assert (ms._lib().nsf_mlp_streams_smem_bytes(tile, panel, h, k, parts)
+                    assert (ms._lib().nsf_mlp_streams_smem_bytes(tile, panel, h, k, parts, 0)
                             == fr.loss_smem_bytes(tile, panel, h, parts, k))
                 for tile in psi.PSI_BWD_TILES:
-                    assert (psi._lib().nsf_psi_streams_smem_bytes(tile, panel, h, k, parts)
+                    assert (psi._lib().nsf_psi_streams_smem_bytes(tile, panel, h, k, parts, 0)
                             == psi.bwd_smem_bytes(tile, panel, h, parts, k))
     for name in fr.PRECISIONS:
         for k in (2, 3):
@@ -485,7 +485,9 @@ def test_backward_tile_choice_agrees_with_the_library(cuda, h):
 
 def test_backward_widths_and_names(cuda):
     """Every name launches kernels 4 and 6 at the configs' widths (4x40,
-    6x80, 4x120); a width and name that fits no layout raises, naming both."""
+    6x80, 4x120) on a resident plan; a width and name that fits no resident
+    plan (psi 160 and five-stream 208 at "highest") launches on the
+    streamed plan and matches the plain passes."""
     for h in (40, 80, 120):
         for name in fr.PRECISIONS:
             ms.pick_bwd_tile(h, name)
@@ -494,12 +496,163 @@ def test_backward_widths_and_names(cuda):
     assert psi.pick_bwd_tile(80, "highest")[0] == psi.pick_bwd_tile(120, "high")[0] == 8
     sizes = (2, 160, 160, 2)
     flat, x, cts = _psi_inputs(sizes, 256, cuda)
-    with pytest.raises(ValueError, match=r"160 at precision 'highest'"):
-        psi.psi_bwd(flat, sizes, x, cts, "highest")
+    assert psi.psi_plan(160, "highest").streamed
+    launched = psi.launch_counts["psi_streams_bwd"]
+    _assert_grads_match_passes(psi.psi_bwd(flat, sizes, x, cts, "highest"),
+                               psi.plain_psi_streams_bwd(flat, sizes, x, cts, "highest"), sizes,
+                               "highest")
+    assert psi.launch_counts["psi_streams_bwd"] == launched + 1
     sizes = (2, 208, 208, 3)
     flat, x, cts = _stream_inputs(sizes, 256, cuda)
-    with pytest.raises(ValueError, match=r"208 at precision 'highest'"):
-        ms.streams_bwd(flat, sizes, x, cts, "highest")
+    assert fr.loss_plan(208, "highest").streamed
+    launched = ms.launch_counts["mlp_streams_bwd"]
+    _assert_grads_match_passes(ms.streams_bwd(flat, sizes, x, cts, "highest"),
+                               ms.plain_mlp_streams_bwd(flat, sizes, x, cts, "highest"), sizes,
+                               "highest")
+    assert ms.launch_counts["mlp_streams_bwd"] == launched + 1
+
+
+# The streamed plan: the first width at each name that no resident plan
+# fits, and 1024 (3 hidden layers)
+FIRST_STREAMED = {("velocity", "default"): 561, ("velocity", "high"): 289,
+                  ("velocity", "highest"): 193, ("streamfunction", "default"): 433,
+                  ("streamfunction", "high"): 209, ("streamfunction", "highest"): 145}
+
+
+@pytest.mark.parametrize("h", [145, 193, 209, 289, 352, 433, 561, 1024, 2048])
+def test_streamed_plan_counts_agree_with_the_library(cuda, h):
+    """The libraries' counts of the streamed plan (shared memory, the
+    global regions of one block) equal the Python twins the plans are
+    chosen by."""
+    for parts in (1, 2, 3):
+        for k in (1, 2, 3):
+            for kpanel in (16, 64, 128):
+                for tile, panel in ((16, 160), (16, 96), (32, 80)):
+                    assert (fr._lib().nsf_fused_loss_smem_bytes(tile, panel, h, k, parts, kpanel)
+                            == fr.loss_smem_bytes(tile, panel, h, parts, k, kpanel))
+                    assert (ms._lib().nsf_mlp_streams_smem_bytes(tile, panel, h, k, parts, kpanel)
+                            == fr.loss_smem_bytes(tile, panel, h, parts, k, kpanel))
+                for panel in (80, 48):
+                    assert (psi._lib().nsf_psi_streams_smem_bytes(16, panel, h, k, parts, kpanel)
+                            == psi.bwd_smem_bytes(16, panel, h, parts, k, kpanel))
+            for tile in fr.LOSS_TILES:
+                assert (fr._lib().nsf_fused_loss_carry_floats(tile, h, k, parts)
+                        == ms._lib().nsf_mlp_streams_carry_floats(tile, h, k, parts)
+                        == fr.carry_floats(tile, h, k, parts))
+            for tile in psi.PSI_BWD_TILES:
+                assert (psi._lib().nsf_psi_streams_carry_floats(tile, h, k, parts)
+                        == psi.carry_floats(tile, h, k, parts))
+
+
+# The streamed widths' bars, those of chip_smoke.py's full-width checks
+# (FWD_TOL, BWD_TOL, DEFAULT_BWD_TOL): the tensor cores' fp32 accumulation runs H / 16 steps
+# per pass, and at H = 1024 it moves a sum or a stream by up to ~3e-5 of its
+# max from the plain version (2.7e-5 measured for kernel 1's sums at
+# "highest", 2.6e-5 for a stream of kernel 5; PERF.md, section 6), past the
+# 2e-5 of TOL, which was measured at H <= 120. At "default" the backwards
+# take the smoke's 1e-3 (kernel 4 read 5.0e-4 at H = 1024 here, past the
+# 5e-4 of BWD_TOL) and g_e is held norm-wise at it: one bf16 pass, and a
+# deeper net has more carries a point whose rounding-edge flips move it
+# (1.4e-4 / 1.9e-4 norm-wise at H = 561 / 1024 on the card); the forwards
+# at "default" norm-wise, as there. Against exact fp32 no forward is held
+# closer than the plain "high" passes themselves sit (PERF.md, section 6).
+WIDE_TOL = 1e-4
+WIDE_DEFAULT_TOL = 1e-3
+
+
+def _rel_all(got, ref, precision):
+    if precision == "default":
+        return max(pc.norm_rels(got, ref))
+    return max(_rel(g, r) for g, r in zip(got, ref))
+
+
+def _check_wide_forward(got, plain, precision, h):
+    with torch.no_grad():
+        ref = plain(precision)
+        assert _rel_all(got, ref, precision) <= (
+            pc.DEFAULT_NORM_TOL if precision == "default" else WIDE_TOL)
+        if precision == "high":
+            exact = plain(None)
+            assert max(_rel(g, r) for g, r in zip(got, exact)) <= max(
+                WIDE_TOL, max(_rel(p, r) for p, r in zip(ref, exact)))
+            if h <= pc.HIGH_SEP_MAX_K:
+                assert pc.separation(got, ref, exact) <= pc.HIGH_SEP
+
+
+def _check_wide_grads(got, ref, sizes, precision):
+    tol = WIDE_DEFAULT_TOL if precision == "default" else WIDE_TOL
+    for (kw, kb), (pw, pb) in zip(unflatten_params(got, sizes), unflatten_params(ref, sizes)):
+        assert _rel(kw, pw) <= tol and _rel(kb, pb) <= tol
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("formulation,precision", sorted(FIRST_STREAMED))
+def test_streamed_kernels_match_plain_passes(cuda, formulation, precision, wide):
+    """Each of the six kernels on the streamed plan, at the first width
+    refused by every resident plan and at 1024, against its plain version
+    at the same name (kernels 1+2 with a ragged last tile and a zero-weight
+    tail)."""
+    h = 1024 if wide else FIRST_STREAMED[(formulation, precision)]
+    if formulation == "streamfunction":
+        sizes = (2, h, h, h, 2)
+        assert psi.psi_plan(h, precision).streamed
+        flat, x, cts = _psi_inputs(sizes, 272, cuda, seed=7)
+        _check_wide_forward(psi.psi_fwd(flat, sizes, x, precision),
+                            lambda at: psi.plain_psi_streams(flat, sizes, x, at), precision, h)
+        _check_wide_grads(psi.psi_bwd(flat, sizes, x, cts, precision),
+                          psi.plain_psi_streams_bwd(flat, sizes, x, cts, precision), sizes,
+                          precision)
+        return
+    sizes = (2, h, h, h, 3)
+    assert fr.loss_plan(h, precision).streamed and fr.loss_plan(h, precision).streamed
+    flat, x, e, vis_t, w = _inputs(sizes, 528, cuda, seed=7)
+    ct = torch.tensor([0.7, 1.3, 0.9, 0.4], device=cuda)
+    sums = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision)
+    dflat, g_e = fr.fused_bwd(flat, sizes, x, e, vis_t, w, 2000.0, ct, 1.0, True, precision)
+    fl, er = flat.clone().requires_grad_(True), e.clone().requires_grad_(True)
+    ref = fr.plain_residual_sums(unflatten_params(fl, sizes), x, er, vis_t, w, 2000.0, 1.0,
+                                 True, precision)
+    d_ref, ge_ref = torch.autograd.grad(ref, [fl, er], ct)
+    assert ((sums - ref).abs() / ref.abs()).max().item() <= WIDE_TOL
+    _check_wide_grads(dflat, d_ref, sizes, "high")
+    assert _rel_all([g_e], [ge_ref], precision) <= (
+        WIDE_DEFAULT_TOL if precision == "default" else WIDE_TOL)
+    assert torch.all(g_e[-37:] == 0.0)
+    flat, x, cts = _stream_inputs(sizes, 272, cuda, seed=7)
+    _check_wide_forward(ms.streams_fwd(flat, sizes, x, precision),
+                        lambda at: ms.plain_mlp_streams(flat, sizes, x, at), precision, h)
+    _check_wide_grads(ms.streams_bwd(flat, sizes, x, cts, precision),
+                      ms.plain_mlp_streams_bwd(flat, sizes, x, cts, precision), sizes, precision)
+
+
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+def test_streamed_plan_at_a_resident_tile_is_bitwise_the_resident_plan(cuda, precision):
+    """Forced onto a resident plan's tile, the streamed plan accumulates in
+    the same k order: all six kernels give the resident plan's outputs
+    bitwise (kernels 1+2 at 32-point tiles too)."""
+    sizes = (2, 80, 80, 80, 3)
+    flat, x, e, vis_t, w = _inputs(sizes, 1040, cuda, seed=8)
+    ct = torch.tensor([0.7, 1.3, 0.9, 0.4], device=cuda)
+    tile = fr.loss_plan(80, precision).tile
+    for plan in (None, fr.Plan(tile, 48, 32)):
+        got = (fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision, plan),
+               *fr.fused_bwd(flat, sizes, x, e, vis_t, w, 2000.0, ct, 1.0, True, precision,
+                             plan))
+        if plan is None:
+            ref = got
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    flat, x, cts = _stream_inputs(sizes, 1040, cuda, seed=8)
+    outs = [(*ms.streams_fwd(flat, sizes, x, precision, plan),
+             ms.streams_bwd(flat, sizes, x, cts, precision, plan))
+            for plan in (None, fr.Plan(tile, 64, 16))]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    sizes = (2, 48, 48, 48, 2)
+    flat, x, cts = _psi_inputs(sizes, 1040, cuda, seed=8)
+    assert psi.pick_bwd_tile(48, precision)[0] == 16
+    outs = [(*psi.psi_fwd(flat, sizes, x, precision, plan),
+             psi.psi_bwd(flat, sizes, x, cts, precision, plan))
+            for plan in (None, fr.Plan(16, 32, 32))]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("h", [16, 40, 80, 112, 120, 128])
