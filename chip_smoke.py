@@ -138,12 +138,26 @@ Phases (any failure exits non-zero before the result line):
           plan, beside the exact fp32 plain version's own distance; then
           the run twice: 30 + 30 launches of kernels 1+2 and none of 3-6, a
           finite loss at every step, the two runs bitwise equal, ms per step;
+      4l. the measurement entry points, this slice's path: (ii)
+          tools.perf_matrix.run in process at N_f 120,000 with 100-step
+          chunks (the KAN 16,384 and 20): every row without error, kernels
+          1+2 launched on the three mlp/pallas rows only, 5+6 on sf/pallas
+          only, each row's card busy share (a profiled chunk) in (0, 1.05];
+          (i) + (iii) `python -m nsfnet_tpu_torch.bench` as a
+          subprocess while tools.watchdog trains the flagship config cut to
+          one 2000-step stage: the bench SIGTERMs the registered trainer,
+          which checkpoints and exits, holds .run/pause while it measures
+          and removes it; its last line (points/s/card, a finite mfu, the
+          card's name and power limit) over 4,000 + 4,000 launches of
+          kernels 1+2, with the card's busy share; the watchdog relaunches
+          after the bench only, resumes from the trainer's checkpoint and
+          ends the stage;
   5. times: each kernel, its plain version and its bound (every kernel at
      each precision name, bound at that name's bf16 pass count beside the
      fp32 bound; the tape and partial bytes of kernels 2 and 6 per launch;
      the streamed plan's shapes of 3d; the `kernels` line carries kernels
-     1+2 at the 6x352 rung, 3+4 at the v1 path, 5+6 at the streamfunction
-     path),
+     1+2 at the bench's shape with its launches, 3+4 at the v1 path, 5+6 at
+     the streamfunction path with the matrix's sf/pallas launches),
      and the step time and collocation points/s of the
      three paths and of the 6x160 campaign step, beside the card's name and
      power limit; the profiler's table for each path's step.
@@ -162,6 +176,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 FP32_PEAK = 67e12      # H100 SXM, fp32 outside the tensor cores (FLOP/s)
@@ -232,6 +247,12 @@ N_WIDE = 4096            # 3d: points of the checks at those widths (3 hidden la
 RUNG_H = 352             # 4k: the capacity ladder's next rung from the h288 state
 RUNG_STEPS = 30
 RUNG_LR = 1e-6           # the rung's polish regime (configs/re2000_ev_h288.yaml)
+MATRIX_STEPS = 100       # 4l (ii): steps a chunk of the matrix's rows at N_F
+MATRIX_KAN_NF = 16_384   # ... the KAN row's points (the matrix's own size on a card)
+MATRIX_KAN_STEPS = 20    # ... and steps a chunk
+BENCH_STEPS = 1000       # 4l (i): the bench's chunk on a card (a warm-up, then three)
+DRILL_STEPS = 2000       # 4l (iii): the watchdog trainer's one stage
+DRILL_TIMEOUT_S = 300    # ... the watchdog's deadline, a bound on the drill
 
 FLAGSHIP = {
     "experiment_name": "chip_smoke_re2000_ev",
@@ -856,6 +877,164 @@ def phase_rung(torch, np, ctx):
     return ok_step0 and ok_run, rec
 
 
+def phase_measure(torch, np, ctx):
+    """4l. the measurement entry points: (ii) tools.perf_matrix.run in
+    process at N_F with MATRIX_STEPS-step chunks (the KAN MATRIX_KAN_NF and
+    MATRIX_KAN_STEPS): every row without error, each row's launches those
+    of its kernels (kernels 1+2 on the three mlp/pallas rows, 5+6 on
+    sf/pallas, none on sf/xla and kan); then (i) + (iii) the bench as a
+    subprocess (`python -m nsfnet_tpu_torch.bench`, the real entry point)
+    while tools.watchdog trains the flagship config cut to one stage of
+    DRILL_STEPS steps: the bench SIGTERMs the registered trainer, which
+    checkpoints and exits, holds .run/pause over its measurement and
+    removes it; its last line (points/s/card, a finite mfu, the card's
+    name) and its launch line (BENCH_STEPS x 4 of kernels 1+2); the
+    watchdog relaunches only after the bench, resumes from the trainer's
+    checkpoint and ends the stage. Returns ({name: ok}, record)."""
+    from nsfnet_tpu_torch.bench import _alive
+    from nsfnet_tpu_torch.tools import perf_matrix as pm
+    from nsfnet_tpu_torch.tools import watchdog
+    from nsfnet_tpu_torch.training import checkpoint as ckpt_mod
+
+    card, reset, read, smi = ctx["card"], ctx["reset_counts"], ctx["read_counts"], ctx["smi"]
+    t_phase = time.time()
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_measure_")
+    rec, ok = {}, {}
+    pairs = {"mlp/pallas highest": ("fused_residual_fwd", "fused_residual_bwd"),
+             "mlp/pallas high": ("fused_residual_fwd", "fused_residual_bwd"),
+             "mlp/pallas default": ("fused_residual_fwd", "fused_residual_bwd"),
+             "sf/xla-closed-form high": (), "sf/pallas high": ("psi_streams_fwd",
+                                                               "psi_streams_bwd"),
+             "kan/generic high": ()}
+    th = None  # the watchdog's thread
+    flag, reg = os.path.join(".run", "pause"), os.path.join(".run", "drill.pid")
+    try:
+        # (ii) the matrix
+        reset()
+        t0 = time.time()
+        rows = pm.run(N_F, MATRIX_STEPS, MATRIX_KAN_NF, MATRIX_KAN_STEPS, "cuda",
+                      on_row=lambda r: print(f"measure (ii) row {json.dumps(r)}", flush=True))
+        matrix_s, totals = time.time() - t0, read()
+        bad = []
+        for r in rows:
+            want = {k: (4 * MATRIX_STEPS if k in pairs.get(r["config"], ()) else 0)
+                    for k in totals}
+            if "error" in r or r["launches"] != want:
+                bad.append(r["config"])
+            elif r["config"].startswith("mlp/") and not math.isfinite(r["mfu"] or math.nan):
+                bad.append(r["config"])
+            elif not 0 < (r["busy_share"] or math.nan) <= 1.05:  # the card's busy share
+                bad.append(r["config"])
+        ok["ii"] = [r["config"] for r in rows] == list(pairs) and not bad
+        pm.write_table(rows, sys.stdout)
+        print(f"measure (ii) the matrix at N_f {N_F:,} ({MATRIX_STEPS}-step chunks; KAN "
+              f"{MATRIX_KAN_NF:,}, {MATRIX_KAN_STEPS}): {matrix_s:.1f} s, launches in all "
+              f"{totals}, rows failing {bad}; ok {ok['ii']} — {card}")
+        rec["matrix"] = {"rows": rows, "launches": totals, "seconds": matrix_s}
+        torch.cuda.empty_cache()
+
+        # (i) + (iii) the bench while the watchdog trains
+        stage = {**FLAGSHIP["training"]["training_stages"][0], "epochs": DRILL_STEPS,
+                 "name": "drill"}
+        cfg = write_config(tdir, FLAGSHIP, "drill", [stage], checkpoint_freq=10**9,
+                           log_interval=100)
+        log = os.path.join(tdir, "drill.log")
+        for path in (reg, flag):
+            if os.path.exists(path):
+                os.remove(path)
+        wd = {}
+        deadline = time.time() + DRILL_TIMEOUT_S
+        th = threading.Thread(target=lambda: wd.update(rc=watchdog.run(
+            cfg, log, poll=1.0, pause_poll=0.5, restart_delay=0.5, deadline=deadline)),
+            daemon=True)
+        th.start()
+        text = lambda: open(log).read() if os.path.exists(log) else ""
+        while time.time() < deadline and "throughput=" not in text() and th.is_alive():
+            time.sleep(0.5)
+        trainer = int(open(reg).read()) if os.path.exists(reg) else -1
+        out_path, err_path = os.path.join(tdir, "bench.out"), os.path.join(tdir, "bench.err")
+        t0 = time.time()
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            bench = subprocess.Popen([sys.executable, "-m", "nsfnet_tpu_torch.bench"],
+                                     stdout=out, stderr=err)
+            # between the trainer's exit and the bench's result line (the
+            # flag and the watchdog's log read first: a sample taken before
+            # that line is printed is inside the measurement)
+            t_stop, flag_seen, launches_during = None, [], []
+            while bench.poll() is None:
+                if t_stop is None and not _alive(trainer):
+                    t_stop = time.time() - t0
+                held, launched = os.path.exists(flag), text().count("] launching (")
+                if t_stop is not None and '"metric"' not in open(out_path).read():
+                    flag_seen.append(held)
+                    launches_during.append(launched)
+                time.sleep(0.2)
+        bench_s, bench_rc = time.time() - t0, bench.returncode
+        flag_after = os.path.exists(flag)
+        th.join(timeout=max(1.0, deadline - time.time() + 60))
+        bench_out, bench_err = open(out_path).read(), open(err_path).read()
+        lines = bench_out.strip().splitlines()
+        try:
+            line, launch_line = json.loads(lines[-1]), json.loads(lines[-2])
+        except (IndexError, ValueError):
+            line, launch_line = {}, {}
+        want = {"fused_residual_fwd": 4 * BENCH_STEPS, "fused_residual_bwd": 4 * BENCH_STEPS}
+        ok["i"] = (bench_rc == 0 and line.get("value", 0) > 0
+                   and math.isfinite(line.get("mfu") or math.nan)
+                   and line.get("device") == smi
+                   and launch_line.get("launches") == want
+                   and launch_line.get("steps_per_chunk") == BENCH_STEPS
+                   and 0 < (launch_line.get("busy_share") or math.nan) <= 1.05)
+        print(f"measure (i) python -m nsfnet_tpu_torch.bench: exit {bench_rc} in {bench_s:.1f} s; "
+              f"launch line {launch_line}; last line {line}; ok {ok['i']}")
+        if not ok["i"]:
+            print(bench_out[-3000:], bench_err[-3000:])
+        stops = glob.glob(os.path.join(tdir, "drill", "**", "sigterm_step*.ckpt"), recursive=True)
+        stop = stops[0] if len(stops) == 1 else None
+        stop_step = (ckpt_mod.load_metadata(stop) or {}).get("global_step", -1) if stop else -1
+        finals = glob.glob(os.path.join(tdir, "drill", "**", "model_final.ckpt"), recursive=True)
+        final_step = (ckpt_mod.load_metadata(finals[0]) or {}).get("global_step") if finals else None
+        wlog = text()
+        ok["iii"] = (trainer > 0 and "bench: paused 1 live trainer(s)" in bench_err
+                     and t_stop is not None and 0 < stop_step < DRILL_STEPS
+                     and bool(flag_seen) and all(flag_seen) and set(launches_during) == {1}
+                     and not flag_after and wd.get("rc") == 0
+                     and f"launching (resume: {stop})" in wlog
+                     and f"at step {stop_step}" in wlog
+                     and wlog.count("training completed") == 1 and final_step == DRILL_STEPS
+                     and not os.path.exists(reg))
+        stopped = "never" if t_stop is None else f"{t_stop:.1f} s after the bench started"
+        print(f"measure (iii) the pause drill: trainer pid {trainer} stopped {stopped}, at {os.path.basename(stop or '')} (step {stop_step}); "
+              f".run/pause held in {sum(flag_seen)} of {len(flag_seen)} samples from the stop "
+              f"to the bench's result, gone after the bench {not flag_after}; the watchdog's "
+              f"launches in those samples {sorted(set(launches_during))}; watchdog exit "
+              f"{wd.get('rc')}, resumed from the "
+              f"checkpoint, final step {final_step} of {DRILL_STEPS}; ok {ok['iii']}")
+        if not ok["iii"]:
+            print(wlog[-4000:])
+        rec["bench"] = {"rc": bench_rc, "seconds": bench_s, "line": line,
+                        "launch_line": launch_line}
+        rec["drill"] = {"trainer_stop_s": t_stop, "stop_step": stop_step,
+                        "flag_samples": len(flag_seen), "flag_held": all(flag_seen or [False]),
+                        "flag_after": flag_after, "watchdog_rc": wd.get("rc"),
+                        "final_step": final_step}
+    finally:
+        if th is not None and th.is_alive():
+            # a failed drill: no relaunch, the trainer stopped, the watchdog ends
+            open(flag, "w").close()
+            if os.path.exists(reg):
+                with contextlib.suppress(ValueError, OSError):
+                    os.kill(int(open(reg).read()), signal.SIGTERM)
+            th.join(timeout=DRILL_TIMEOUT_S)
+            with contextlib.suppress(OSError):
+                os.remove(flag)
+        shutil.rmtree(tdir, ignore_errors=True)
+    rec["seconds"] = time.time() - t_phase
+    print(f"measure phase: {rec['seconds']:.1f} s on the card")
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -867,6 +1046,7 @@ def main() -> int:
     from nsfnet_tpu_torch.config import ConfigManager
     from nsfnet_tpu_torch.models.mlp import (flatten_params, init_mlp, layer_sizes, mlp_apply,
                                              unflatten_params)
+    from nsfnet_tpu_torch import ops
     from nsfnet_tpu_torch.ops import _build
     from nsfnet_tpu_torch.ops import fused_residual as fr
     from nsfnet_tpu_torch.ops import mlp_streams as ms
@@ -880,13 +1060,7 @@ def main() -> int:
     record = {}
     dev = torch.device("cuda", 0)
 
-    def reset_counts():
-        fr.reset_launch_counts()
-        ms.reset_launch_counts()
-        psi.reset_launch_counts()
-
-    def read_counts():
-        return {**fr.launch_counts, **ms.launch_counts, **psi.launch_counts}
+    reset_counts, read_counts = ops.reset_launch_counts, ops.launch_counts
 
     def ready_solver(cfg, where="cuda"):
         s = build_solver(cfg, device=where)
@@ -2618,6 +2792,11 @@ def main() -> int:
     ok_rung, record["rung"] = phase_rung(torch, np, tools_ctx)
     launches_rung = record["rung"]["runs"][0]["launches"]
 
+    # ---- 4l. the measurement entry points: the matrix, the bench while the
+    # watchdog trains (this slice's path)
+    ok_measure_by, record["measure"] = phase_measure(torch, np, {**tools_ctx, "smi": smi})
+    ok_measure = all(ok_measure_by.values()) and len(ok_measure_by) == 3
+
     # ---- 5. times
     kernels, work = [], {}
 
@@ -2645,7 +2824,14 @@ def main() -> int:
                 "bound_fp32_ms": 1e3 * t_fp32, "bound_tf32_ms": 1e3 * flops / TF32_PEAK,
                 "bound_bf16_ms": 1e3 * flops / BF16_PEAK, "row": row}
 
-    # kernels 1+2 at each name; the `kernels` line carries "high", the path's name
+    # kernels 1+2 at each name; the `kernels` line carries "high", the bench's
+    # name, with the bench's launches (phase 4l (i)); kernels 5+6 carry the
+    # matrix's sf/pallas row's launches (4l (ii))
+    zero6 = dict.fromkeys(read_counts(), 0)
+    launches_bench = {**zero6, **(record["measure"].get("bench", {}).get("launch_line", {})
+                                  .get("launches") or {})}
+    launches_matrix_sf = next((r["launches"] for r in record["measure"].get("matrix", {})
+                               .get("rows", []) if r["config"] == "sf/pallas high"), zero6)
     flops, nbytes = fr.flop_counts(sizes, n), fr.byte_counts(sizes, n, True)
     src = "nsfnet_tpu_torch/csrc/fused_residual.cu"
     pair_times = {}
@@ -2661,19 +2847,20 @@ def main() -> int:
             sums_r, [flat_r, e_r], ct, retain_graph=True), 5)
         del graphs[name], sums_r
         shape = f"6x80, N={n}, EVM, {name!r}"
+        bench = name == "high"
+        launched = launches_bench if bench else launches
         w1 = add_kernel("fused_residual_fwd", src, "nsfnet_tpu/ops/pallas_residual.py:100",
-                        launches["fused_residual_fwd"], k1_ms, p1_ms, c["fwd_abs"], c["fwd_rel"],
-                        flops[0], nbytes[0], shape, fr.passes(name), keep=False)
+                        launched["fused_residual_fwd"], k1_ms, p1_ms, c["fwd_abs"], c["fwd_rel"],
+                        flops[0], nbytes[0], shape, fr.passes(name), keep=bench)
         w2 = add_kernel("fused_residual_bwd", src, "nsfnet_tpu/ops/pallas_residual.py:128",
-                        launches["fused_residual_bwd"], k2_ms, p2_ms, c["bwd_abs"],
+                        launched["fused_residual_bwd"], k2_ms, p2_ms, c["bwd_abs"],
                         max(c["bwd_rel"], c["ge_rel"]), flops[1], nbytes[1], shape,
-                        fr.passes(name), keep=False)
+                        fr.passes(name), keep=bench)
         pair_times[name] = [w1.pop("row"), w2.pop("row")]
         work[f"fused_residual_fwd@{name}"], work[f"fused_residual_bwd@{name}"] = w1, w2
         torch.cuda.empty_cache()
-    # kernels 1+2 at this slice's path, the 6x352 rung (streamed plan; the
-    # launches: phase 4k's run), and at the resident rungs below it, timed in
-    # phase 3d: the `kernels` line carries the rung
+    # kernels 1+2 at the 6x352 rung (streamed plan; the launches: phase 4k's
+    # run), and at the resident rungs below it, timed in phase 3d
     for h in (RUNG_H, 224, 288):
         t = wide_times[f"pair/6x{h}"]
         sz_h = layer_sizes(2, 3, 6, h)
@@ -2684,11 +2871,11 @@ def main() -> int:
         w1 = add_kernel("fused_residual_fwd", src, "nsfnet_tpu/ops/pallas_residual.py:100",
                         launched["fused_residual_fwd"], t["k1_ms"], t["p1_ms"],
                         t.get("fwd_abs"), t.get("fwd_rel"), flops[0], nbytes[0], shape,
-                        fr.passes("high"), keep=rung)
+                        fr.passes("high"), keep=False)
         w2 = add_kernel("fused_residual_bwd", src, "nsfnet_tpu/ops/pallas_residual.py:128",
                         launched["fused_residual_bwd"], t["k2_ms"], t["p2_ms"],
                         t.get("bwd_abs"), max(t["bwd_rel"], t["ge_rel"]) if rung else None,
-                        flops[1], nbytes[1], shape, fr.passes("high"), keep=rung)
+                        flops[1], nbytes[1], shape, fr.passes("high"), keep=False)
         pair_times[f"h{h}/high"] = [w1.pop("row"), w2.pop("row")]
         work[f"fused_residual_fwd@h{h}"], work[f"fused_residual_bwd@h{h}"] = w1, w2
     traffic = fr.bwd_traffic(layer_sizes(2, 3, 6, RUNG_H), n, "high")
@@ -2830,8 +3017,9 @@ def main() -> int:
             k5_ms = cuda_ms(torch, lambda: psi.psi_fwd(fl, sz, xx, prec), 10)
             with torch.no_grad():
                 p5_ms = cuda_ms(torch, lambda: psi.plain_psi_streams(fl, sz, xx, prec), 5)
+            launched = launches_matrix_sf if main else launches_sf
             w5 = add_kernel("psi_streams_fwd", src, "nsfnet_tpu/ops/pallas_psi.py:176",
-                            launches_sf["psi_streams_fwd"], k5_ms, p5_ms, f["abs"],
+                            launched["psi_streams_fwd"], k5_ms, p5_ms, f["abs"],
                             max(f["rel"], f["bundle_rel"]), flops[0], nbytes[0],
                             f"{shape}, {prec!r}, tile {tile}, panel {panel}", fr.passes(prec),
                             keep=main and prec == "high")
@@ -2844,8 +3032,9 @@ def main() -> int:
             k6_ms = cuda_ms(torch, lambda: psi.psi_bwd(fl, sz, xx, cts, prec), 5)
             # the plain backward is the whole function: forward graph + autograd, same passes
             p6_ms = cuda_ms(torch, lambda: psi.plain_psi_streams_bwd(fl, sz, xx, cts, prec), 3)
+            launched = launches_matrix_sf if main else launches_sf
             w6 = add_kernel("psi_streams_bwd", src, "nsfnet_tpu/ops/pallas_psi.py:223",
-                            launches_sf["psi_streams_bwd"], k6_ms, p6_ms,
+                            launched["psi_streams_bwd"], k6_ms, p6_ms,
                             max(b1["abs"], b2["abs"]),
                             max(b1["rel"], b2["rel"]), flops[1], nbytes[1],
                             f"{shape}, {prec!r}, tile {tile}, panel {panel}", fr.passes(prec),
@@ -2887,6 +3076,11 @@ def main() -> int:
         return step_ms, pts_s
 
     step_ms, pts_s = time_steps(solver, "slice (flagship ev-NSFnet, kernels 1+2)", N_F)
+    bench_ms = record["measure"].get("bench", {}).get("line", {}).get("step_ms")
+    if bench_ms:
+        print(f"bench (4l (i)) {bench_ms:.3f} ms/step, the best of three {BENCH_STEPS}-step "
+              f"chunks, against this {TIMED_STEPS}-step window's {step_ms:.3f} "
+              f"({100 * (bench_ms / step_ms - 1):+.1f}%) — {card}")
     v1_ms, v1_pts = time_steps(solver_v1, "slice (v1 NSFnet L2, kernels 3+4)", N_F_V1)
     sf_ms, sf_pts = time_steps(solver_sf, "slice (streamfunction ev-NSFnet, kernels 5+6)", N_F)
     camp_ms, camp_pts = time_steps(solver_c, "campaign (re4000_r4b 6x160 ev-NSFnet, kernels 1+2)",
@@ -2924,7 +3118,7 @@ def main() -> int:
 
     if not (ok_check and ok_slice and ok_v1 and ok_sf and ok_small and ok_unfused
             and ok_engine and ok_campaign and ok_polish and ok_other and ok_parallel
-            and ok_tools and ok_rung):
+            and ok_tools and ok_rung and ok_measure):
         print(f"chip_smoke: FAILED (kernel check {ok_check}, flagship slice {ok_slice}, "
               f"v1 L2 slice {ok_v1}, streamfunction slice {ok_sf}, small-input reference "
               f"{ok_small}, unfused vs fused {ok_unfused}, kernel engine vs closed form "
@@ -2934,7 +3128,8 @@ def main() -> int:
               f"engines / LM {ok_o1} / {ok_o2} / {ok_o3} / {ok_o4} / {ok_o5} / {ok_o6}, "
               f"parallel microbatched / N_f 1.2M / torchrun NCCL / 2 ranks {par['ok_i']} / "
               f"{par['ok_ii']} / {par['ok_iii']} / {par['ok_iv']}, tools (i)-(vii) "
-              f"{ok_tools_by}, the 6x{RUNG_H} rung {ok_rung})",
+              f"{ok_tools_by}, the 6x{RUNG_H} rung {ok_rung}, the measurement entry points "
+              f"(i)-(iii) {ok_measure_by})",
               file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))

@@ -36,22 +36,17 @@ import numpy as np
 import torch
 import torch.distributed
 
+from nsfnet_tpu_torch import ops
+
 
 def _counts():
     from nsfnet_tpu_torch.ops import fused_residual as fr
-    from nsfnet_tpu_torch.ops import mlp_streams as ms
-    from nsfnet_tpu_torch.ops import psi_streams as psi
 
-    return {**fr.launch_counts, **ms.launch_counts, **psi.launch_counts}, dict(fr.launch_rows)
+    return ops.launch_counts(), dict(fr.launch_rows)
 
 
 def _reset():
-    from nsfnet_tpu_torch.ops import fused_residual as fr
-    from nsfnet_tpu_torch.ops import mlp_streams as ms
-    from nsfnet_tpu_torch.ops import psi_streams as psi
-
-    for mod in (fr, ms, psi):
-        mod.reset_launch_counts()
+    ops.reset_launch_counts()
 
 
 def _solver(spec, **kw):

@@ -71,7 +71,8 @@ def test_importing_the_port_loads_no_jax():
 NEW_MODULES = {"nsfnet_tpu_torch.data.native", "nsfnet_tpu_torch.utils.torch_import",
                "nsfnet_tpu_torch.test", "nsfnet_tpu_torch.utils.profiling",
                "nsfnet_tpu_torch.utils.export", "nsfnet_tpu_torch.utils.visualization",
-               "nsfnet_tpu_torch.tools.watchdog"}
+               "nsfnet_tpu_torch.tools.watchdog", "nsfnet_tpu_torch.bench",
+               "nsfnet_tpu_torch.tools.perf_matrix"}
 
 
 def test_the_tool_modules_import_without_jax_or_a_build():
