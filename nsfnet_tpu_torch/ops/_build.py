@@ -17,8 +17,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from nsfnet_tpu_torch.logger import get_logger
+from nsfnet_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nsfnet_tpu_torch"
@@ -55,6 +59,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, ctypes.CDLL]:
     Raises with the compiler's output when a build fails."""
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if n not in _loaded]
+    if todo:
+        _build_and_load(todo)
+    return {n: _loaded[n] for n in names}
+
+
+@profiling.spanned("setup.library")
+def _build_and_load(todo) -> None:
+    """One nvcc process per library not built yet, then every load. The
+    builds add to the counter `library_builds` and are logged, with the
+    time they took."""
+    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         path = _lib_path(name)
@@ -72,6 +87,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, ctypes.CDLL]:
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
         build_logs[name] = out
+        profiling.count("library_builds")
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
@@ -79,9 +95,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, ctypes.CDLL]:
         path.with_suffix(".log").write_text(out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    if procs:
+        get_logger().info(f"nvcc built {len(procs)} kernel libraries ({', '.join(procs)}) in "
+                          f"{time.perf_counter() - t0:.1f} s; library_builds="
+                          f"{profiling.counts()['library_builds']}")
     for name in todo:
         _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    return {n: _loaded[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

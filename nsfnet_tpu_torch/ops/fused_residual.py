@@ -53,6 +53,7 @@ from nsfnet_tpu_torch.ops import _build
 from nsfnet_tpu_torch.ops import losses as L
 from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
+from nsfnet_tpu_torch.utils import profiling
 
 PRECISIONS = ("highest", "high", "default")
 PARTS = {"highest": 3, "high": 2, "default": 1}  # bf16 parts of each operand
@@ -91,6 +92,10 @@ class Plan(NamedTuple):
 # microbatch slice launches on its own block of the batch).
 launch_counts = {"fused_residual_fwd": 0, "fused_residual_bwd": 0}
 launch_rows = dict.fromkeys(launch_counts, 0)
+profiling.register("launches", launch_counts)
+profiling.register("launch_rows", launch_rows)
+# the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
+_SPAN_FWD, _SPAN_BWD = profiling.span("kernel.loss_fwd"), profiling.span("kernel.loss_bwd")
 
 
 def reset_launch_counts() -> None:
@@ -412,21 +417,22 @@ def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               precision: str = "high", plan: Optional[Plan] = None) -> torch.Tensor:
     """Kernel 1: the [3|4] weighted sums of squares, on `plan` (by default
     `loss_plan`'s)."""
-    e = e.contiguous() if evm else None
-    n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
-    partial = torch.empty(LOSS_BLOCKS * 4, dtype=torch.float32, device=x.device)
-    out = torch.empty(4 if evm else 3, dtype=torch.float32, device=x.device)
-    wsplit = _weight_split(sizes, precision, x.device)
-    carries = _carries(sizes, plan, precision, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _lib().nsf_fused_loss_fwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
-            _ptr(wsplit), _ptr(partial), _ptr(out), stream, plan.kpanel, _ptr(carries))
-    _raise_on(code, "fused residual loss forward")
-    launch_counts["fused_residual_fwd"] += 1
-    launch_rows["fused_residual_fwd"] += n
-    return out
+    with _SPAN_FWD:
+        e = e.contiguous() if evm else None
+        n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
+        partial = torch.empty(LOSS_BLOCKS * 4, dtype=torch.float32, device=x.device)
+        out = torch.empty(4 if evm else 3, dtype=torch.float32, device=x.device)
+        wsplit = _weight_split(sizes, precision, x.device)
+        carries = _carries(sizes, plan, precision, x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = _lib().nsf_fused_loss_fwd(
+                *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
+                _ptr(wsplit), _ptr(partial), _ptr(out), stream, plan.kpanel, _ptr(carries))
+        _raise_on(code, "fused residual loss forward")
+        launch_counts["fused_residual_fwd"] += 1
+        launch_rows["fused_residual_fwd"] += n
+        return out
 
 
 def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -436,31 +442,32 @@ def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
               plan: Optional[Plan] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel 2: (d(ct . S)/dflat, d(ct . S)/de) — the latter None if
     vanilla — on `plan` (by default `loss_plan`'s)."""
-    e = e.contiguous() if evm else None
-    n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
-    n_out = 4 if evm else 3
-    ct = ct.to(device=x.device, dtype=torch.float32).contiguous().reshape(-1)
-    if ct.numel() != n_out:
-        raise ValueError(f"ct: need {n_out} cotangents, got {ct.numel()}")
-    p = param_count(sizes)
-    dev = x.device
-    block_floats = _lib().nsf_fused_loss_scratch_floats(plan.tile, sizes[1], len(sizes) - 2)
-    scratch = torch.empty(LOSS_BLOCKS * block_floats, dtype=torch.float32, device=dev)
-    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
-    dflat = torch.empty(p, dtype=torch.float32, device=dev)
-    g_e = torch.empty((n, 1), dtype=torch.float32, device=dev) if evm else None
-    wsplit = _weight_split(sizes, precision, dev)
-    carries = _carries(sizes, plan, precision, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _lib().nsf_fused_loss_bwd(
-            *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
-            _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream,
-            plan.kpanel, _ptr(carries))
-    _raise_on(code, "fused residual loss backward")
-    launch_counts["fused_residual_bwd"] += 1
-    launch_rows["fused_residual_bwd"] += n
-    return dflat, g_e
+    with _SPAN_BWD:
+        e = e.contiguous() if evm else None
+        n, plan = _check_inputs(flat, sizes, x, e, vis_t, eq_w, evm, precision, plan)
+        n_out = 4 if evm else 3
+        ct = ct.to(device=x.device, dtype=torch.float32).contiguous().reshape(-1)
+        if ct.numel() != n_out:
+            raise ValueError(f"ct: need {n_out} cotangents, got {ct.numel()}")
+        p = param_count(sizes)
+        dev = x.device
+        block_floats = _lib().nsf_fused_loss_scratch_floats(plan.tile, sizes[1], len(sizes) - 2)
+        scratch = torch.empty(LOSS_BLOCKS * block_floats, dtype=torch.float32, device=dev)
+        dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
+        dflat = torch.empty(p, dtype=torch.float32, device=dev)
+        g_e = torch.empty((n, 1), dtype=torch.float32, device=dev) if evm else None
+        wsplit = _weight_split(sizes, precision, dev)
+        carries = _carries(sizes, plan, precision, dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = _lib().nsf_fused_loss_bwd(
+                *_launch_args(flat, sizes, x, e, vis_t, eq_w, re, scale, evm, plan, precision),
+                _ptr(wsplit), _ptr(ct), _ptr(scratch), _ptr(dpart), _ptr(dflat), _ptr(g_e), stream,
+                plan.kpanel, _ptr(carries))
+        _raise_on(code, "fused residual loss backward")
+        launch_counts["fused_residual_bwd"] += 1
+        launch_rows["fused_residual_bwd"] += n
+        return dflat, g_e
 
 
 class _FusedResidualLoss(torch.autograd.Function):

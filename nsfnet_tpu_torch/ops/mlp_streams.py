@@ -52,9 +52,13 @@ from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops.derivatives import Derivs, mlp_derivatives_2d
 from nsfnet_tpu_torch.ops.fused_residual import (LOSS_BLOCKS, PARTS, PRECISIONS, ROW_ALIGN,
                                                  _raise_on)
+from nsfnet_tpu_torch.utils import profiling
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
+profiling.register("launches", launch_counts)
+# the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
+_SPAN_FWD, _SPAN_BWD = profiling.span("kernel.streams_fwd"), profiling.span("kernel.streams_bwd")
 
 
 def reset_launch_counts() -> None:
@@ -189,22 +193,23 @@ def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
                 precision: str = "high", plan: Optional[fr.Plan] = None) -> Derivs:
     """Kernel 3: the five [N,K] streams, at the name's bf16 passes, on
     `plan` (by default `fused_residual.loss_plan`'s)."""
-    _check_precision(precision)
-    n = _check_inputs(flat, sizes, x)
-    plan = plan or fr.loss_plan(sizes[1], precision, sizes[-1])
-    parts, dev, lib = PARTS[precision], x.device, _lib()
-    wsplit = _weight_split(lib, sizes, parts, dev)
-    carries = _carries(lib, sizes, plan, parts, dev)
-    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev) for _ in range(5))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
-                                       LOSS_BLOCKS, parts, wsplit.data_ptr(),
-                                       *(o.data_ptr() for o in out), stream, plan.kpanel,
-                                       _ptr(carries))
-    _raise_on(code, "mlp streams forward")
-    launch_counts["mlp_streams_fwd"] += 1
-    return out
+    with _SPAN_FWD:
+        _check_precision(precision)
+        n = _check_inputs(flat, sizes, x)
+        plan = plan or fr.loss_plan(sizes[1], precision, sizes[-1])
+        parts, dev, lib = PARTS[precision], x.device, _lib()
+        wsplit = _weight_split(lib, sizes, parts, dev)
+        carries = _carries(lib, sizes, plan, parts, dev)
+        out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev) for _ in range(5))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.nsf_mlp_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                           LOSS_BLOCKS, parts, wsplit.data_ptr(),
+                                           *(o.data_ptr() for o in out), stream, plan.kpanel,
+                                           _ptr(carries))
+        _raise_on(code, "mlp streams forward")
+        launch_counts["mlp_streams_fwd"] += 1
+        return out
 
 
 def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -213,29 +218,30 @@ def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     """Kernel 4: the gradient wrt the flat weights from five [N,K]
     cotangents, at the name's bf16 passes, on `plan` (by default
     `fused_residual.loss_plan`'s)."""
-    if len(cts) != 5:
-        raise ValueError(f"need the five streams' cotangents, got {len(cts)}")
-    _check_precision(precision)
-    n = _check_inputs(flat, sizes, x, cts)
-    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    plan = plan or fr.loss_plan(h, precision, k)
-    parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
-    tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(plan.tile, h, n_hidden),
-                       dtype=torch.float32, device=dev)
-    wsplit = _weight_split(lib, sizes, parts, dev)
-    carries = _carries(lib, sizes, plan, parts, dev)
-    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
-    dflat = torch.empty(p, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
-                                       LOSS_BLOCKS, parts, wsplit.data_ptr(),
-                                       *(c.data_ptr() for c in cts), tape.data_ptr(),
-                                       dpart.data_ptr(), dflat.data_ptr(), stream, plan.kpanel,
-                                       _ptr(carries))
-    _raise_on(code, "mlp streams backward")
-    launch_counts["mlp_streams_bwd"] += 1
-    return dflat
+    with _SPAN_BWD:
+        if len(cts) != 5:
+            raise ValueError(f"need the five streams' cotangents, got {len(cts)}")
+        _check_precision(precision)
+        n = _check_inputs(flat, sizes, x, cts)
+        n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+        plan = plan or fr.loss_plan(h, precision, k)
+        parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
+        tape = torch.empty(LOSS_BLOCKS * lib.nsf_mlp_streams_tape_floats(plan.tile, h, n_hidden),
+                           dtype=torch.float32, device=dev)
+        wsplit = _weight_split(lib, sizes, parts, dev)
+        carries = _carries(lib, sizes, plan, parts, dev)
+        dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
+        dflat = torch.empty(p, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.nsf_mlp_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                           LOSS_BLOCKS, parts, wsplit.data_ptr(),
+                                           *(c.data_ptr() for c in cts), tape.data_ptr(),
+                                           dpart.data_ptr(), dflat.data_ptr(), stream, plan.kpanel,
+                                           _ptr(carries))
+        _raise_on(code, "mlp streams backward")
+        launch_counts["mlp_streams_bwd"] += 1
+        return dflat
 
 
 class _MlpStreams(torch.autograd.Function):

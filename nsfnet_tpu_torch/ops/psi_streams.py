@@ -58,6 +58,7 @@ from nsfnet_tpu_torch.ops.fused_residual import (_MAX_SMEM, LOSS_BLOCKS, PARTS, 
                                                  TC_WARPS, Plan, _pad16, _raise_on, _round16,
                                                  pass_dot, streamed_panel)
 from nsfnet_tpu_torch.ops.mlp_streams import _check_inputs, _check_precision, _launch_args
+from nsfnet_tpu_torch.utils import profiling
 
 # Kernels 5+6: 16-point tiles where they fit, else 8 (the 13 streams padded to
 # 14); the streamed plan takes 16-point tiles
@@ -66,6 +67,9 @@ PSI_STREAM_TILE = 16
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"psi_streams_fwd": 0, "psi_streams_bwd": 0}
+profiling.register("launches", launch_counts)
+# the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
+_SPAN_FWD, _SPAN_BWD = profiling.span("kernel.psi_fwd"), profiling.span("kernel.psi_bwd")
 
 
 def reset_launch_counts() -> None:
@@ -271,23 +275,24 @@ def psi_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
             precision: str = "high", plan: Optional[Plan] = None) -> Tuple[torch.Tensor, ...]:
     """Kernel 5: the thirteen raw [N,K] streams, at the name's bf16 passes,
     on `plan` (by default `psi_plan`'s)."""
-    _check_precision(precision)
-    n = _check_inputs(flat, sizes, x)
-    plan = plan or psi_plan(sizes[1], precision, sizes[-1])
-    parts, dev, lib = PARTS[precision], x.device, _lib()
-    wsplit = _weight_split(lib, sizes, parts, dev)
-    carries = _carries(lib, sizes, plan, parts, dev)
-    out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev)
-                for _ in range(N_PSI_STREAMS))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
-                                       LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(out),
-                                       stream, plan.kpanel,
-                                       None if carries is None else carries.data_ptr())
-    _raise_on(code, "psi streams forward")
-    launch_counts["psi_streams_fwd"] += 1
-    return out
+    with _SPAN_FWD:
+        _check_precision(precision)
+        n = _check_inputs(flat, sizes, x)
+        plan = plan or psi_plan(sizes[1], precision, sizes[-1])
+        parts, dev, lib = PARTS[precision], x.device, _lib()
+        wsplit = _weight_split(lib, sizes, parts, dev)
+        carries = _carries(lib, sizes, plan, parts, dev)
+        out = tuple(torch.empty((n, sizes[-1]), dtype=torch.float32, device=dev)
+                    for _ in range(N_PSI_STREAMS))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.nsf_psi_streams_fwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                           LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(out),
+                                           stream, plan.kpanel,
+                                           None if carries is None else carries.data_ptr())
+        _raise_on(code, "psi streams forward")
+        launch_counts["psi_streams_fwd"] += 1
+        return out
 
 
 def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
@@ -296,29 +301,30 @@ def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
     """Kernel 6: the gradient wrt the flat weights from thirteen [N,K]
     cotangents, at the name's bf16 passes, on `plan` (by default
     `psi_plan`'s)."""
-    if len(cts) != N_PSI_STREAMS:
-        raise ValueError(f"need the {N_PSI_STREAMS} streams' cotangents, got {len(cts)}")
-    _check_precision(precision)
-    n = _check_inputs(flat, sizes, x, cts)
-    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
-    plan = plan or psi_plan(h, precision, k)
-    parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
-    tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(plan.tile, h, n_hidden),
-                       dtype=torch.float32, device=dev)
-    wsplit = _weight_split(lib, sizes, parts, dev)
-    carries = _carries(lib, sizes, plan, parts, dev)
-    dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
-    dflat = torch.empty(p, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.nsf_psi_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
-                                       LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(cts),
-                                       tape.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
-                                       stream, plan.kpanel,
-                                       None if carries is None else carries.data_ptr())
-    _raise_on(code, "psi streams backward")
-    launch_counts["psi_streams_bwd"] += 1
-    return dflat
+    with _SPAN_BWD:
+        if len(cts) != N_PSI_STREAMS:
+            raise ValueError(f"need the {N_PSI_STREAMS} streams' cotangents, got {len(cts)}")
+        _check_precision(precision)
+        n = _check_inputs(flat, sizes, x, cts)
+        n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+        plan = plan or psi_plan(h, precision, k)
+        parts, p, dev, lib = PARTS[precision], param_count(sizes), x.device, _lib()
+        tape = torch.empty(LOSS_BLOCKS * lib.nsf_psi_streams_tape_floats(plan.tile, h, n_hidden),
+                           dtype=torch.float32, device=dev)
+        wsplit = _weight_split(lib, sizes, parts, dev)
+        carries = _carries(lib, sizes, plan, parts, dev)
+        dpart = torch.empty(LOSS_BLOCKS * p, dtype=torch.float32, device=dev)
+        dflat = torch.empty(p, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.nsf_psi_streams_bwd(*_launch_args(flat, sizes, x), plan.tile, plan.panel,
+                                           LOSS_BLOCKS, parts, wsplit.data_ptr(), _pointers(cts),
+                                           tape.data_ptr(), dpart.data_ptr(), dflat.data_ptr(),
+                                           stream, plan.kpanel,
+                                           None if carries is None else carries.data_ptr())
+        _raise_on(code, "psi streams backward")
+        launch_counts["psi_streams_bwd"] += 1
+        return dflat
 
 
 class _PsiStreams(torch.autograd.Function):

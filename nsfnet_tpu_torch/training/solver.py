@@ -77,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
+import statistics
 import time
 from typing import Optional
 
@@ -108,6 +109,7 @@ from nsfnet_tpu_torch.training.step import (
     make_train_step,
     reduce_flat,
 )
+from nsfnet_tpu_torch.utils import profiling
 from nsfnet_tpu_torch.utils import torch_import as ti
 from nsfnet_tpu_torch.utils.tensorboard import ScalarWriter
 
@@ -204,6 +206,7 @@ class PINNSolver:
     formulation. Constructor knobs follow ev-NSFnet/pinn_solver.py:32-54 and
     the JAX package's set."""
 
+    @profiling.spanned("setup.solver")
     def __init__(
         self,
         Re: float = 1000,
@@ -382,12 +385,14 @@ class PINNSolver:
 
     # ---------------------------------------------------------------- data
 
+    @profiling.spanned("setup.data")
     def set_boundary_data(self, X=None):
         """X = (x_b, y_b, u_b, v_b) host arrays [N,1]
         (parity: ev-NSFnet/pinn_solver.py:142-158)."""
         self._bc = tuple(np.asarray(a, np.float32).reshape(-1, 1) for a in X[:4])
         self._dirty = True
 
+    @profiling.spanned("setup.data")
     def set_eq_training_data(self, X=None, weights=None):
         """X = (x_f, y_f); optional per-point SDF weights
         (parity: ev-NSFnet/pinn_solver.py:160-184)."""
@@ -598,16 +603,18 @@ class PINNSolver:
     def _ensure_ready(self):
         if not self._dirty and self._runner is not None:
             return
-        self._batch = self._build_batch()
-        if self.microbatches > 1:
-            train_step = make_microbatched_train_step(self._make_loss(), self.microbatches,
-                                                      self.evm_update_freq, self.evm, self.group)
-        else:
-            train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm,
-                                         self.group)
-        self._runner = make_chunk_runner(train_step)
-        self._loss_fn = self._make_loss("xla")
-        self._dirty = False
+        with profiling.span("setup.ready"):
+            self._batch = self._build_batch()
+            if self.microbatches > 1:
+                train_step = make_microbatched_train_step(
+                    self._make_loss(), self.microbatches, self.evm_update_freq, self.evm,
+                    self.group)
+            else:
+                train_step = make_train_step(self._make_loss(), self.evm_update_freq, self.evm,
+                                             self.group)
+            self._runner = make_chunk_runner(train_step)
+            self._loss_fn = self._make_loss("xla")
+            self._dirty = False
 
     # ------------------------------------------------------------- training
 
@@ -620,7 +627,9 @@ class PINNSolver:
         sync; returns the last step's metrics on the device."""
         self._ensure_ready()
         sc = self._stage_scalars(self.current_lr if lr is None else lr)
-        metrics = self._runner(self.state, self._batch, sc, n_steps)
+        b = self._batch
+        with profiling.chunk(n_steps, b.n_f + b.n_b, self.device):
+            metrics = self._runner(self.state, b, sc, n_steps)
         self.global_step += n_steps
         return metrics
 
@@ -716,6 +725,8 @@ class PINNSolver:
             self.logger.warning("stall_metric='eval_error' but no eval data attached "
                                 "(attach_eval_data): tracking the equation loss instead")
         eq_track = []  # stall-metric values at log boundaries
+        seen = profiling.chunks()[-1:]  # the chunks up to here are not this stage's
+        last_chunk = seen[0].id if seen else -1
         last_ckpt: Optional[str] = None
         crashes = 0
         while done < num_epoch:
@@ -750,9 +761,12 @@ class PINNSolver:
                 now = time.time()
                 interval_it_s = (done - last_log_e) / max(now - last_log_t, 1e-9)
                 avg_it_s = (done - first) / max(now - stage_start, 1e-9)
+                interval = profiling.chunks(since=last_chunk)
+                if interval:
+                    last_chunk = interval[-1].id
                 self._print_log(m, done, num_epoch, avg_it_s, interval_it_s,
                                 pts_per_step, now - stage_start,
-                                now - self.cumulative_start_time, lr)
+                                now - self.cumulative_start_time, lr, interval)
                 last_log_t, last_log_e = now, done
                 if done > 1:  # the epoch-1 loss is pre-descent; skip it
                     if use_eval_track:
@@ -1236,8 +1250,18 @@ class PINNSolver:
     # --------------------------------------------------------------- logging
 
     def _print_log(self, m: StepMetrics, done, num_epoch, avg_it_s, interval_it_s,
-                   pts_per_step, stage_elapsed, total_elapsed, lr):
+                   pts_per_step, stage_elapsed, total_elapsed, lr, chunks):
+        """`chunks`: the interval's chunk records (utils/profiling.py). The
+        host's ms a step is the median `step` span at steps 2-4 of each
+        chunk, before a full launch queue makes the host wait on the card;
+        the card's is the chunks' CUDA-event time over their steps."""
         self.loss_history.append((self.global_step, m))
+        steps = sum(c.n_steps for c in chunks)
+        head = profiling.head_steps(since=chunks[0].id - 1) if chunks else []
+        host_ms = statistics.median(head) / 1e6 if head else None
+        device_ms = (sum(c.device_ns for c in chunks) / steps / 1e6
+                     if steps and all(c.device_ns is not None for c in chunks) else None)
+        ms = lambda v: "n/a" if v is None else f"{v:.3f} ms/step"
         re_now = self.current_re
         re_eff = 1.0 / (1.0 / re_now + m.vis_t_mean) if self.evm else re_now
         throughput = interval_it_s * pts_per_step
@@ -1260,7 +1284,8 @@ class PINNSolver:
         if self.device.type == "cuda":
             mem = f" mem={torch.cuda.memory_allocated(self.device) / 1024**2:.0f}MB"
         self.logger.info(
-            f"  perf: throughput={throughput:,.0f} pts/s lr={lr:.2e} "
+            f"  perf: throughput={throughput:,.0f} pts/s host={ms(host_ms)} "
+            f"device={ms(device_ms)} lr={lr:.2e} "
             f"Re_eff={re_eff:.1f} alpha_evm={self.alpha_evm}{mem}")
         if self.tb_writer is not None:
             w, s = self.tb_writer, self.global_step
@@ -1277,5 +1302,9 @@ class PINNSolver:
             w.add_scalar("perf/throughput_pts_per_s", throughput, s)
             w.add_scalar("perf/avg_iter_s", avg_it_s, s)
             w.add_scalar("perf/interval_iter_s", interval_it_s, s)
+            if host_ms is not None:
+                w.add_scalar("perf/host_ms_per_step", host_ms, s)
+            if device_ms is not None:
+                w.add_scalar("perf/device_ms_per_step", device_ms, s)
             w.add_scalar("lr", lr, s)
 

@@ -42,6 +42,7 @@ from nsfnet_tpu_torch.ops import losses as L
 from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.parallel import mesh as pmesh
 from nsfnet_tpu_torch.training.state import AdamState, Batch, StepMetrics, TrainState
+from nsfnet_tpu_torch.utils import profiling
 
 Engine = Callable[..., tuple]  # (flat params, X[N,2]) -> Derivs
 
@@ -86,14 +87,23 @@ def make_loss_fn(
 
     def eq_loss_fn(params_all, x_f, y_f, eq_w, n_f, vis_t_minus, sc: StageScalars):
         params, params_evm = params_all
+        x_eq = torch.cat([x_f, y_f], dim=1)
+        e = None
+        if evm:
+            with profiling.fine("loss.evm_net"):
+                e = apply_evm(params_evm, x_eq)[:, 0:1]
+        with profiling.fine("loss.equation"):
+            return eq_terms(params, x_eq, e, eq_w, n_f, vis_t_minus, sc)
+
+    def eq_terms(params, x_eq, e, eq_w, n_f, vis_t_minus, sc: StageScalars):
+        """The weighted equation loss and its parts, given the EVM net's
+        output `e` (None without it)."""
         re = sc.re
         vis_t0 = 20.0 / re  # ev-NSFnet/pinn_solver.py:67
-        x_eq = torch.cat([x_f, y_f], dim=1)
-        zero = x_f.new_zeros(())
+        zero = x_eq.new_zeros(())
 
         if fused_eq_loss is not None:
             if evm:
-                e = apply_evm(params_evm, x_eq)[:, 0:1]
                 vis_t = R.next_vis_t(vis_t_minus, vis_t0)
                 sums = fused_eq_loss(params, x_eq, e, vis_t, eq_w, re)
                 l1, l2, l3, l4 = sums[0] / n_f, sums[1] / n_f, sums[2] / n_f, sums[3] / n_f
@@ -111,7 +121,6 @@ def make_loss_fn(
 
         derivs = engine(params, x_eq)
         if evm:
-            e = apply_evm(params_evm, x_eq)[:, 0:1]
             vis_t = R.next_vis_t(vis_t_minus, vis_t0)
             res = R.ev_ns_residuals(derivs, e, vis_t, re, coord_scale)
             new_vis_t_minus = R.update_vis_t_minus(e, sc.alpha_evm)
@@ -132,7 +141,10 @@ def make_loss_fn(
 
     def aux_loss_fn(params_all, batch: Batch, sc: StageScalars):
         """Boundary + supervised part, weighted, plus the raw components."""
-        params, _ = params_all
+        with profiling.fine("loss.boundary"):
+            return aux_terms(params_all[0], batch, sc)
+
+    def aux_terms(params, batch: Batch, sc: StageScalars):
         x_bc = torch.cat([batch.x_b, batch.y_b], dim=1)
         uvp_b = apply_main(params, x_bc)
         if loss_mode == "L2":
@@ -240,12 +252,13 @@ def make_residual_fn(
 def adam_update_(p: torch.Tensor, g: torch.Tensor, opt: AdamState, lr: float) -> None:
     """optax.scale_by_adam() (b1 .9, b2 .999, eps 1e-8, eps_root 0) applied
     as p -= lr * u, in place on p and the moments."""
-    opt.count += 1
-    opt.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-    opt.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-    mu_hat = opt.mu / (1.0 - ADAM_B1 ** opt.count)
-    nu_hat = opt.nu / (1.0 - ADAM_B2 ** opt.count)
-    p.sub_(lr * (mu_hat / (nu_hat.sqrt() + ADAM_EPS)))
+    with profiling.fine("step.adam"):
+        opt.count += 1
+        opt.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+        opt.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+        mu_hat = opt.mu / (1.0 - ADAM_B1 ** opt.count)
+        nu_hat = opt.nu / (1.0 - ADAM_B2 ** opt.count)
+        p.sub_(lr * (mu_hat / (nu_hat.sqrt() + ADAM_EPS)))
 
 
 def components(m: StepMetrics) -> torch.Tensor:
@@ -294,7 +307,8 @@ def make_grad_fn(loss_fn, n_micro: int = 1, group=None):
 
     def full(params_all, targets, batch, vtm, sc):
         total, (metrics, new_vtm) = loss_fn(params_all, batch, vtm, sc)
-        return list(torch.autograd.grad(total, targets)), metrics, new_vtm
+        with profiling.fine("step.backward"):
+            return list(torch.autograd.grad(total, targets)), metrics, new_vtm
 
     def micro(params_all, targets, batch, vtm, sc):
         m = batch.x_f.shape[0] // n_micro
@@ -306,16 +320,18 @@ def make_grad_fn(loss_fn, n_micro: int = 1, group=None):
             val, (l1, l2, l3, l4, vmean, nvtm) = eq_fn(
                 params_all, batch.x_f[sl], batch.y_f[sl], batch.eq_w[sl], batch.n_f,
                 None if vtm is None else vtm[sl], sc)
-            for acc, g in zip(grads, torch.autograd.grad(val, targets)):
-                acc.add_(g)
+            with profiling.fine("step.backward"):
+                for acc, g in zip(grads, torch.autograd.grad(val, targets)):
+                    acc.add_(g)
             comps[1:5] += torch.stack([l1, l2, l3, l4]).detach()
             comps[6] += vmean.detach()
             rows.append(nvtm)
         val, (loss_b, loss_s) = aux_fn(params_all, batch, sc)
         # the EVM net takes no part in the boundary / supervised loss
-        for acc, g in zip(grads, torch.autograd.grad(val, targets, allow_unused=True)):
-            if g is not None:
-                acc.add_(g)
+        with profiling.fine("step.backward"):
+            for acc, g in zip(grads, torch.autograd.grad(val, targets, allow_unused=True)):
+                if g is not None:
+                    acc.add_(g)
         comps[0] += loss_b.detach()
         comps[5] += loss_s.detach()
         return grads, assemble(*comps, sc), (None if vtm is None else torch.cat(rows))
@@ -334,18 +350,19 @@ def make_grad_fn(loss_fn, n_micro: int = 1, group=None):
 
 def _step_with(grad_fn, evm_update_freq: int, evm: bool):
     def train_step(state: TrainState, batch: Batch, sc: StageScalars) -> StepMetrics:
-        do_evm = (evm and state.epoch_in_stage % evm_update_freq == 0
-                  and state.epoch_in_stage > 0)
-        targets = [state.params] + ([state.params_evm] if do_evm else [])
-        grads, metrics, new_vtm = grad_fn((state.params, state.params_evm), targets, batch,
-                                          state.vis_t_minus, sc)
-        adam_update_(state.params, grads[0], state.opt_main, sc.lr)
-        if do_evm:
-            adam_update_(state.params_evm, grads[1], state.opt_evm, sc.lr)
-        state.vis_t_minus = new_vtm
-        state.step += 1
-        state.epoch_in_stage += 1
-        return StepMetrics(*(m.detach() for m in metrics))
+        with profiling.step():
+            do_evm = (evm and state.epoch_in_stage % evm_update_freq == 0
+                      and state.epoch_in_stage > 0)
+            targets = [state.params] + ([state.params_evm] if do_evm else [])
+            grads, metrics, new_vtm = grad_fn((state.params, state.params_evm), targets, batch,
+                                              state.vis_t_minus, sc)
+            adam_update_(state.params, grads[0], state.opt_main, sc.lr)
+            if do_evm:
+                adam_update_(state.params_evm, grads[1], state.opt_evm, sc.lr)
+            state.vis_t_minus = new_vtm
+            state.step += 1
+            state.epoch_in_stage += 1
+            return StepMetrics(*(m.detach() for m in metrics))
 
     return train_step
 

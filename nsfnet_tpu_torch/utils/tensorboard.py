@@ -5,7 +5,10 @@ the reference's TB hooks (ev-NSFnet/pinn_solver.py:627-646):
 loss/{total,boundary,eq_total,eq1..eq4_entropy,supervision},
 physics/{Re_eff,alpha_evm}, perf/{throughput_pts_per_s,avg_iter_s,
 interval_iter_s}, lr — keyed by a monotonically increasing global step
-spanning stages.
+spanning stages. The port adds perf/host_ms_per_step (the median host
+time of steps 2-4 of the interval's chunks, before the launch queue fills)
+and, on a card, perf/device_ms_per_step (the chunks' card time a step), from
+utils/profiling.py's records.
 """
 
 from __future__ import annotations

@@ -48,7 +48,8 @@ def test_cli_writes_scalar_log_and_loss_history(tmp_path):
     assert len(logs) == 1
     rows = [json.loads(line) for line in logs[0].read_text().splitlines()]
     tags = _jax_tags()
-    assert len(tags) == 14 and {r["tag"] for r in rows} == tags
+    # the port adds the host's ms a step (and on a card the card's) from its chunk records
+    assert len(tags) == 14 and {r["tag"] for r in rows} == tags | {"perf/host_ms_per_step"}
     steps = sorted({r["step"] for r in rows})
     assert steps == [1, 2, 4]  # the first step, then every log_interval
     assert all(np.isfinite(r["value"]) for r in rows)
