@@ -2947,7 +2947,8 @@ def main() -> int:
     traffic = fr.bwd_traffic(sizes, n, "high")
     print("kernel 2 traffic per launch at 'high' (from the shapes): tape written "
           f"{traffic['tape_written'] / 1e9:.3f} GB, read {traffic['tape_read'] / 1e9:.3f} GB, "
-          f"gradient partial read+written {traffic['partial_rmw'] / 1e9:.3f} GB; the CUDA-core "
+          f"gradient partial read+written by the L2's reductions {traffic['partial_rmw'] / 1e9:.3f} "
+          f"GB, split weights staged {traffic['weights_staged'] / 1e9:.3f} GB; the CUDA-core "
           f"design's scratch {traffic['cuda_core_scratch_written'] / 1e9:.3f} GB each way, "
           f"partial {traffic['cuda_core_partial_rmw'] / 1e9:.3f} GB")
     work["fused_residual_bwd_traffic"] = traffic
@@ -3059,8 +3060,9 @@ def main() -> int:
     traffic6 = psi.bwd_traffic(sizes_sf, n, "high")
     print("kernel 6 traffic per launch at 'high', 6x80 (from the shapes): tape written "
           f"{traffic6['tape_written'] / 1e9:.3f} GB, read {traffic6['tape_read'] / 1e9:.3f} GB, "
-          f"gradient partial read+written {traffic6['partial_rmw'] / 1e9:.3f} GB; the CUDA-core "
-          f"design's scratch {traffic6['cuda_core_scratch_written'] / 1e9:.3f} GB each way")
+          f"gradient partial read+written by the L2's reductions {traffic6['partial_rmw'] / 1e9:.3f} "
+          f"GB; the CUDA-core design's scratch {traffic6['cuda_core_scratch_written'] / 1e9:.3f} GB "
+          "each way")
     work["psi_streams_bwd_traffic"] = traffic6
 
     def time_steps(s, what, n_f):

@@ -27,9 +27,12 @@
 // the hidden weights are split once per launch, so staging a panel is a copy;
 // the backward's tape holds t and the tangents only (1.0 GB written, 1.8 GB
 // read at 6x80 / N = 120,000, against 1.9 GB each way when every carry was
-// stored) and its 132 persistent blocks with 32-point tiles halve the
-// gradient partial's read-modify-write (ops/fused_residual.py bwd_traffic);
-// the elementwise loops keep several global loads in flight per thread.
+// stored); its 132 persistent blocks with 32-point tiles halve the updates
+// of the gradient partial (ops/fused_residual.py bwd_traffic), and each
+// update is a reduction from the element's one owning thread, which no warp
+// waits for (tc_mlp.cuh red_add: no load of the partial, the same sums in the
+// same order, bitwise); the elementwise loops keep several global loads in
+// flight per thread.
 // Both kernels take tc_mlp.cuh's two plans, one instance each (STREAM): the
 // resident plan where a block with both carries fits, else the streamed
 // plan, so every width runs (ops/fused_residual.loss_plan).

@@ -4,10 +4,12 @@
 // themselves run on the tensor cores (tc_mlp.cuh, tc_psi.cuh).
 //
 // Grid. A FIXED number of blocks (a constant of the wrapper, not the SM
-// count) loops over tiles; a kernel that reduces writes one partial per
+// count) loops over tiles; a kernel that reduces keeps one partial per
 // block (a full gradient vector in the flat parameter layout, or a few loss
 // sums), and sum_partials adds the partials in block order in double
-// precision. No atomics: equal inputs give bitwise-equal outputs.
+// precision. A backward adds into its gradient partial by reductions, each
+// element from one owning thread in program order (tc_mlp.cuh red_add), so
+// equal inputs give bitwise-equal outputs.
 //
 // Each .cu that includes this header is its own shared library, so
 // everything here has internal linkage.

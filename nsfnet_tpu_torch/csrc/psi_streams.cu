@@ -38,7 +38,9 @@
 // 12 tangents, splits the tile's thirteen cotangent rows into the head's
 // cotangent parts, runs the head backward on the CUDA cores and the reverse
 // sweep with the three products per layer on the tensor cores, one partial
-// per block, added in block order, no float atomics. The backward does not
+// per block, added in block order; each element of a block's partial is
+// added to by one owning thread, in program order (tc_mlp.cuh red_add), so
+// the outputs are bitwise the same on every run. The backward does not
 // run the head product: the head's output is not an input of its own
 // gradient, only the last carry and the cotangents are.
 

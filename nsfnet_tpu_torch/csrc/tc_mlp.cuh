@@ -64,10 +64,13 @@
 // bit for bit, instead of storing it.
 //
 // Grid. A fixed number of persistent blocks (a constant of the wrapper, not
-// the SM count) loops over tiles; each block writes one partial, and
-// sum_partials adds them in block order. No float atomics: equal inputs give
-// bitwise-equal outputs. A ragged last tile reads rows >= n as zero points;
-// the callers give them zero weight.
+// the SM count) loops over tiles; each block adds into one partial, and
+// sum_partials adds them in block order. Inside the tile loop the partial is
+// never read, only added to, and each of its elements by one owning thread
+// (red_add): that thread's reductions land in its program order, so equal
+// inputs give bitwise-equal outputs, and no warp waits for the partial's
+// load. A ragged last tile reads rows >= n as zero points; the callers give
+// them zero weight.
 
 #pragma once
 
@@ -465,11 +468,38 @@ __device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int 
                   BT ? (long)hp * (panel + 8) : (long)panel * (hp + 8), hp, tile, pg, nb, acc);
 }
 
+// Adds v into the block's gradient partial at p, as a reduction that no
+// thread waits for. Every caller adds each element of the partial from one
+// owning thread, the same on every tile: dw_block's unit u on warp
+// u % kTcWarps at a fixed lane, flush_sums' column j and the head
+// backwards' idx / kk on thread j (idx, kk) % blockDim.x. Reductions of one
+// thread to one address take effect in its program order (the PTX memory
+// model's coherence order follows causality order, which holds program
+// order), so each element sums its terms in tile order, as the load-add-store
+// did, bitwise (red.add.f32 flushes subnormal inputs and results to zero: a
+// difference only below 2^-126). The kernels zero their partial with plain
+// stores from any thread before the tile loop; the loop's first
+// __syncthreads orders every one of them before the block's first
+// reduction, and sum_partials, the next launch on the stream, reads the
+// partials after every reduction has landed.
+__device__ __forceinline__ void red_add(float* p, float v) { atomicAdd(p, v); }
+
+// p[0] += a and, where `two`, p[1] += b: one 8-byte reduction where p is
+// 8-byte aligned (a partial of odd length leaves every other block's odd).
+__device__ __forceinline__ void red_add2(float* p, float a, float b, bool two) {
+  if (two && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+    return;
+  }
+  atomicAdd(p, a);
+  if (two) atomicAdd(p + 1, b);
+}
+
 // dW[m][j] += sum_r P[r][m] Gz[r][j] over the S T rows of the tile (S
 // streams of T points, stream-major), for the real m, j < h, over the
 // columns [m0, m0+mc) of P and [j0, j0+jc) of Gz; P and Gz hold those
 // columns at row stride ld. dw is the layer's [h, h] block of the block's
-// partial. One warp per 16 x 16 block of dW.
+// partial, added to by red_add2. One warp per 16 x 16 block of dW.
 template <int NP, int S>
 __device__ void dw_block(const bf16* P, const bf16* Gz, int ld, float* dw, int tile, int h,
                          int m0, int mc, int j0, int jc) {
@@ -478,15 +508,6 @@ __device__ void dw_block(const bf16* P, const bf16* Gz, int ld, float* dw, int t
   const int rows = S * tile, mbs = mc / 16, nbs = jc / 16;
   for (int u = warp; u < mbs * nbs; u += kTcWarps) {
     const int mb = u / nbs, nb = u - mb * nbs;
-    // the partial's entries of this block, loaded before the products hide them
-    float old[2][4];
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + mb * 16 + g + 8 * (e >> 1), j = j0 + nb * 16 + t * 8 + 2 * cq + (e & 1);
-        old[t][e] = m < h && j < h ? dw[(long)m * h + j] : 0.f;
-      }
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     for (int r0 = 0; r0 < rows; r0 += 16) {
       uint32_t a[NP][4], b[NP][4];
@@ -502,9 +523,10 @@ __device__ void dw_block(const bf16* P, const bf16* Gz, int ld, float* dw, int t
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + mb * 16 + g + 8 * (e >> 1), j = j0 + nb * 16 + t * 8 + 2 * cq + (e & 1);
-        if (m < h && j < h) dw[(long)m * h + j] = old[t][e] + acc[t][e];
+      for (int hf = 0; hf < 2; ++hf) {  // rows g and g + 8, columns 2 cq and 2 cq + 1
+        const int m = m0 + mb * 16 + g + 8 * hf, j = j0 + nb * 16 + t * 8 + 2 * cq;
+        if (m < h && j < h)
+          red_add2(dw + (long)m * h + j, acc[t][2 * hf], acc[t][2 * hf + 1], j + 1 < h);
       }
   }
 }
@@ -772,9 +794,10 @@ __device__ void rebuild_carry(const float* tape, const float* __restrict__ w0, i
 
 // Head backward of one tile. cur: the last carry's parts; ghp: the head
 // cotangent parts [NP][5T][k]; hb: the head cotangents (fp32, value rows
-// give dbh). Writes dWh / dbh into dp, the pre-activation cotangent of the
-// last tanh layer as parts into gz_out, and the column sums of its bias
-// gradient (or, for a one-layer net, the first layer's terms) into dbs.
+// give dbh). Adds dWh / dbh into dp (red_add); writes the pre-activation
+// cotangent of the last tanh layer as parts into gz_out, and the column sums
+// of its bias gradient (or, for a one-layer net, the first layer's terms)
+// into dbs.
 // K, the head width, is a constant so that its loops unroll; K = 0 reads
 // the width from sh.k (any width, loops not unrolled).
 template <int NP, int K>
@@ -797,12 +820,12 @@ __device__ void tc_head_backward(const float* __restrict__ x, const float* __res
         for (int j = 0; j + i < NP; ++j) a += pv * ghp[((long)j * rows + r) * k + kk];
       }
     }
-    dp[wh + idx] += a;
+    red_add(dp + wh + idx, a);
   }
   for (int kk = threadIdx.x; kk < k; kk += blockDim.x) {
     float a = 0.f;
     for (int p = 0; p < T; ++p) a += hb[p * k + kk];
-    dp[wh + (long)h * k + kk] += a;
+    red_add(dp + wh + (long)h * k + kk, a);
   }
   // G = g_head Wh^T, then the last layer's g_z algebra (or, for a one-layer
   // net, the first layer's terms): one thread per unit and 8-point group,
@@ -858,18 +881,18 @@ __device__ void tc_head_backward(const float* __restrict__ x, const float* __res
 }
 
 // Adds the column sums dbs[group][3][hp] (in group order) to the gradient
-// of layer `layer`: its bias (layer >= 1, sums of g_z), or dW0 / db0.
+// of layer `layer` (red_add): its bias (layer >= 1, sums of g_z), or dW0 / db0.
 __device__ void flush_sums(const float* dbs, int groups, int layer, float* dp, int h, int hp) {
   for (int j = threadIdx.x; j < h; j += blockDim.x) {
     float d[3] = {0.f, 0.f, 0.f};
     for (int grp = 0; grp < groups; ++grp)
       for (int a = 0; a < (layer > 0 ? 1 : 3); ++a) d[a] += dbs[((long)grp * 3 + a) * hp + j];
     if (layer > 0) {
-      dp[hidden_off(layer, h) + (long)h * h + j] += d[0];
+      red_add(dp + hidden_off(layer, h) + (long)h * h + j, d[0]);
     } else {
-      dp[j] += d[0];
-      dp[h + j] += d[1];
-      dp[2 * h + j] += d[2];
+      red_add(dp + j, d[0]);
+      red_add(dp + h + j, d[1]);
+      red_add(dp + 2 * h + j, d[2]);
     }
   }
 }

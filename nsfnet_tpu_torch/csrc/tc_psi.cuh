@@ -554,10 +554,10 @@ __device__ void psi_rebuild(const float* __restrict__ tape, const float* __restr
 
 // Head backward of one tile on the CUDA cores. cur: the last carry's parts;
 // ghp: the head cotangent parts [NP][13T][k]; hb: the head cotangents (fp32,
-// value rows give dbh). Writes dWh / dbh into dp, the last tanh layer's
-// pre-activation cotangent as parts into gz_out, and the column sums of its
-// bias gradient (or, for a one-layer net, the first layer's terms) into
-// dbs. K, the head width, is a constant so that its loops unroll; K = 0
+// value rows give dbh). Adds dWh / dbh into dp (red_add); writes the last
+// tanh layer's pre-activation cotangent as parts into gz_out, and the column
+// sums of its bias gradient (or, for a one-layer net, the first layer's
+// terms) into dbs. K, the head width, is a constant so that its loops unroll; K = 0
 // reads it from sh.k.
 template <int NP, int T, int K>
 __device__ void psi_head_backward(const float* __restrict__ x, const float* __restrict__ flat,
@@ -580,12 +580,12 @@ __device__ void psi_head_backward(const float* __restrict__ x, const float* __re
         for (int j = 0; j + i < NP; ++j) a += pv * ghp[((long)j * R + r) * k + kk];
       }
     }
-    dp[wh + idx] += a;
+    red_add(dp + wh + idx, a);
   }
   for (int kk = threadIdx.x; kk < k; kk += blockDim.x) {
     float a = 0.f;
     for (int p = 0; p < T; ++p) a += hb[p * k + kk];
-    dp[wh + (long)h * k + kk] += a;
+    red_add(dp + wh + (long)h * k + kk, a);
   }
   // G = g_head Wh^T, then the last layer's g_z algebra (or, for a one-layer
   // net, the first layer's terms): one thread per unit and 8-point group,

@@ -92,8 +92,15 @@ class Plan(NamedTuple):
 # microbatch slice launches on its own block of the batch).
 launch_counts = {"fused_residual_fwd": 0, "fused_residual_bwd": 0}
 launch_rows = dict.fromkeys(launch_counts, 0)
+# Floats the backward's plan reduces into its blocks' gradient partials
+# (tc_mlp.cuh red_add) since the last reset, counted by the launcher from the
+# plan: every tile adds to every parameter once, so a launch adds its tiles x
+# parameters. It says how much a run sent through the reductions, not that
+# the kernel body made them (the library's SASS and compare_sources do).
+partial_reduce = {"fused_residual_bwd": 0}
 profiling.register("launches", launch_counts)
 profiling.register("launch_rows", launch_rows)
+profiling.register("partial_reduce", partial_reduce)
 # the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
 _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.loss_fwd"), profiling.span("kernel.loss_bwd")
 
@@ -102,6 +109,8 @@ def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
         launch_rows[name] = 0
+    for name in partial_reduce:
+        partial_reduce[name] = 0
 
 
 def passes(precision: str) -> int:
@@ -215,9 +224,13 @@ def byte_counts(sizes: Sequence[int], n: int, evm: bool) -> Tuple[int, int]:
 def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[str, int]:
     """Bytes per launch of kernel 2's own traffic beyond its inputs: the
     backward tape (written once, read by the carry rebuild and by the
-    epilogues) and the read-modify-write of the block's gradient partial
-    once per tile; beside them, the same counts for the earlier CUDA-core
-    design (16-point tiles storing every carry and tangent)."""
+    epilogues); the block's gradient partial, added to once per tile
+    (`partial_rmw`: read and written by the L2's reductions, never loaded by
+    the SM); the split hidden weights, staged into shared memory once per
+    product layer per tile by the recompute and once by the reverse sweep
+    (`weights_staged`, mostly L2 hits: one copy serves every block); beside
+    them, the same counts for the earlier CUDA-core design (16-point tiles
+    storing every carry and tangent)."""
     n_hidden, h = len(sizes) - 2, sizes[1]
     p = param_count(sizes)
     tile = loss_plan(h, precision).tile
@@ -227,6 +240,7 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     rebuilt = tiles * layer * (1 + 5 * (n_hidden - 2)) if n_hidden > 1 else 0
     return {"tape_written": written, "tape_read": written + rebuilt,
             "partial_rmw": tiles * p * 4 * 2,
+            "weights_staged": tiles * 2 * (n_hidden - 1) * PARTS[precision] * hp * hp * 2,
             "cuda_core_scratch_written": n * (9 * n_hidden - 4) * h * 4,
             "cuda_core_scratch_read": n * (9 * n_hidden - 4) * h * 4,
             "cuda_core_partial_rmw": (n // 16) * p * 4 * 2}
@@ -467,6 +481,7 @@ def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
         _raise_on(code, "fused residual loss backward")
         launch_counts["fused_residual_bwd"] += 1
         launch_rows["fused_residual_bwd"] += n
+        partial_reduce["fused_residual_bwd"] += -(-n // plan.tile) * p
         return dflat, g_e
 
 

@@ -56,7 +56,11 @@ from nsfnet_tpu_torch.utils import profiling
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
+# Floats the backward's plan reduces into its gradient partials, as
+# fused_residual.partial_reduce counts them.
+partial_reduce = {"mlp_streams_bwd": 0}
 profiling.register("launches", launch_counts)
+profiling.register("partial_reduce", partial_reduce)
 # the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
 _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.streams_fwd"), profiling.span("kernel.streams_bwd")
 
@@ -64,6 +68,8 @@ _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.streams_fwd"), profiling.span("ker
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    for name in partial_reduce:
+        partial_reduce[name] = 0
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
@@ -241,6 +247,7 @@ def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
                                            _ptr(carries))
         _raise_on(code, "mlp streams backward")
         launch_counts["mlp_streams_bwd"] += 1
+        partial_reduce["mlp_streams_bwd"] += -(-n // plan.tile) * p
         return dflat
 
 

@@ -67,7 +67,11 @@ PSI_STREAM_TILE = 16
 
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"psi_streams_fwd": 0, "psi_streams_bwd": 0}
+# Floats the backward's plan reduces into its gradient partials, as
+# fused_residual.partial_reduce counts them.
+partial_reduce = {"psi_streams_bwd": 0}
 profiling.register("launches", launch_counts)
+profiling.register("partial_reduce", partial_reduce)
 # the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
 _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.psi_fwd"), profiling.span("kernel.psi_bwd")
 
@@ -75,6 +79,8 @@ _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.psi_fwd"), profiling.span("kernel.
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    for name in partial_reduce:
+        partial_reduce[name] = 0
 
 
 def bwd_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 2,
@@ -162,10 +168,10 @@ def byte_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
 def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[str, int]:
     """Bytes per launch of kernel 6's own traffic beyond its inputs: the
     tape (written once by the recompute, read by the carry rebuild and by
-    the epilogues) and the read-modify-write of the block's gradient partial
-    once per tile; beside them, the scratch the CUDA-core design it replaced
-    stored (every layer's 13-row carry and 12 tangent rows, written once and
-    read once)."""
+    the epilogues) and the block's gradient partial, added to once per tile
+    (read and written by the L2's reductions, never loaded by the SM);
+    beside them, the scratch the CUDA-core design it replaced stored (every
+    layer's 13-row carry and 12 tangent rows, written once and read once)."""
     n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
     p = param_count(sizes)
     tile = psi_plan(h, precision, k).tile
@@ -324,6 +330,7 @@ def psi_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
                                            None if carries is None else carries.data_ptr())
         _raise_on(code, "psi streams backward")
         launch_counts["psi_streams_bwd"] += 1
+        partial_reduce["psi_streams_bwd"] += -(-n // plan.tile) * p
         return dflat
 
 

@@ -7,8 +7,9 @@ Builds the libraries from this checkout's csrc/ and from the given directory
 (for example the csrc/ of an earlier commit, unpacked with `git archive`),
 runs the chosen kernels from both builds on the same seeded inputs on the
 card and compares their outputs, at 6x80 / N = 120,000 and 4x120 /
-N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 at
-6x80 with EVM only), every kernel at the precision name "high":
+N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 with
+EVM at the benchmark's two shapes instead: 6x80 at Re 2000 and 6x160 at
+Re 4000, N = 120,000), every kernel at the precision name "high":
 
   * a kernel whose design is the same in both copies must be bitwise equal
     (torch.equal); a copy from before the streamed plan (its C interface
@@ -42,6 +43,7 @@ from nsfnet_tpu_torch.ops import mlp_streams as ms
 from nsfnet_tpu_torch.ops import psi_streams as psi
 
 CASES = {"6x80": 120_000, "4x120": 40_000}
+PAIR_CASES = {"6x80": (80, 2000.0), "6x160": (160, 4000.0)}  # kernels 1+2: width, Re
 LEGACY_BLOCKS = 264  # the CUDA-core kernels' fixed grid
 _load = _build.load  # the legacy calls below set their own argument types
 
@@ -241,8 +243,10 @@ def _run(kernels, timed) -> dict:
     def entry(name, call, modern):
         return (name, call(), modern, _ms(call) if timed and modern else None)
 
-    if kernels & {1, 2}:
-        sizes = layer_sizes(2, 3, 6, 80)
+    for case, (width, re) in PAIR_CASES.items():
+        if not kernels & {1, 2}:
+            break
+        sizes = layer_sizes(2, 3, 6, width)
         n = CASES["6x80"]
         g, flat, x = _inputs(sizes, n, dev)
         e = (0.05 * torch.randn((n, 1), generator=g)).to(dev)
@@ -251,17 +255,17 @@ def _run(kernels, timed) -> dict:
         ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev) / n
         modern = _modern(_build.CSRC, "fused_residual.cu", "tc_mlp.cuh")
         if modern:
-            args = (flat, sizes, x, e, vis_t, eq_w, 2000.0)
-            out["6x80"] = {
+            args = (flat, sizes, x, e, vis_t, eq_w, re)
+            out[case] = {
                 1: entry("fused_residual_fwd", lambda: [fr.fused_fwd(*args, 1.0, True, "high")],
                          True),
                 2: entry("fused_residual_bwd",
                          lambda: list(fr.fused_bwd(*args, ct, 1.0, True, "high")), True)}
         else:
             fwd, bwd = _legacy_pair(_load("fused_residual"), flat, sizes, x, e, vis_t,
-                                    eq_w, 2000.0, ct)
-            out["6x80"] = {1: ("fused_residual_fwd", fwd, False, None),
-                           2: ("fused_residual_bwd", bwd, False, None)}
+                                    eq_w, re, ct)
+            out[case] = {1: ("fused_residual_fwd", fwd, False, None),
+                         2: ("fused_residual_bwd", bwd, False, None)}
     engines = ((3, 4, 3, 5, "mlp_streams", ms.streams_fwd, ms.streams_bwd, "tc_mlp.cuh"),
                (5, 6, 2, 13, "psi_streams", psi.psi_fwd, psi.psi_bwd, "tc_psi.cuh"))
     for case, n in CASES.items():

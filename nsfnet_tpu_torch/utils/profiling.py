@@ -25,8 +25,8 @@ The recorder (`RECORDER`, its methods also bound at module level):
     ns reads the card's pace once the launch queue is full; `head_steps()`
     gives the `step` spans at HEAD_STEPS, before it fills: the host's own.
   * `count(name, n)` / `counts()`: named counters; `register(prefix, d)`
-    adds a dict of counters kept elsewhere (the kernels' launch counters),
-    read as `<prefix>.<key>`.
+    adds a dict of counters kept elsewhere (the kernels' launches, rows and
+    floats reduced into their gradient partials), read as `<prefix>.<key>`.
 
 Times are `time.time_ns()`, Unix ns. While a torch.profiler is active each
 span also opens `torch.profiler.record_function("nsfnet.<name>")` inside its

@@ -129,16 +129,23 @@ def test_tile_choice_agrees_with_the_library(cuda, h):
         assert fr.loss_smem_bytes(*ms.pick_bwd_tile(h, name), h, fr.PARTS[name]) <= fr._MAX_SMEM
 
 
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("h", [80, 160])
 @pytest.mark.parametrize("precision", fr.PRECISIONS)
-def test_kernels_are_bitwise_deterministic(cuda, precision):
-    sizes = (2, 80, 80, 80, 3)
-    flat, x, e, vis_t, w = _inputs(sizes, 4096, cuda, seed=1)
+def test_kernels_are_bitwise_deterministic(cuda, precision, h, streamed):
+    """Kernel 2 adds every tile into its block's partial by reductions
+    (tc_mlp.cuh red_add): with many tiles a block (32,768 points: 7-8 tiles
+    of 32 or 15-16 of 16 on each of the 132 blocks), on either plan, two
+    launches give the same bits."""
+    sizes = (2, h, h, h, 3)
+    plan = fr.Plan(16, 48, 32) if streamed else None
+    flat, x, e, vis_t, w = _inputs(sizes, 32768, cuda, seed=1)
     ct = torch.tensor([1.0, 1.0, 1.0, 0.1], device=cuda)
-    a = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision)
-    b = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision)
+    a = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision, plan)
+    b = fr.fused_fwd(flat, sizes, x, e, vis_t, w, 2000.0, 1.0, True, precision, plan)
     assert torch.equal(a, b)
     (d1, g1), (d2, g2) = (fr.fused_bwd(flat, sizes, x, e, vis_t, w, 2000.0, ct, 1.0, True,
-                                       precision) for _ in range(2))
+                                       precision, plan) for _ in range(2))
     assert torch.equal(d1, d2) and torch.equal(g1, g2)
 
 

@@ -26,10 +26,13 @@ from nsfnet_tpu_torch.models.convert import params_from_numpy
 from nsfnet_tpu_torch.models.mlp import flatten_params, layer_sizes, mlp_apply, unflatten_params
 from nsfnet_tpu_torch.ops import fused_residual as fr
 from nsfnet_tpu_torch.ops import losses as L
+from nsfnet_tpu_torch.ops import mlp_streams as ms
+from nsfnet_tpu_torch.ops import psi_streams as psi
 from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.ops.derivatives import mlp_derivatives_2d
 from nsfnet_tpu_torch.training.state import Batch
 from nsfnet_tpu_torch.training.step import StageScalars, make_loss_fn
+from nsfnet_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -181,6 +184,24 @@ def test_fused_loss_cpu_path_launches_no_kernel():
         fr.fused_residual_loss(flat, sizes, x, e, vis_t, w, 100.0, precision="bf16")
 
 
+def test_partial_reduce_counter_is_registered_and_idle_on_the_cpu():
+    """The backward kernels count the floats they reduce into their gradient
+    partials, read through the recorder as `partial_reduce.<kernel>`; the
+    plain version on the CPU reduces nothing."""
+    for mod in (fr, ms, psi):
+        mod.reset_launch_counts()
+    sizes = (2, 8, 8, 3)
+    flat = flatten_params(params_from_numpy(jax_init_mlp(jax.random.PRNGKey(0), sizes)))
+    flat.requires_grad_(True)
+    x, e, vis_t, w = (_t(a) for a in _inputs(64, tail=3))
+    fr.fused_residual_loss(flat, sizes, x, e, vis_t, w, 100.0).sum().backward()
+    assert flat.grad is not None and torch.isfinite(flat.grad).all()
+    counts = profiling.counts()
+    assert {k: counts[f"partial_reduce.{k}"] for mod in (fr, ms, psi)
+            for k in mod.partial_reduce} == {
+        "fused_residual_bwd": 0, "mlp_streams_bwd": 0, "psi_streams_bwd": 0}
+
+
 def test_fused_loss_never_falls_back_off_the_cpu():
     """A tensor that is neither on the CPU nor on a card goes to the kernel
     wrapper, which refuses it instead of running the plain version."""
@@ -225,6 +246,12 @@ def test_tile_choice_and_bounds_accounting():
     assert t["partial_rmw"] == 3750 * 32883 * 8
     assert t["cuda_core_scratch_written"] == 120_000 * 50 * 80 * 4  # 1.92 GB
     assert t["cuda_core_partial_rmw"] == 7500 * 32883 * 8  # 1.97 GB
+    # the split weights, staged once per product layer by the recompute and
+    # once by the reverse sweep, every tile: 2 parts of 2 bytes at "high"
+    assert t["weights_staged"] == 3750 * 10 * 2 * 80 * 80 * 2  # 0.96 GB
+    t = fr.bwd_traffic(layer_sizes(2, 3, 6, 160), 120_000, "high")
+    assert t["partial_rmw"] == 7500 * 129_763 * 8  # 7.79 GB: the 6x160 campaign step
+    assert t["weights_staged"] == 7500 * 10 * 2 * 160 * 160 * 2  # 7.68 GB
 
 
 # ------------------------------------------------------------ loss fn
