@@ -43,18 +43,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
 
-    import importlib
-
     import torch
 
-    spec = run.load_json(run.ROOT, "BENCHMARK.json")
-    cell = run.cell_of(spec, args.workload)
-    config = run.load_json(HERE, "configs", f"{cell['config']}.json")
-    traffic = run.load_json(HERE, "traffic", f"{cell['traffic']}.json")
-    limits = run.load_json(HERE, "limits", f"{args.workload}.json")
-    driver = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
-    reference = importlib.import_module(f"benchmark.reference.{config['reference']}")
-    app = copy.deepcopy(config["app_config"])
+    parts = run.load_cell(args.workload)
+    app, traffic, limits = parts.app, parts.traffic, parts.limits
+    driver, reference = parts.driver, parts.reference
     if args.n_f is not None:
         app["training"]["N_f"] = args.n_f
     control = copy.deepcopy(app)
@@ -83,11 +76,11 @@ def main(argv=None) -> int:
             variants += [(name, app, make) for name, make in faults.FAULTS.items()]
         for name, a, make in variants:
             with (make() if make else contextlib.nullcontext()):
-                solver, prog = driver.prefix(a, traffic, seed, inp, dev)
+                solver, prog = driver.prefix(a, traffic, seed, inp, dev, reference)
             del solver
             row = dict(seed=seed, variant=name, ref_s=ref_s, **driver.readings(prog, ref, inp))
             adam_part = (prog.get("adam", prog), ref.get("adam", ref))
-            row["terms"] = compare.term_gaps(*adam_part)
+            row["terms"] = compare.term_gaps(*adam_part, reference.TERMS)
             row["not_compared"] = compare.not_compared(*adam_part, adam.leaves(inp.params))
             emit(row)
         if i < args.faulted:

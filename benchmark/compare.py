@@ -3,8 +3,11 @@
 An Adam cell's three numbers, each against the reference's three steps
 from the same inputs:
   * loss_gap: the first step's loss, the largest relative gap over its terms
-    (`TERMS`: the boundary term is most of the total at the start, so the
-    equation terms, which kernel 1 sums, are compared apart);
+    (those the configuration's reference names in its `TERMS`, in order:
+    the boundary term is most of the total at the start, so the equation
+    terms, which the loss kernels sum, are compared apart; a term that is 0
+    by construction, as continuity in the streamfunction formulation, is
+    left out there, since it has no relative gap);
   * grad_gap: the first gradient as the optimizer got it (Adam's first
     moment after one step, over 1 - b1), by the worst leaf: the gap between
     the program's norm of the leaf and the reference's, over the larger of
@@ -30,7 +33,6 @@ from typing import Dict, List, Sequence
 
 import torch
 
-TERMS = ("total", "boundary", "eq1", "eq2", "eq3", "eq4")
 ROUND_OFF_LEAF = 1e-3
 
 
@@ -63,11 +65,12 @@ def median_leaf_gap(prog, ref, keep=None) -> float:
     return statistics.median(leaf_gaps(prog, ref, keep))
 
 
-def term_gaps(prog: dict, ref: dict) -> Dict[str, float]:
-    """Each loss term's relative gap at the first step (for the record of
-    what sets loss_gap)."""
+def term_gaps(prog: dict, ref: dict, terms: Sequence[str]) -> Dict[str, float]:
+    """Each loss term's relative gap at the first step, by the names
+    `terms` of the losses' entries (for the record of what sets
+    loss_gap)."""
     return {t: relative_gap([p], [r])
-            for t, p, r in zip(TERMS, prog["losses"][0], ref["losses"][0])}
+            for t, p, r in zip(terms, prog["losses"][0], ref["losses"][0])}
 
 
 def relative_gap(prog: Sequence[float], ref: Sequence[float]) -> float:
@@ -84,7 +87,7 @@ def moved_leaves(first_grad: Sequence[torch.Tensor]) -> List[bool]:
 
 
 def readings(prog: dict, ref: dict, start: Sequence[torch.Tensor]) -> Dict[str, float]:
-    """prog / ref: {"losses": [[a step's TERMS], ...], "first_grad": [leaves],
+    """prog / ref: {"losses": [[a step's loss terms], ...], "first_grad": [leaves],
     "params": [leaves after the steps]}; `start`: the weights both began
     from, as leaves."""
     keep = moved_leaves(ref["first_grad"])

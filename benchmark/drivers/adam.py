@@ -53,15 +53,15 @@ def build(app: dict, seed: int, inp, dev):
     return solver
 
 
-def checked_steps(solver, lr: float, n: int) -> dict:
+def checked_steps(solver, lr: float, n: int, terms) -> dict:
     """The first `n` steps, one `run_steps` call each: each step's loss terms
-    (compare.TERMS), the first gradient as Adam got it (its first moment
-    over 1 - b1) and the weights after the steps, as leaves W0, b0, W1, b1,
-    ..."""
+    (the step metrics named `terms`, in order: the reference's TERMS), the
+    first gradient as Adam got it (its first moment over 1 - b1) and the
+    weights after the steps, as leaves W0, b0, W1, b1, ..."""
     losses, first_grad = [], None
     for i in range(n):
         m = solver.run_steps(1, lr)
-        losses.append(torch.stack([m.total, m.boundary, m.eq1, m.eq2, m.eq3, m.eq4]))
+        losses.append(torch.stack([getattr(m, t) for t in terms]))
         if i == 0:
             first_grad = [t / (1.0 - ADAM_B1) for t in leaves(
                 solver.net.unflatten(solver.state.opt_main.mu))]
@@ -73,10 +73,12 @@ def stage_lr(app: dict) -> float:
     return float(app["training"]["training_stages"][0]["lr"])
 
 
-def prefix(app: dict, traffic: dict, seed: int, inp, dev):
-    """The solver and what its checked steps produced."""
+def prefix(app: dict, traffic: dict, seed: int, inp, dev, reference):
+    """The solver and what its checked steps produced, read by the terms of
+    the configuration's `reference`."""
     solver = build(app, seed, inp, dev)
-    return solver, checked_steps(solver, stage_lr(app), int(traffic["checked_steps"]))
+    return solver, checked_steps(solver, stage_lr(app), int(traffic["checked_steps"]),
+                                 reference.TERMS)
 
 
 def reference_run(inp, app: dict, traffic: dict, reference, **precision) -> dict:
@@ -96,7 +98,7 @@ def run(ctx) -> dict:
     lr = stage_lr(app)
     inp = make_inputs(app, ctx.seed, dev)
     # the checked steps: the window's own call on the window's own batch
-    solver, prog = prefix(app, traffic, ctx.seed, inp, dev)
+    solver, prog = prefix(app, traffic, ctx.seed, inp, dev, ctx.reference)
     points_per_step = inp.x_f.shape[0] + inp.x_b.shape[0]
 
     chunk = int(traffic["chunk_steps"])

@@ -35,10 +35,10 @@ def _both(solver):
     return adam.leaves(solver.params()) + adam.leaves(solver.params_evm())
 
 
-def prefix(app: dict, traffic: dict, seed: int, inp, dev):
+def prefix(app: dict, traffic: dict, seed: int, inp, dev, reference):
     """The solver and what its checked Adam steps and checked L-BFGS stage
     produced."""
-    solver, prog_adam = adam.prefix(app, traffic, seed, inp, dev)
+    solver, prog_adam = adam.prefix(app, traffic, seed, inp, dev, reference)
     start = _both(solver)
     solver.train(num_epoch=int(traffic["checked_lbfgs_steps"]), optimizer="lbfgs")
     st = solver.polish_stats
@@ -66,7 +66,7 @@ def run(ctx) -> dict:
     app, traffic, dev = ctx.app, ctx.traffic, torch.device(ctx.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     inp = make_inputs(app, ctx.seed, dev)
-    solver, prog = prefix(app, traffic, ctx.seed, inp, dev)
+    solver, prog = prefix(app, traffic, ctx.seed, inp, dev, ctx.reference)
     points_per_eval = inp.x_f.shape[0] + inp.x_b.shape[0]
     stage = int(traffic["stage_steps"])
 

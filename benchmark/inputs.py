@@ -1,6 +1,8 @@
 """The inputs of a run, made from `--seed` on the device: the cavity's
 collocation points with their SDF weights, its boundary points, and the
-weights of both nets. The program and the reference are handed the same
+weights of the main net (its head as wide as the configuration's
+formulation has outputs) and, where the configuration has one, of the EVM
+net. The program and the reference are handed the same
 tensors; neither makes its own.
 
 The distributions are the reference data loader's (ev-NSFnet/cavity_data.py):
@@ -12,12 +14,12 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every weight and bias.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from benchmark.flops import mlp_sizes, param_count
+from benchmark.flops import has_evm, main_sizes, mlp_sizes, param_count
 
 POINTS_PER_EDGE = 513
 LID_REG = 10.0
@@ -34,7 +36,7 @@ class Inputs(NamedTuple):
     u_b: torch.Tensor
     v_b: torch.Tensor
     params: Params      # main net, (W[fan_in, fan_out], b[fan_out]) per layer
-    params_evm: Params  # EVM net
+    params_evm: Optional[Params]  # EVM net; None without one
 
 
 def _latin_hypercube(n: int, g: torch.Generator, device) -> torch.Tensor:
@@ -81,7 +83,8 @@ def _weights(sizes: Sequence[int], g: torch.Generator, device) -> Params:
 def make_inputs(app: dict, seed: int, device, n_f: int = None) -> Inputs:
     """The inputs of a run of the configuration `app` (its `app_config`),
     drawn from `seed` on `device`; `n_f` overrides the collocation count
-    (tests at small sizes)."""
+    (tests at small sizes). The draws come in one order, the EVM net's
+    last, so a configuration without it gets the same main net."""
     net, tr = app["network"], app["training"]
     sdf = tr["sdf_weighting"]
     n = int(tr["N_f"] if n_f is None else n_f)
@@ -92,7 +95,8 @@ def make_inputs(app: dict, seed: int, device, n_f: int = None) -> Inputs:
     else:
         w = torch.ones(n, device=device, dtype=torch.float64)
     col = lambda a: a.reshape(-1, 1).to(torch.float32).contiguous()
-    params = _weights(mlp_sizes(net["layers"], net["hidden_size"]), g, device)
-    params_evm = _weights(mlp_sizes(net["layers_1"], net["hidden_size_1"], n_out=1), g, device)
+    params = _weights(main_sizes(net), g, device)
+    params_evm = (_weights(mlp_sizes(net["layers_1"], net["hidden_size_1"], n_out=1), g, device)
+                  if has_evm(app) else None)
     return Inputs(col(pts[:, 0]), col(pts[:, 1]), col(w), *_boundary(device),
                   params, params_evm)

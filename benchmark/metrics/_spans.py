@@ -6,7 +6,6 @@ from __future__ import annotations
 
 import statistics
 
-KERNELS_1_2 = ("kernel.loss_fwd", "kernel.loss_bwd")
 STEPS = (2, 3, 4)  # of each window chunk: past the chunk's head, before the launch queue fills
 
 

@@ -35,6 +35,9 @@ from benchmark.reference import lbfgs as lbfgs_ref
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 ENTROPY_WEIGHT = 0.1
+# the loss terms `adam_steps` returns a step, in order: the names of the
+# solver's step metrics that the driver reads beside them
+TERMS = ("total", "boundary", "eq1", "eq2", "eq3", "eq4")
 
 
 @contextlib.contextmanager
@@ -122,7 +125,7 @@ def _vis_t(evm: list, inputs, app: dict, mm: Callable) -> torch.Tensor:
 def adam_steps(inputs, app: dict, lr: float, n_steps: int, block: int = 20000,
                mm: Optional[Callable] = None, tf32: bool = False) -> dict:
     """`n_steps` Adam steps from the inputs' weights. Returns each step's loss
-    terms [total, boundary, l1, l2, l3, l4] (at the weights the step starts
+    terms (TERMS: total, boundary, l1, l2, l3, l4; at the weights the step starts
     from; the boundary term before its weight), the first step's gradient,
     the main net's weights after the last step (`params`) and the EVM net's
     (`params_evm`), as lists of leaves in the order W0, b0, W1, b1, ..."""

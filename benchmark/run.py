@@ -69,6 +69,29 @@ def metrics_of(spec: dict, cell: dict, kind: str) -> list:
     return out
 
 
+def load_config(name: str) -> dict:
+    return load_json(HERE, "configs", f"{name}.json")
+
+
+def reference_of(config: dict):
+    """The configuration's plain reference, reference/<module>.py."""
+    return importlib.import_module(f"benchmark.reference.{config['reference']}")
+
+
+def load_cell(workload: str) -> SimpleNamespace:
+    """What a run of the cell reads, each piece found by its name: the cell,
+    its configuration and a copy of its `app_config` (`app`), the traffic
+    mix, the driver the mix names, the configuration's reference and the
+    cell's limits."""
+    cell = cell_of(load_json(ROOT, "BENCHMARK.json"), workload)
+    config = load_config(cell["config"])
+    traffic = load_json(HERE, "traffic", f"{cell['traffic']}.json")
+    return SimpleNamespace(
+        cell=cell, config=config, app=json.loads(json.dumps(config["app_config"])),
+        traffic=traffic, driver=importlib.import_module(f"benchmark.drivers.{traffic['driver']}"),
+        reference=reference_of(config), limits=load_json(HERE, "limits", f"{workload}.json"))
+
+
 def load_reader(name: str):
     """metrics/<name>.py; a name may hold dots, so it is loaded by path."""
     path = os.path.join(HERE, "metrics", f"{name}.py")
@@ -89,20 +112,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     plain versions; `n_f` and `chunk_steps` shrink the cell for such runs."""
     t0 = T0 if t0 is None else t0
     spec = load_json(ROOT, "BENCHMARK.json")
-    cell = cell_of(spec, workload)
-    config = load_json(HERE, "configs", f"{cell['config']}.json")
-    traffic = load_json(HERE, "traffic", f"{cell['traffic']}.json")
-    app = json.loads(json.dumps(config["app_config"]))
+    parts = load_cell(workload)
+    cell, config, app, traffic = parts.cell, parts.config, parts.app, parts.traffic
     if n_f is not None:
         app["training"]["N_f"] = int(n_f)
     if chunk_steps is not None:
         traffic = dict(traffic, chunk_steps=int(chunk_steps))
-    driver = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
-    reference = importlib.import_module(f"benchmark.reference.{config['reference']}")
     ctx = SimpleNamespace(app=app, traffic=traffic, seed=int(seed), seconds=float(seconds),
-                          trace=bool(trace), device=device, reference=reference,
-                          limits=load_json(HERE, "limits", f"{workload}.json"))
-    out = driver.run(ctx)
+                          trace=bool(trace), device=device, reference=parts.reference,
+                          limits=parts.limits)
+    out = parts.driver.run(ctx)
 
     import torch
 

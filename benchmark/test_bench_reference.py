@@ -2,8 +2,8 @@
 decided false under the control and under each planted fault."""
 
 import ast
-import importlib
-import json
+import contextlib
+import copy
 import os
 
 import pytest
@@ -12,14 +12,10 @@ import torch
 from benchmark import compare, faults, run
 from benchmark.drivers import adam
 from benchmark.inputs import make_inputs
-from benchmark.reference import ev_nsfnet
 
 SPEC = run.load_json(run.ROOT, "BENCHMARK.json")
 CELLS = [w["name"] for w in SPEC["workloads"]]
-
-
-def _config(cell):
-    return run.load_json(run.HERE, "configs", f"{run.cell_of(SPEC, cell)['config']}.json")
+CONFIGS = [c["name"] for c in SPEC["configs"]]
 
 
 def test_reference_imports_nothing_of_the_port():
@@ -36,35 +32,35 @@ def test_reference_imports_nothing_of_the_port():
 
 
 @pytest.mark.parametrize("hidden", [16, 80])
-def test_reference_agrees_with_the_plain_path(hidden):
-    app = json.loads(json.dumps(_config(CELLS[0])["app_config"]))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_agrees_with_the_plain_path(name, hidden):
+    """Each configuration's own reference against the port's plain path on
+    its own inputs, the main net cut to 3 hidden layers."""
+    config = run.load_config(name)
+    reference = run.reference_of(config)
+    app = copy.deepcopy(config["app_config"])
     app["network"].update(layers=3, hidden_size=hidden)
     app["training"]["N_f"] = 256
     inp = make_inputs(app, 123, "cpu")
     lr = adam.stage_lr(app)
-    prog = adam.checked_steps(adam.build(app, 123, inp, torch.device("cpu")), lr, 3)
-    ref = ev_nsfnet.adam_steps(inp, app, lr, 3, block=100)
+    prog = adam.checked_steps(adam.build(app, 123, inp, torch.device("cpu")), lr, 3,
+                              reference.TERMS)
+    ref = reference.adam_steps(inp, app, lr, 3, block=100)
     values = compare.readings(prog, ref, adam.leaves(inp.params))
     assert values["loss_gap"] < 1e-5 and values["grad_gap"] < 1e-6
     assert values["delta_gap"] < 1e-5
 
 
-def _driver(cell):
-    traffic = run.load_json(run.HERE, "traffic", f"{run.cell_of(SPEC, cell)['traffic']}.json")
-    return importlib.import_module(f"benchmark.drivers.{traffic['driver']}"), traffic
-
-
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_the_check(cell):
     """The reference computed with one bfloat16 pass, put in the port's place."""
-    app = json.loads(json.dumps(_config(cell)["app_config"]))
+    parts = run.load_cell(cell)
+    app, driver, traffic, reference = parts.app, parts.driver, parts.traffic, parts.reference
     app["training"]["N_f"] = 1024
     inp = make_inputs(app, 2**31 + 5, "cpu")
-    driver, traffic = _driver(cell)
-    ref = driver.reference_run(inp, app, traffic, ev_nsfnet)
-    low = driver.reference_run(inp, app, traffic, ev_nsfnet, mm=faults.bf16_product)
-    judged = compare.judge(driver.readings(low, ref, inp),
-                           run.load_json(run.HERE, "limits", f"{cell}.json"))
+    ref = driver.reference_run(inp, app, traffic, reference)
+    low = driver.reference_run(inp, app, traffic, reference, mm=faults.bf16_product)
+    judged = compare.judge(driver.readings(low, ref, inp), parts.limits)
     assert not all(c["ok"] for c in judged.values())
 
 
@@ -75,6 +71,36 @@ def test_each_fault_makes_the_run_incorrect(cell, fault):
         result, _ = run.run_cell(cell, 2**31 + 17, 0.1, False, device="cpu", n_f=1024,
                                  chunk_steps=1, t0=0.0)
     assert result["correct"] is False
+
+
+# configurations of the kinds the next cells bring (BENCHMARK.json has none
+# yet): the streamfunction ev-NSFnet, and the vanilla NSFnet (no EVM net)
+KINDS = {"streamfunction-ev": {"formulation": "streamfunction"},
+         "velocity-no-evm": {"model_variant": "nsfnet"}}
+
+
+def _checked(kind, fault=None):
+    app = copy.deepcopy(run.load_config(CONFIGS[0])["app_config"])
+    change = KINDS[kind]
+    app["network"].update(formulation=change.get("formulation", "velocity"), layers=3,
+                          hidden_size=16)
+    app["model_variant"] = change.get("model_variant", app["model_variant"])
+    app["training"]["N_f"] = 256
+    inp = make_inputs(app, 2**31 + 43, "cpu")
+    terms = ("total", "boundary", "eq1", "eq2", "eq3", "eq4")
+    with faults.FAULTS[fault]() if fault else contextlib.nullcontext():
+        solver = adam.build(app, 1, inp, torch.device("cpu"))
+        return adam.checked_steps(solver, adam.stage_lr(app), 2, terms)
+
+
+@pytest.mark.parametrize("fault", list(faults.FAULTS))
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_each_fault_reaches_the_other_kinds_of_configuration(kind, fault):
+    """Each fault changes what the checked steps of such a configuration give,
+    so that its cell's check can see it."""
+    sound, faulted = _checked(kind), _checked(kind, fault)
+    assert faulted["losses"] != sound["losses"]
+    assert not all(a.equal(b) for a, b in zip(faulted["params"], sound["params"]))
 
 
 @pytest.fixture
@@ -88,15 +114,14 @@ def card():
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_on_the_card_fails_the_check(cell, card):
     """The port with its own lower precision, "default" (one bf16 pass)."""
-    app = json.loads(json.dumps(_config(cell)["app_config"]))
+    parts = run.load_cell(cell)
+    app, driver, traffic, reference = parts.app, parts.driver, parts.traffic, parts.reference
     app["training"]["N_f"] = 16_384
     inp = make_inputs(app, 2**31 + 23, card)
-    driver, traffic = _driver(cell)
-    ref = driver.reference_run(inp, app, traffic, ev_nsfnet)
-    sound = driver.prefix(app, traffic, 1, inp, card)[1]
+    ref = driver.reference_run(inp, app, traffic, reference)
+    sound = driver.prefix(app, traffic, 1, inp, card, reference)[1]
     app["training"]["matmul_precision"] = "default"
-    low = driver.prefix(app, traffic, 1, inp, card)[1]
-    limits = run.load_json(run.HERE, "limits", f"{cell}.json")
+    low = driver.prefix(app, traffic, 1, inp, card, reference)[1]
     ok = lambda p: all(c["ok"] for c in compare.judge(driver.readings(p, ref, inp),
-                                                      limits).values())
+                                                      parts.limits).values())
     assert ok(sound) and not ok(low)

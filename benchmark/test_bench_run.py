@@ -1,6 +1,7 @@
 """The harness end to end on the CPU, at a tiny size, on the kernels' plain
 versions; the contract's last line; the readers over a trace record."""
 
+import copy
 import json
 import os
 import shutil
@@ -10,7 +11,9 @@ import sys
 import pytest
 
 from benchmark import run, trace
-from benchmark.flops import H100_BF16_FLOPS, loss_kernel_flops, mlp_sizes, roofline_ms
+from benchmark.flops import (H100_BF16_FLOPS, loss_kernel_flops, mlp_sizes, roofline_ms,
+                             streams_kernel_flops)
+from benchmark.metrics._loss_kernels import streams_roofline_pct
 
 SPEC = run.load_json(run.ROOT, "BENCHMARK.json")
 CELLS = [w["name"] for w in SPEC["workloads"]]
@@ -80,6 +83,28 @@ def test_readers_on_a_record():
     assert b["idle_gaps"][:2] == [["python", pytest.approx(105e-6)],
                                   ["aten::cat", pytest.approx(50e-6)]]
     assert len(b["device_ops"]) <= 10 and len(b["idle_gaps"]) <= 10
+
+
+def test_readers_of_a_streamfunction_record():
+    """Kernels 5+6 in place of 1+2: the plain part leaves them out as it
+    leaves out kernels 1+2, and their rooflines come from the 13-stream
+    counts at a 2-wide head; kernels 1+2's readers find nothing."""
+    config = copy.deepcopy(run.load_json(run.HERE, "configs", "ev-nsfnet-re2000-6x80.json"))
+    config["app_config"]["network"]["formulation"] = "streamfunction"
+    rec = record(config)
+    rec["device"] = [(name.replace("loss_fwd_kernel", "psi_fwd_kernel<2, 16, 2>")
+                      .replace("loss_bwd_kernel", "psi_bwd_kernel<2, 16, 2>"), cat, ts, dur)
+                     for name, cat, ts, dur in rec["device"]]
+    read = lambda name: run.load_reader(name)(rec)
+    assert read("plain_ms_per_step.adam") == pytest.approx(0.06)
+    assert read("k1_loss_fwd_roofline") is None and read("k2_loss_bwd_roofline") is None
+    sizes = (2,) + (80,) * 6 + (2,)
+    f5, f6 = streams_kernel_flops(sizes, 120_000, 13)
+    assert streams_roofline_pct(rec, "psi_fwd_kernel") == pytest.approx(
+        100 * roofline_ms(f5, 0) / 0.94)
+    assert streams_roofline_pct(rec, "psi_bwd_kernel") == pytest.approx(
+        100 * roofline_ms(f6, 0) / 4.24)
+    assert streams_roofline_pct(rec, "streams_fwd_kernel") is None
 
 
 def test_readers_find_nothing_in_an_empty_trace():

@@ -71,12 +71,15 @@ def read(name, rec=None):
 
 
 def test_the_entries_are_appended_for_both_cells():
-    per_layer = SPEC["per_layer"]
-    assert [m["name"] for m in per_layer[-4:]] == NEW
-    for m in per_layer[-4:]:
-        assert m["workloads"] == ["ev6x80-adam", "ev6x160-adam"]
-    layers = {m["layer"] for m in per_layer[:-4]}
-    assert {m["layer"] for m in per_layer[-4:-1]} <= layers  # the layers already named
+    """In order after the metrics before them, each listing both cells (and
+    whatever cells later changes add to it)."""
+    names = [m["name"] for m in SPEC["per_layer"]]
+    start = names.index(NEW[0])
+    assert names[start:start + 4] == NEW
+    for m in SPEC["per_layer"][start:start + 4]:
+        assert {"ev6x80-adam", "ev6x160-adam"} <= set(m["workloads"])
+    layers = {m["layer"] for m in SPEC["per_layer"][:start]}
+    assert {m["layer"] for m in SPEC["per_layer"][start:start + 3]} <= layers  # named before
 
 
 def test_readers_over_synthetic_records(records):
@@ -88,6 +91,16 @@ def test_readers_over_synthetic_records(records):
     assert read("idle_share_window.adam") == pytest.approx(100 * (1 - 7.5 / 8.5))
     # outermost set-up spans: solver 0.3 s, data 0.1, ready 0.1, first step 1.5
     assert read("setup_in_program_s") == pytest.approx(2.0)
+
+
+@pytest.mark.parametrize("stem", ["streams", "psi"])
+def test_the_launchers_of_every_kernel_pair_are_read(records, monkeypatch, stem):
+    """kernel.streams_* (kernels 3+4) and kernel.psi_* (5+6) in place of
+    kernel.loss_*: the same launch cost; other spans still not counted."""
+    spans, _ = records
+    moved = [s._replace(name=s.name.replace("kernel.loss_", f"kernel.{stem}_")) for s in spans]
+    monkeypatch.setattr(profiling, "spans", lambda: moved)
+    assert read("host_launch_ms_per_step.adam") == pytest.approx(0.303)
 
 
 def test_the_device_trace_reader_finds_nothing_in_an_empty_trace(records):
