@@ -202,6 +202,8 @@ DEFAULT_BWD_TOL = 1e-3
 SMALL_TOL = 1e-3  # cuda vs CPU solver on a small input, per logged metric
 UNFUSED_TOL = 1e-4  # unfused (kernels 3+4) vs fused (kernels 1+2): metrics, gradient tensors
 ENGINE_TOL = 1e-4   # streamfunction step, kernel engine vs closed form: metrics, gradient tensors
+# the streamfunction's MSE step on `pallas`: kernel 5, the glue pair, kernel 6
+PSI_LOSS_KERNELS = ("psi_streams_fwd", "psi_streams_bwd", "psi_residual_fwd", "psi_residual_bwd")
 DIV_TOL = 1e-5      # |u_x + v_y| of the streamfunction field on a grid
 LM_SLICE_NF = 8192  # the LM slicing check: the h288 checkpoint on fewer points
 LM_PARAM_TOL = 1e-5  # LM over 3 slices vs the full batch: max|diff| / max|w| of the params
@@ -903,8 +905,8 @@ def phase_measure(torch, np, ctx):
     pairs = {"mlp/pallas highest": ("fused_residual_fwd", "fused_residual_bwd"),
              "mlp/pallas high": ("fused_residual_fwd", "fused_residual_bwd"),
              "mlp/pallas default": ("fused_residual_fwd", "fused_residual_bwd"),
-             "sf/xla-closed-form high": (), "sf/pallas high": ("psi_streams_fwd",
-                                                               "psi_streams_bwd"),
+             "sf/xla-closed-form high": (),
+             "sf/pallas high": PSI_LOSS_KERNELS,
              "kan/generic high": ()}
     th = None  # the watchdog's thread
     flag, reg = os.path.join(".run", "pause"), os.path.join(".run", "drill.pid")
@@ -1866,8 +1868,7 @@ def main() -> int:
     # 4e. the streamfunction slice: kernels 5+6
     sfcfg = ConfigManager.from_dict(STREAMFUNCTION).config
     assert unsupported(sfcfg) == [], unsupported(sfcfg)
-    solver_sf, launches_sf, ok_sf = drive(sfcfg, "slice_sf", ("psi_streams_fwd",
-                                                              "psi_streams_bwd"))
+    solver_sf, launches_sf, ok_sf = drive(sfcfg, "slice_sf", PSI_LOSS_KERNELS)
     eq3_zero = all(m["eq3"] == 0.0 for _, m in record["slice_sf"]["history"])
     grid = torch.linspace(0.0, 1.0, 101)
     gx, gy = (t.reshape(-1, 1).numpy() for t in torch.meshgrid(grid, grid, indexing="ij"))
@@ -1897,7 +1898,7 @@ def main() -> int:
     m_rel_sf = rel_sums(list(sides["pallas"][0]), list(sides["xla"][0]))
     g_rel_sf = rel_per_param(unflatten_params, sides["pallas"][1], sides["xla"][1], sizes_sf)
     routed_sf = (sides["pallas"][2] == {**dict.fromkeys(read_counts(), 0),
-                                        "psi_streams_fwd": 1, "psi_streams_bwd": 1}
+                                        **dict.fromkeys(PSI_LOSS_KERNELS, 1)}
                  and not any(sides["xla"][2].values()))
     print(f"streamfunction step, kernel engine (kernels 5+6) vs closed form, the path's batch "
           f"and trained weights: metrics max rel diff {m_rel_sf:.3e}, main-net gradient "

@@ -27,7 +27,7 @@ from nsfnet_tpu_torch.utils import profiling
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nsfnet_tpu_torch"
 SOURCES = {"fused_residual": "fused_residual.cu", "mlp_streams": "mlp_streams.cu",
-           "psi_streams": "psi_streams.cu"}
+           "psi_streams": "psi_streams.cu", "psi_residual": "psi_residual.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -35,7 +35,7 @@ from typing import Callable, Tuple
 import torch
 from torch.func import jvp
 
-from nsfnet_tpu_torch.models.mlp import Params
+from nsfnet_tpu_torch.models.mlp import Params, unflatten_params
 
 Derivs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # (out, d/dx, d/dy, d2/dx2, d2/dy2), each [N, K]
@@ -303,3 +303,76 @@ def psi_p_uv(params: Params, x: torch.Tensor, uv_scale: float = 1.0) -> torch.Te
     w, b = params[-1]
     out, fx, fy = h @ w + b, hx @ w, hy @ w
     return torch.cat([uv_scale * fy[:, 0:1], -uv_scale * fx[:, 0:1], out[:, 1:2]], dim=1)
+
+
+class _StackedPsiPUV(torch.autograd.Function):
+    """psi_p_uv on the flat weights with the value and both tangents
+    stacked into one [3N, H] product a layer, and its backward written out:
+    ~110 operations forward and backward where autograd of psi_p_uv runs
+    ~220, the same fp32 arithmetic but for the order of each product's
+    sums. Gradients flow to flat only. First order only (no jvp)."""
+
+    @staticmethod
+    def forward(ctx, flat, x, sizes, uv_scale):
+        params = unflatten_params(flat, sizes)
+        n = x.shape[0]
+        w0, b0 = params[0]
+        h = torch.tanh(torch.addmm(b0, x, w0))
+        s = 1.0 - h * h
+        stack = torch.cat([h[None], s[None] * w0[:, None, :]])  # [h; h_x; h_y], [3, N, H]
+        saved = [h, s]
+        for w, b in params[1:-1]:
+            z = (stack.view(3 * n, -1) @ w).view(3, n, -1)
+            h = torch.tanh(z[0] + b)
+            s = 1.0 - h * h
+            saved += [stack, z, h, s]
+            stack = torch.cat([h[None], s[None] * z[1:]])
+        w, b = params[-1]
+        o = (stack.view(3 * n, -1) @ w).view(3, n, -1)
+        ctx.save_for_backward(flat, x, stack, *saved)
+        ctx.meta = (sizes, uv_scale)
+        return torch.cat([uv_scale * o[2, :, 0:1], -uv_scale * o[1, :, 0:1], o[0, :, 1:2] + b[1]],
+                         dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, x, last, h0, s0, *saved = ctx.saved_tensors
+        sizes, uv_scale = ctx.meta
+        params = unflatten_params(flat, sizes)
+        n = x.shape[0]
+        go = g.new_zeros((3, n, sizes[-1]))
+        go[2, :, 0] = uv_scale * g[:, 0]
+        go[1, :, 0] = -uv_scale * g[:, 1]
+        go[0, :, 1] = g[:, 2]
+        w, _ = params[-1]
+        go = go.view(3 * n, -1)
+        db = g.new_zeros(sizes[-1])
+        db[1] = g[:, 2].sum()
+        grads = [(last.view(3 * n, -1).T @ go, db)]
+        d = (go @ w.T).view(3, n, -1)
+        for (w, _), i in zip(reversed(params[1:-1]), range(len(saved) - 4, -1, -4)):
+            stack, z, h, s = saved[i:i + 4]
+            # stack_out = [h; s z_x; s z_y], h = tanh(z_0 + b), s = 1 - h^2
+            ds = (d[1:] * z[1:]).sum(0)
+            dz0 = torch.addcmul(d[0], h, ds, value=-2.0) * s
+            dz = torch.cat([dz0[None], s[None] * d[1:]]).view(3 * n, -1)
+            grads.append((stack.view(3 * n, -1).T @ dz, dz0.sum(0)))
+            d = (dz @ w.T).view(3, n, -1)
+        w0, _ = params[0]
+        # the first layer: [h; s w0_x; s w0_y], h = tanh(x w0 + b0)
+        ds = (d[1:] * w0[:, None, :]).sum(0)
+        da = torch.addcmul(d[0], h0, ds, value=-2.0) * s0
+        grads.append((torch.addmm((d[1:] * s0[None]).sum(1), x.T, da), da.sum(0)))
+        return torch.cat([t.reshape(-1) for pair in reversed(grads) for t in pair]), None, None, \
+            None
+
+
+def psi_p_uv_stacked(flat: torch.Tensor, sizes, x: torch.Tensor,
+                     uv_scale: float = 1.0) -> torch.Tensor:
+    """psi_p_uv of the MLP whose flat weights are `flat` (`sizes` its layer
+    sizes), for the Adam step's boundary loss: on a card the stacked pass
+    and its written-out backward (`_StackedPsiPUV`), half the launches; on
+    the CPU psi_p_uv itself. Differentiable wrt `flat` only."""
+    if x.device.type == "cpu":
+        return psi_p_uv(unflatten_params(flat, sizes), x, uv_scale)
+    return _StackedPsiPUV.apply(flat, x.detach(), tuple(sizes), float(uv_scale))

@@ -506,15 +506,26 @@ class _FusedResidualLoss(torch.autograd.Function):
 def fused_residual_loss(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
                         e: Optional[torch.Tensor], vis_t: Optional[torch.Tensor],
                         eq_w: torch.Tensor, re: float, *, coord_scale: float = 1.0,
-                        evm: bool = True, precision: str = "high") -> torch.Tensor:
+                        evm: bool = True, precision: str = "high",
+                        formulation: str = "velocity") -> torch.Tensor:
     """S_i = sum(eq_w * eq_i^2) for the MLP whose flat weights are `flat`
     (models/mlp.py layout, `sizes` its layer sizes); [4] with EVM, [3]
     vanilla (pass e = vis_t = None). Divide by the real-point count for the
     per-equation mean losses. The batch must be padded to ROW_ALIGN rows,
     with eq_w = 0 on pad rows. On a card the kernels run the bf16 passes of
-    `precision`; on the CPU the plain version computes exact fp32."""
+    `precision`; on the CPU the plain version computes exact fp32.
+    `formulation="streamfunction"`: the same sums of a (psi, p) net, S3 = 0,
+    by kernel 5, the residual-glue kernels and kernel 6
+    (ops/psi_residual.py)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    if formulation == "streamfunction":
+        from nsfnet_tpu_torch.ops.psi_residual import psi_residual_loss  # it imports this module
+
+        return psi_residual_loss(flat, sizes, x, e, vis_t, eq_w, re, coord_scale=coord_scale,
+                                 evm=evm, precision=precision)
+    if formulation != "velocity":
+        raise ValueError(f"unknown formulation {formulation!r}")
     if x.device.type == "cpu":
         return plain_residual_sums(unflatten_params(flat, sizes), x, e, vis_t, eq_w,
                                    re, coord_scale, evm)

@@ -32,9 +32,12 @@ CPU tensors runs its plain version.
 u = psi_y, v = -psi_x, so continuity holds exactly (eq3 == 0) and the
 momentum residuals need third derivatives of psi. Its engine is the order-3
 kernel pair (ops/psi_streams.py) on `pallas` and the closed form
-(ops/derivatives.mlp_psi_derivatives_2d) on `xla`, always followed by
-residuals -> masked sums: the fused residual loss reads (u, v, p) heads and
-is never used. Under `auto`, NSFNET_PALLAS_PSI=0 keeps the closed form on a
+(ops/derivatives.mlp_psi_derivatives_2d) on `xla`. On `pallas` an MSE run
+takes `fused_residual_loss(..., formulation="streamfunction")`: kernel 5,
+the residual-glue kernel pair and kernel 6 (ops/psi_residual.py), never
+kernels 1+2, whose heads are (u, v, p); an L2 run, or NSFNET_FUSED_LOSS=0,
+takes kernel 5 -> the bundle, residuals and masked sums in PyTorch ->
+kernel 6. Under `auto`, NSFNET_PALLAS_PSI=0 keeps the closed form on a
 card; an explicit engine="pallas" wins.
 
 The polish stages (training/lbfgs.py, training/lm.py) and the adaptive bc
@@ -91,7 +94,8 @@ from nsfnet_tpu_torch.models.mlp import MLP, Params, flatten_params, mlp_apply, 
 from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.ops.derivatives import (derivatives_2d, make_kan_derivatives_2d,
                                               mlp_derivatives_2d, mlp_psi_derivatives_2d,
-                                              psi_p_derivatives_2d, psi_p_uv, psi_p_uv_generic)
+                                              psi_p_derivatives_2d, psi_p_uv, psi_p_uv_generic,
+                                              psi_p_uv_stacked)
 from nsfnet_tpu_torch.ops.fused_residual import ROW_ALIGN, KernelLaunchError, fused_residual_loss
 from nsfnet_tpu_torch.ops.mlp_streams import mlp_streams
 from nsfnet_tpu_torch.ops.psi_streams import psi_streams
@@ -520,12 +524,14 @@ class PINNSolver:
                 self._vis_stale = False
         return batch
 
-    def _uvp_apply(self):
+    def _uvp_apply(self, kind: Optional[str] = None):
         """(flat params, X[N,2]) -> [N,3] (u, v, p) VALUES: the forward pass
         every consumer of velocities uses (boundary loss, prediction). The
         net's output itself in the velocity formulation; u = s psi_y,
         v = -s psi_x by one value + first-tangent pass in the streamfunction
-        formulation (generic tangent sweeps for a Fourier net). For a KAN
+        formulation (generic tangent sweeps for a Fourier net), on `kind`
+        "pallas" (the Adam step's loss) the stacked pass with its backward
+        written out, on a card (ops/derivatives.psi_p_uv_stacked). For a KAN
         or a Fourier net, columns past the third (a KAN's extra outputs) are
         returned too and unread, as in the JAX package."""
         net, scale = self.net, self.coord_scale
@@ -533,6 +539,8 @@ class PINNSolver:
         if self.formulation == "streamfunction":
             if self._generic_engine:
                 return lambda flat, x: psi_p_uv_generic(lambda z: apply(flat, z), x, scale)
+            if kind == "pallas":
+                return lambda flat, x: psi_p_uv_stacked(flat, net.sizes, x, scale)
             return lambda flat, x: psi_p_uv(net.unflatten(flat), x, scale)
         return apply
 
@@ -576,20 +584,22 @@ class PINNSolver:
         kind = kind or self.engine
         scale, evm, prec = self.coord_scale, self.evm, self.matmul_precision
         fused = None
-        if kind == "pallas" and not self._generic_engine and self.formulation == "velocity" \
-                and self.loss_mode == "MSE" and self._fused_loss_enabled():
-            sizes = self.net.sizes
+        if kind == "pallas" and not self._generic_engine and self.loss_mode == "MSE" \
+                and self._fused_loss_enabled():
+            sizes, form = self.net.sizes, self.formulation
             if evm:
                 def fused(flat, x, e, vis_t, eq_w, re):
                     return fused_residual_loss(flat, sizes, x, e, vis_t, eq_w, re,
-                                               coord_scale=scale, evm=True, precision=prec)
+                                               coord_scale=scale, evm=True, precision=prec,
+                                               formulation=form)
             else:
                 def fused(flat, x, eq_w, re):
                     return fused_residual_loss(flat, sizes, x, None, None, eq_w, re,
-                                               coord_scale=scale, evm=False, precision=prec)
+                                               coord_scale=scale, evm=False, precision=prec,
+                                               formulation=form)
         return make_loss_fn(
             engine=self._engine(kind),
-            apply_main=self._uvp_apply(),
+            apply_main=self._uvp_apply(kind),
             apply_evm=self._apply_evm() if evm else None,
             coord_scale=scale,
             alpha_e=self.alpha_e,

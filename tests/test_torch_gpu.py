@@ -11,9 +11,12 @@ import torch
 
 from nsfnet_tpu_torch.models.mlp import flatten_params, init_mlp, unflatten_params
 from nsfnet_tpu_torch.ops import fused_residual as fr
+from nsfnet_tpu_torch.ops import losses as L
 from nsfnet_tpu_torch.ops import mlp_streams as ms
 from nsfnet_tpu_torch.ops import pass_checks as pc
+from nsfnet_tpu_torch.ops import psi_residual as pr
 from nsfnet_tpu_torch.ops import psi_streams as psi
+from nsfnet_tpu_torch.ops import residuals as R
 from nsfnet_tpu_torch.training.solver import PINNSolver
 
 pytestmark = pytest.mark.gpu
@@ -716,8 +719,10 @@ def test_streamfunction_solver_kernel_engine_matches_closed_form(cuda, monkeypat
     kw = dict(formulation="streamfunction")
     psi.reset_launch_counts()
     fr.reset_launch_counts()
+    pr.reset_launch_counts()
     kernel, p_kernel = _cavity_run("cuda", engine="pallas", **kw)
     assert psi.launch_counts == {"psi_streams_fwd": 4, "psi_streams_bwd": 4}
+    assert pr.launch_counts == {"psi_residual_fwd": 4, "psi_residual_bwd": 4}
     assert not any(fr.launch_counts.values())
     psi.reset_launch_counts()
     closed, p_closed = _cavity_run("cuda", engine="xla", **kw)
@@ -730,6 +735,115 @@ def test_streamfunction_solver_kernel_engine_matches_closed_form(cuda, monkeypat
     torch.testing.assert_close(p_kernel, p_closed, rtol=0, atol=5e-6)
     on_cpu, _ = _cavity_run("cpu", **kw)
     np.testing.assert_allclose(kernel, on_cpu, rtol=1e-4, atol=1e-9)
+
+
+# ------------------------------------------- streamfunction residual glue
+
+def _glue_inputs(n, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    streams = tuple(torch.randn((n, 2), generator=gen).to(dev) for _ in range(13))
+    e = (0.1 * torch.randn((n, 1), generator=gen)).to(dev)
+    vis_t = (0.01 * torch.randn((n, 1), generator=gen)).abs().to(dev)
+    w = torch.rand((n, 1), generator=gen) * 1.6 + 0.2
+    w[-37:] = 0.0
+    return streams, e, vis_t, w.to(dev)
+
+
+# the glue kernels against their plain version: fp32 both, only the order of
+# the sums and the contraction of products into fused multiply-adds differ
+GLUE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("evm", [True, False], ids=["evm", "vanilla"])
+@pytest.mark.parametrize("n,scale", [(512, 1.0), (1040, 0.5), (120_000, 2.0)])
+def test_psi_glue_kernels_match_plain_version(cuda, n, scale, evm):
+    streams, e, vis_t, w = _glue_inputs(n, cuda, seed=n % 97)
+    if not evm:
+        e = vis_t = None
+    got = pr.residual_fwd(streams, e, vis_t, w, 2000.0, scale, evm)
+    want = pr.plain_psi_residual_sums(streams, e, vis_t, w, 2000.0, scale, evm)
+    assert got.shape == want.shape and got[2].item() == 0.0
+    torch.testing.assert_close(got, want, rtol=GLUE_TOL, atol=0)
+    ct = torch.tensor([0.7, -1.3, 0.4, 2.1][:4 if evm else 3], device=cuda)
+    cts, g_e = pr.residual_bwd(streams, e, vis_t, w, ct, 2000.0, scale, evm)
+    ref, ref_e = pr.plain_psi_residual_bwd(streams, e, vis_t, w, ct, 2000.0, scale, evm)
+    for q, (a, b) in enumerate(zip(cts, ref)):
+        assert a.is_contiguous() and _rel(a, b) <= GLUE_TOL, q
+    if evm:
+        assert _rel(g_e, ref_e) <= GLUE_TOL
+        assert pr.residual_bwd(streams, e, vis_t, w, ct, 2000.0, scale, evm, want_e=False)[1] \
+            is None
+    else:
+        assert g_e is None
+    # bitwise repeatable
+    assert torch.equal(pr.residual_fwd(streams, e, vis_t, w, 2000.0, scale, evm), got)
+    again, _ = pr.residual_bwd(streams, e, vis_t, w, ct, 2000.0, scale, evm)
+    assert all(torch.equal(a, b) for a, b in zip(again, cts))
+
+
+@pytest.mark.parametrize("precision", fr.PRECISIONS)
+@pytest.mark.parametrize("evm", [True, False], ids=["evm", "vanilla"])
+def test_psi_residual_loss_matches_the_unfused_kernel_path(cuda, evm, precision):
+    """Kernel 5 -> glue -> kernel 6 against kernel 5 -> the PyTorch bundle,
+    residuals and sums -> kernel 6, at one name: the sums, and the
+    gradients wrt the weights and e, with one launch of each kernel."""
+    sizes, n = (2, 80, 80, 80, 2), 1040
+    flat, x, e, vis_t, w = _inputs(sizes, n, cuda, seed=9)
+    if not evm:
+        e = vis_t = None
+    ct = torch.tensor([1.0, 0.5, 0.3, 0.1][:4 if evm else 3], device=cuda)
+
+    def run(fused):
+        f = flat.clone().requires_grad_(True)
+        ee = e.clone().requires_grad_(True) if evm else None
+        if fused:
+            sums = fr.fused_residual_loss(f, sizes, x, ee, vis_t, w, 2000.0, coord_scale=2.0,
+                                          evm=evm, precision=precision,
+                                          formulation="streamfunction")
+        else:
+            derivs = psi.psi_streams(f, sizes, x, 2.0, precision)
+            res = (R.ev_ns_residuals(derivs, ee, vis_t, 2000.0, 2.0) if evm
+                   else R.ns_residuals(derivs, 2000.0, 2.0))
+            eqs = [res.eq1, res.eq2, res.eq3] + ([res.eq4] if evm else [])
+            sums = torch.stack([L.masked_sum_sq(q, w) for q in eqs])
+        grads = torch.autograd.grad((sums * ct).sum(), [f] + ([ee] if evm else []))
+        return sums.detach(), grads
+
+    for mod in (psi, pr, fr):
+        mod.reset_launch_counts()
+    sums, grads = run(True)
+    assert psi.launch_counts == {"psi_streams_fwd": 1, "psi_streams_bwd": 1}
+    assert pr.launch_counts == {"psi_residual_fwd": 1, "psi_residual_bwd": 1}
+    assert not any(fr.launch_counts.values())
+    ref_sums, ref_grads = run(False)
+    torch.testing.assert_close(sums, ref_sums, rtol=GLUE_TOL, atol=0)
+    # the same kernel 6 on cotangents a few fp32 ulps apart: at "default" one
+    # may cross a bf16 rounding edge of its single part (BWD_TOL)
+    tol = max(1e-4, BWD_TOL[precision])
+    for (gw, gb), (rw, rb) in zip(unflatten_params(grads[0], sizes),
+                                  unflatten_params(ref_grads[0], sizes)):
+        assert _rel(gw, rw) <= tol and _rel(gb, rb) <= tol
+    if evm:
+        assert _rel(grads[1], ref_grads[1]) <= GLUE_TOL
+
+
+def test_stacked_boundary_pass_matches_psi_p_uv_on_the_card(cuda):
+    """The streamfunction Adam step's boundary pass at the flagship's size
+    (6x80, 2,052 points): the stacked pass against psi_p_uv and autograd,
+    both fp32, apart only in the order of each product's sums."""
+    from nsfnet_tpu_torch.ops.derivatives import psi_p_uv, psi_p_uv_stacked
+
+    sizes, n = (2, 80, 80, 80, 80, 80, 80, 2), 2052
+    flat, x, *_ = _inputs(sizes, n, cuda, seed=11)
+    g = torch.randn((n, 3), generator=torch.Generator().manual_seed(12)).to(cuda)
+    a, b = flat.clone().requires_grad_(True), flat.clone().requires_grad_(True)
+    got = psi_p_uv_stacked(a, sizes, x, 2.0)
+    want = psi_p_uv(unflatten_params(b, sizes), x, 2.0)
+    assert _rel(got, want) <= 1e-5
+    (ga,) = torch.autograd.grad(got, [a], g)
+    (gb,) = torch.autograd.grad(want, [b], g)
+    for (gw, gbias), (rw, rbias) in zip(unflatten_params(ga, sizes), unflatten_params(gb, sizes)):
+        assert _rel(gw, rw) <= 1e-4 and _rel(gbias, rbias) <= 1e-4
 
 
 # --------------------------------------------------------- campaign path

@@ -128,9 +128,9 @@ def test_streamfunction_checkpoint_stamp_and_refusal(tmp_path):
 
 
 def test_streamfunction_engine_choice(tmp_path, monkeypatch):
-    """`pallas` is the order-3 kernel engine, never the fused residual loss
-    (its kernels read (u, v, p) heads); `xla` is the closed form; on the CPU
-    the two run the same plain code. NSFNET_PALLAS_PSI=0 matters under
+    """`pallas` is the order-3 kernel engine, never kernels 1+2 (they read
+    (u, v, p) heads); `xla` is the closed form; on the CPU the two run the
+    same plain code. NSFNET_PALLAS_PSI=0 matters under
     `auto` only, where a card would pick `pallas`."""
     monkeypatch.delenv("NSFNET_PALLAS_PSI", raising=False)
     monkeypatch.delenv("NSFNET_FUSED_LOSS", raising=False)
