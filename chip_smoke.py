@@ -38,7 +38,9 @@ Phases (any failure exits non-zero before the result line):
      6x288, timed;
   4. the paths, each through ConfigManager.from_dict -> build_solver on cuda
      -> train(), with the launch counts set to 0 just before and read just
-     after:
+     after (beside them, the weight ring's counters of kernels 1-4: the
+     K-slots of hidden weights staged and those prefetched, here and in
+     4f (i) at 6x160):
        4a. the flagship ev-NSFnet config, 30 Adam steps with the EVM gate
            firing, through kernels 1+2; then (4b) cuda against the CPU from
            one seed on a small input;
@@ -1064,6 +1066,13 @@ def main() -> int:
 
     reset_counts, read_counts = ops.reset_launch_counts, ops.launch_counts
 
+    def weight_ring():
+        """The weight ring's counters of kernels 1-4 since the last reset, by
+        launched kernel: K-slots staged, those prefetched, their share."""
+        return {k: {"slots": n, "prefetched": mod.weight_prefetch[k],
+                    "share": round(mod.weight_prefetch[k] / n, 5)}
+                for mod in (fr, ms) for k, n in mod.weight_slots.items() if n}
+
     def ready_solver(cfg, where="cuda"):
         s = build_solver(cfg, device=where)
         d = build_data(cfg)
@@ -1789,7 +1798,7 @@ def main() -> int:
                      stall_metric=cfg.training.stall_metric)
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches = read_counts()
+        launches, ring = read_counts(), weight_ring()
         hist = [(s, m._asdict()) for s, m in solver.loss_history]
         finite = all(math.isfinite(v) for _, m in hist for v in m.values())
         first, last = hist[0][1]["total"], hist[-1][1]["total"]
@@ -1797,11 +1806,12 @@ def main() -> int:
         preds = solver.predict((bx[:1000], by[:1000]))
         pred_ok = all(t.shape == (1000, 1) and torch.isfinite(t).all().item() for t in preds)
         print(f"{name}: {st.epochs} Adam steps in {seconds:.2f} s (first step builds), "
-              f"launches {launches}")
+              f"launches {launches}; weight ring {ring}")
         for s, m in hist:
             print(f"  step {s}: " + " ".join(f"{k}={val:.4e}" for k, val in m.items()))
         print(f"  finite {finite}, total loss {first:.4e} -> {last:.4e}, predict ok {pred_ok}")
-        record[name] = {"history": hist, "launches": launches, "seconds": seconds}
+        record[name] = {"history": hist, "launches": launches, "weight_ring": ring,
+                        "seconds": seconds}
         ok = (finite and last < first and pred_ok
               and all(launches[k] == (st.epochs if k in expect else 0) for k in launches))
         return solver, launches, ok
@@ -1970,7 +1980,7 @@ def main() -> int:
         rc = train_mod.main(["--config", path, "--resume", r4b_ckpt])
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches_campaign = read_counts()
+        launches_campaign, ring_campaign = read_counts(), weight_ring()
         meta = ckpt_mod.load_metadata(ckpt_in("r4b", "model_final.ckpt")) or {}
         solver_c = seen[-1]["solver"]
         hist = [(st, m._asdict()) for st, m in solver_c.loss_history]
@@ -1981,7 +1991,7 @@ def main() -> int:
               f"stage entries (stage, mid-stage, entry epoch, global step) {entries}; final "
               f"step {meta.get('global_step')} stage {meta.get('stage')} sampler draws_next "
               f"{meta.get('sampler', {}).get('draws_next')}; R3 redrawn {redrawn}; launches "
-              f"{launches_campaign}")
+              f"{launches_campaign}; weight ring {ring_campaign}")
         for st, m in hist:
             print(f"  step {st}: " + " ".join(f"{k}={val:.4e}" for k, val in m.items()))
         ok_i = (rc == 0 and finite and redrawn
@@ -2001,7 +2011,8 @@ def main() -> int:
               f"JAX checkpoint read ({os.path.getsize(r4b_ckpt):,} B, decode + install) "
               f"{read_s:.3f} s — {card}")
         camp["resume"] = {"rc": rc, "seconds": seconds, "entries": entries, "history": hist,
-                          "launches": launches_campaign, "final_meta": meta, "ok": ok_i,
+                          "launches": launches_campaign, "weight_ring": ring_campaign,
+                          "final_meta": meta, "ok": ok_i,
                           "write_s": write_s, "read_s": read_s}
 
         # (ii) on the card: a real SIGTERM to the driver in a child process,

@@ -24,7 +24,9 @@
 // the backward ~0.97 MFLOP, each times the pass count, against ~20 B of
 // per-point input: far above the bf16 ridge point. The products run as
 // mma.sync on bf16 parts (tc_mlp.cuh). What the design does about the rest:
-// the hidden weights are split once per launch, so staging a panel is a copy;
+// the hidden weights are split once per launch, so staging a panel is a copy,
+// and cp.async makes it into the ring of weight slots while the warps run
+// the product on the slot before (tc_mlp.cuh);
 // the backward's tape holds t and the tangents only (1.0 GB written, 1.8 GB
 // read at 6x80 / N = 120,000, against 1.9 GB each way when every carry was
 // stored); its 132 persistent blocks with 32-point tiles halve the updates
@@ -87,15 +89,17 @@ loss_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   const int T = sh.tile, h = sh.h, k = sh.k;
   const int n_out = evm ? 4 : 3;
   const long wh = head_off(sh.n_hidden, h);
+  const int n_tiles = (n + T - 1) / T;
+  TcRing rg = ring_begin<NP, STREAM>(R.wb, wsplit, sh, false, n_tiles);
   stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
   float acc = 0.f;
 
-  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
+    rg.last_tile = tile + (int)gridDim.x >= n_tiles;
     __syncthreads();  // the previous tile's readers of the buffers / red are done
-    const bf16* cur =
-        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, nullptr);
+    const bf16* cur = tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa,
+                                             R.wb, nullptr, rg);
     tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
     for (int p = threadIdx.x; p < T; p += blockDim.x) {
@@ -137,15 +141,17 @@ loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   const float c0 = ct[0], c1 = ct[1], c2 = ct[2], c3 = evm ? ct[3] : 0.f;
   float* hb = R.hb;
 
+  const int n_tiles = (n + T - 1) / T;
+  TcRing rg = ring_begin<NP, STREAM>(R.wb, wsplit, sh, true, n_tiles);
   for (long i = threadIdx.x; i < P; i += blockDim.x) dp[i] = 0.f;
   stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
 
-  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
+    rg.last_tile = tile + (int)gridDim.x >= n_tiles;
     __syncthreads();
-    bf16* cur =
-        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, tape);
+    bf16* cur = tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb,
+                                       tape, rg);
     bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
     tc_head<NP, 3>(cur, R.whs, flat + wh + (long)h * k, hb, sh);
     __syncthreads();
@@ -201,7 +207,8 @@ loss_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
     tc_head_backward<NP, 3>(x, flat, n0, n, cur, R.whs, R.ghp, hb, tape, other, R.dbs, dp, sh);
     __syncthreads();
     flush_sums(R.dbs, T / 8, L - 1, dp, h, sh.hp);
-    tc_reverse<NP, STREAM>(x, flat, wsplit, n0, n, other, cur, R.sa, R.wb, R.dbs, tape, dp, sh);
+    tc_reverse<NP, STREAM>(x, flat, wsplit, n0, n, other, cur, R.sa, R.wb, R.dbs, tape, dp, sh,
+                           rg);
   }
 }
 
@@ -274,6 +281,15 @@ long nsf_fused_loss_carry_floats(int tile, int h, int k, int parts) {
 // Bytes of the launch's split copy of the hidden weights (either kernel).
 long nsf_fused_loss_weight_bytes(int n_hidden, int h, int parts) {
   return tc_wsplit_elems(n_hidden, pad16(h), parts) * (long)sizeof(bf16);
+}
+
+// The weight ring of the resident plan (tile, panel) (either kernel, and
+// kernels 3+4): its depth, 1 or 2 slots, returned, and each slot's K-extent
+// into *kx.
+int nsf_fused_loss_ring(int tile, int panel, int h, int k, int parts, int* kx) {
+  const TcSmem s = tc_smem(tile, panel, pad16(h), k, parts);
+  *kx = s.kx;
+  return s.depth;
 }
 
 // Forward: out[0..n_out) = per-equation weighted sums of squares.

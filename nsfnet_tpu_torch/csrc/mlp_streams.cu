@@ -64,14 +64,16 @@ streams_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   const int T = sh.tile, h = sh.h;
   const int k = K > 0 ? K : sh.k, TK = T * k;
   const long wh = head_off(sh.n_hidden, h), nk = (long)n * k;
+  const int n_tiles = (n + T - 1) / T;
+  TcRing rg = ring_begin<NP, STREAM>(R.wb, wsplit, sh, false, n_tiles);
   stage_head<NP>(R.whs, flat + wh, h, sh.hp, k);
 
-  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
+    rg.last_tile = tile + (int)gridDim.x >= n_tiles;
     __syncthreads();  // the previous tile's readers of the buffers and hb are done
-    const bf16* cur =
-        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, nullptr);
+    const bf16* cur = tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa,
+                                             R.wb, nullptr, rg);
     tc_head<NP, K>(cur, R.whs, flat + wh + (long)h * k, R.hb, sh);
     __syncthreads();
     // a tile's rows are contiguous in each [N, K] stream; rows >= n are not written
@@ -97,20 +99,22 @@ streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
   float* dp = dpart + blockIdx.x * P;
   float* tape = scratch + blockIdx.x * tc_scratch_floats(T, sh.hp, L);
 
+  const int n_tiles = (n + T - 1) / T;
+  TcRing rg = ring_begin<NP, STREAM>(R.wb, wsplit, sh, true, n_tiles);
   for (long i = threadIdx.x; i < P; i += blockDim.x) dp[i] = 0.f;
   stage_head<NP>(R.whs, flat + head_off(L, h), h, sh.hp, k);
 
-  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long n0 = (long)tile * T;
+    rg.last_tile = tile + (int)gridDim.x >= n_tiles;
     __syncthreads();  // the previous tile's sweep is done with the buffers, hb and ghp
     // the tile's rows of the five cotangent streams (rows >= n are zero)
     for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {
       const int q = idx / TK, r = idx - q * TK;
       R.hb[idx] = n0 * k + r < (long)n * k ? ct.s[q][n0 * k + r] : 0.f;
     }
-    bf16* cur =
-        tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb, tape);
+    bf16* cur = tc_forward<NP, STREAM>(x, flat, wsplit, n0, n, sh, R.buf_a, R.buf_b, R.sa, R.wb,
+                                       tape, rg);
     bf16* other = cur == R.buf_a ? R.buf_b : R.buf_a;
     for (int idx = threadIdx.x; idx < rows * k; idx += blockDim.x) {  // head cotangent parts
       bf16 part[NP];
@@ -122,7 +126,8 @@ streams_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flat,
     tc_head_backward<NP, K>(x, flat, n0, n, cur, R.whs, R.ghp, R.hb, tape, other, R.dbs, dp, sh);
     __syncthreads();
     flush_sums(R.dbs, T / 8, L - 1, dp, h, sh.hp);
-    tc_reverse<NP, STREAM>(x, flat, wsplit, n0, n, other, cur, R.sa, R.wb, R.dbs, tape, dp, sh);
+    tc_reverse<NP, STREAM>(x, flat, wsplit, n0, n, other, cur, R.sa, R.wb, R.dbs, tape, dp, sh,
+                           rg);
   }
 }
 

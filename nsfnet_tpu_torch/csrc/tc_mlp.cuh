@@ -57,6 +57,23 @@
 // K-panels in registers, in the resident plan's k order, so that at equal
 // tiles the two plans give bitwise-equal outputs.
 //
+// The weight ring (resident plan). The weight panels a block reads do not
+// depend on the data: per tile W_1 .. W_{L-1} in the forward layout W[k][n],
+// N-panel by N-panel, then, in a backward kernel, W_{L-1} .. W_1 in the
+// layout W[n][k]. Each product's panel is cut into K-slots of kx rows
+// (forward) or columns (backward), and the block holds a ring of `depth`
+// slots in shared memory (tc_ring): while the warps run the product on one
+// slot, the block's threads fill the other with cp.async copies of the next
+// K-slot of the stream, which may belong to the next N-panel, layer, sweep
+// or tile, so it also flies during the epilogues, the head, the carry
+// rebuild and the dW product. Each warp accumulates its unit over the
+// K-slots in ascending k, the mma_passes calls of one whole-panel product in
+// their order, so the outputs are bitwise those of staging the whole panel.
+// A product is cut in K only where each warp has at most one unit (its
+// accumulators then stay in registers across the slots). Where not even two
+// slots fit beside the plan's carries, the depth is 1: each slot is copied
+// and waited for before its product, the synchronous staging.
+//
 // Backward tape. The recompute keeps, per tanh layer, only t and the four
 // pre-activation tangents (fp32, [5][T][Hp]; t alone for the analytic first
 // layer) in a block-private global scratch. The reverse sweep rebuilds the
@@ -102,25 +119,49 @@ struct TcShapes {
 
 // Shared memory of one block, in bytes, region by region (16-byte aligned):
 // two carry buffers [NP][5T][Hp+8] bf16 (resident only), the streamed A
-// panel [NP][5T][kpanel+8] (streamed only), the weight panel, the head
-// weight parts [NP][Hp][K] bf16 (resident only), the head streams [5][T][K],
-// the head cotangent parts [NP][5T][K], the loss terms [4][T], the column
-// sums [T/8][3][Hp] (resident only).
+// panel [NP][5T][kpanel+8] (streamed only), the weight buffer (resident: the
+// ring's `depth` slots), the head weight parts [NP][Hp][K] bf16 (resident
+// only), the head streams [5][T][K], the head cotangent parts [NP][5T][K],
+// the loss terms [4][T], the column sums [T/8][3][Hp] (resident only).
 struct TcSmem {
   size_t carry, sa, wbuf, whs, hb, ghp, red, dbs;
+  int depth, kx;  // the weight ring (resident plan; 0 on the streamed plan)
   __host__ __device__ size_t total() const {
     return 2 * carry + sa + wbuf + whs + hb + ghp + red + dbs;
   }
 };
 
+// Bytes of one K-slot of the ring: kx rows of a forward panel [kx][panel+8]
+// or kx columns of a backward panel [panel][kx+8], NP parts.
+__host__ __device__ inline size_t ring_slot_bytes(int panel, int kx, int np) {
+  const size_t fwd = (size_t)kx * (panel + 8), bwd = (size_t)panel * (kx + 8);
+  return round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
+}
+
+// The ring beside `rest` bytes of the block's other regions: two slots of
+// the widest K-extent, a multiple of 16 dividing hp, that fit (cut below hp
+// only where each warp has at most one unit of the panel); else one slot of
+// the whole panel.
+__host__ __device__ inline void tc_ring(int tile, int panel, int hp, int np, size_t rest,
+                                        int& depth, int& kx) {
+  const bool cut = (tile / 16) * (panel / 16) <= kTcWarps;
+  for (kx = hp; kx >= 16; kx -= 16)
+    if (hp % kx == 0 && (kx == hp || cut) &&
+        rest + 2 * ring_slot_bytes(panel, kx, np) <= (size_t)kMaxSmem) {
+      depth = 2;
+      return;
+    }
+  depth = 1;
+  kx = hp;
+}
+
 __host__ __device__ inline TcSmem tc_smem(int tile, int panel, int hp, int k, int np,
                                           int kpanel = 0) {
   TcSmem s;
+  s.depth = s.kx = 0;
   if (kpanel == 0) {
     s.carry = round16((size_t)np * 5 * tile * (hp + 8) * 2);
     s.sa = 0;
-    size_t fwd = (size_t)hp * (panel + 8), bwd = (size_t)panel * (hp + 8);
-    s.wbuf = round16((size_t)np * (fwd > bwd ? fwd : bwd) * 2);
     s.whs = round16((size_t)np * hp * k * 2);
     s.dbs = round16((size_t)(tile / 8) * 3 * hp * 4);
   } else {
@@ -136,6 +177,11 @@ __host__ __device__ inline TcSmem tc_smem(int tile, int panel, int hp, int k, in
   s.hb = round16((size_t)5 * tile * k * 4);
   s.ghp = round16((size_t)np * 5 * tile * k * 4);
   s.red = round16((size_t)4 * tile * 4);
+  if (kpanel == 0) {
+    s.wbuf = 0;
+    tc_ring(tile, panel, hp, np, s.total(), s.depth, s.kx);
+    s.wbuf = s.depth * ring_slot_bytes(panel, s.kx, np);
+  }
   return s;
 }
 
@@ -410,6 +456,125 @@ __device__ void stage_head(bf16* whs, const float* __restrict__ wh, int h, int h
   }
 }
 
+// ------------------------------------------------------------ the weight ring
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One K-slot of the block's stream: layer l (1 .. L-1) of the forward (bwd
+// false) or of the reverse sweep, the N-panel at c0, the K-slot at k0.
+struct WSlot {
+  int l, c0, k0;
+  bool bwd;
+};
+
+// A block's ring (the header note): `depth` slots of `slot` elements from
+// `base`, each holding kx rows (forward) or columns (backward) of a panel;
+// the K-slot with index i of the stream lives in slot i % depth, and `seq`
+// counts those acquired so far.
+struct TcRing {
+  bf16* base;
+  const bf16* wsplit;
+  long slot;
+  int depth, kx, seq;
+  bool reverse;    // the stream runs on into the reverse sweep (backward kernels)
+  bool last_tile;  // the block's current tile is its last: the stream ends with it
+};
+
+// Starts the cp.async copies of K-slot s into dst: forward, rows
+// [k0, k0+kx) x columns [c0, c0+panel) into [NP][kx][panel+8]; backward,
+// rows [c0, c0+panel) x columns [k0, k0+kx) into [NP][panel][kx+8]; one
+// commit group. A thread copies one 16-byte column of a row group, so its
+// addresses step by whole rows.
+template <int NP>
+__device__ void ring_issue(const TcRing& rg, const WSlot& s, bf16* dst, const TcShapes& sh) {
+  const int hp = sh.hp, nc = sh.panel;
+  const int r0 = s.bwd ? s.c0 : s.k0, nr = s.bwd ? nc : rg.kx;
+  const int c0 = s.bwd ? s.k0 : s.c0, ncol = s.bwd ? rg.kx : nc;
+  const int row8 = ncol / 8, step = blockDim.x / row8, r1 = threadIdx.x / row8;
+  const int c = 8 * (threadIdx.x - r1 * row8);
+  const bf16* src = rg.wsplit + (long)(s.l - 1) * NP * hp * hp + (long)r0 * hp + c0 + c;
+  if (r1 < step) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      for (int r = r1; r < nr; r += step)
+        cp_async16(dst + ((long)i * nr + r) * (ncol + 8) + c,
+                   src + (long)i * hp * hp + (long)r * hp);
+  }
+  cp_async_commit();
+}
+
+// Moves s to the K-slot after it in the block's stream; false where the
+// stream ends (the block's last tile is done).
+__device__ inline bool ring_next(const TcRing& rg, const TcShapes& sh, WSlot& s) {
+  if ((s.k0 += rg.kx) < sh.hp) return true;
+  s.k0 = 0;
+  if ((s.c0 += sh.panel) < sh.hp) return true;
+  s.c0 = 0;
+  if (!s.bwd && s.l + 1 < sh.n_hidden) {
+    ++s.l;
+    return true;
+  }
+  if (!s.bwd && rg.reverse) {  // the reverse sweep starts at the forward's last layer
+    s.bwd = true;
+    return true;
+  }
+  if (s.bwd && s.l > 1) {
+    --s.l;
+    return true;
+  }
+  s = WSlot{1, 0, 0, false};  // the next tile's first
+  return !rg.last_tile;
+}
+
+// The ring of a block that runs the tiles blockIdx.x, + gridDim.x, ... <
+// n_tiles; at depth 2 the copies of its first K-slot start now, ahead of the
+// first tile's first layer. The streamed plan has no ring.
+template <int NP, bool STREAM>
+__device__ TcRing ring_begin(bf16* wb, const bf16* wsplit, const TcShapes& sh, bool reverse,
+                             int n_tiles) {
+  TcRing rg{wb, wsplit, 0, 0, 0, 0, reverse, false};
+  if constexpr (!STREAM) {
+    const TcSmem m = tc_smem(sh.tile, sh.panel, sh.hp, sh.k, NP);
+    rg.depth = m.depth;
+    rg.kx = m.kx;
+    rg.slot = (long)(ring_slot_bytes(sh.panel, m.kx, NP) / sizeof(bf16));
+    if (rg.depth == 2 && sh.n_hidden > 1 && (int)blockIdx.x < n_tiles)
+      ring_issue<NP>(rg, WSlot{1, 0, 0, false}, wb, sh);
+  }
+  return rg;
+}
+
+// The slot that holds K-slot s, the next of the block's stream, once every
+// thread's copies of it have landed and the block has synchronised; at
+// depth 2 the copies of the K-slot after s then start into the other slot,
+// whose readers (the product on the K-slot before s) that barrier has seen
+// done. At depth 1 the one slot's readers are waited for first, then s is
+// copied: the synchronous staging.
+template <int NP>
+__device__ const bf16* ring_acquire(TcRing& rg, const WSlot& s, const TcShapes& sh) {
+  bf16* slot = rg.base + (rg.depth == 2 ? (rg.seq & 1) * rg.slot : 0);
+  if (rg.depth == 1) {
+    __syncthreads();
+    ring_issue<NP>(rg, s, slot, sh);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  WSlot nx = s;
+  if (rg.depth == 2 && ring_next(rg, sh, nx))
+    ring_issue<NP>(rg, nx, rg.base + ((rg.seq + 1) & 1) * rg.slot, sh);
+  ++rg.seq;
+  return slot;
+}
+
 // ------------------------------------------------------------ products
 
 // One warp's unit of a row product over kn of the k dimension: the 16-point
@@ -455,17 +620,6 @@ __device__ __forceinline__ void zero_acc(float (&acc)[5][2][4]) {
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[q][t][e] = 0.0f;
-}
-
-// The resident plan's unit: the whole k dimension. in: carry parts
-// [NP][5T][hp+8]; wb: the panel, [NP][hp][panel+8] (forward, BT = true) or
-// [NP][panel][hp+8] (backward, BT = false).
-template <int NP, bool BT>
-__device__ __forceinline__ void row_product(const bf16* in, const bf16* wb, int tile, int hp,
-                                            int panel, int pg, int nb, float (&acc)[5][2][4]) {
-  zero_acc(acc);
-  row_mma<NP, BT>(in, hp + 8, (long)5 * tile * (hp + 8), wb, BT ? panel + 8 : hp + 8,
-                  BT ? (long)hp * (panel + 8) : (long)panel * (hp + 8), hp, tile, pg, nb, acc);
 }
 
 // Adds v into the block's gradient partial at p, as a reduction that no
@@ -692,21 +846,49 @@ __device__ __forceinline__ bool streamed_unit(const bf16* in, const bf16* __rest
   return has;
 }
 
+// The resident plan's product on N-panel c0 of layer l (the forward's or,
+// with BWD, the reverse sweep's) over the K-slots of the ring: in rounds of one
+// unit (pg, nb) a warp, each unit's accumulators over the K-slots in
+// ascending k, then epi(acc, pg, nb) for each unit (more than one round
+// only where a slot holds the whole panel). in: carry or cotangent parts
+// [NP][5T][hp+8]; pre(pg, nb) runs before a unit's product.
+template <int NP, bool BWD, class Pre, class Epi>
+__device__ __forceinline__ void ring_product(TcRing& rg, const bf16* in, int l, int c0,
+                                             const TcShapes& sh, Pre pre, Epi epi) {
+  const int T = sh.tile, hp = sh.hp, nc = sh.panel, kx = rg.kx;
+  const int units = (T / 16) * (nc / 16), warp = threadIdx.x >> 5;
+  const bf16* slot = nullptr;
+  for (int u0 = 0; u0 < units; u0 += kTcWarps) {
+    const int u = u0 + warp, pg = u / (nc / 16), nb = u - pg * (nc / 16);
+    const bool has = u < units;
+    float acc[5][2][4];
+    if (has) pre(pg, nb);
+    zero_acc(acc);
+    for (int k0 = 0; k0 < hp; k0 += kx) {
+      if (u0 == 0) slot = ring_acquire<NP>(rg, WSlot{l, c0, k0, BWD}, sh);
+      if (has)
+        row_mma<NP, !BWD>(in + k0, hp + 8, (long)5 * T * (hp + 8), slot,
+                          BWD ? kx + 8 : nc + 8, BWD ? (long)nc * (kx + 8) : (long)kx * (nc + 8),
+                          kx, T, pg, nb, acc);
+    }
+    if (has) epi(acc, pg, nb);
+  }
+}
+
 // Packed forward of tile n0 through the hidden layers, with the product
 // layers on the tensor cores. Returns the buffer that holds the last carry.
 // With tape != nullptr keeps t and the tangents of every layer. STREAM: the
 // streamed plan (a template flag, so that the resident plan's instances
-// carry no code of it); sa: its A panel.
+// carry no code of it); sa: its A panel. rg: the resident plan's ring.
 template <int NP, bool STREAM>
 __device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict__ flat,
                             const bf16* __restrict__ wsplit, long n0, int n, const TcShapes& sh,
-                            bf16* buf_a, bf16* buf_b, bf16* sa, bf16* wb, float* tape) {
+                            bf16* buf_a, bf16* buf_b, bf16* sa, bf16* wb, float* tape,
+                            TcRing& rg) {
   const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5;
   tc_first_layer<NP>(x, n0, n, flat, flat + 2 * h, buf_a, tape, sh);
   bf16* cur = buf_a;
   bf16* nxt = buf_b;
-  const int units = (T / 16) * (nc / 16);
   for (int l = 1; l < L; ++l) {
     const float* bias = flat + hidden_off(l, h) + (long)h * h;
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
@@ -719,16 +901,14 @@ __device__ bf16* tc_forward(const float* __restrict__ x, const float* __restrict
           fwd_epilogue<NP>(acc, pg, nb, c0, bias, nxt, lt, sh);
         continue;
       }
-      __syncthreads();  // readers of the previous panel / writers of cur are done
-      stage_panel<NP>(wb, wl, hp, 0, hp, c0, nc);
-      __syncthreads();
-      for (int u = warp; u < units; u += kTcWarps) {
-        const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
-        row_product<NP, true>(cur, wb, T, hp, nc, pg, nb, acc);
-        fwd_epilogue<NP>(acc, pg, nb, c0, bias, nxt, lt, sh);
-      }
+      // each acquire synchronises: the writers of cur are done before it is read
+      ring_product<NP, false>(
+          rg, cur, l, c0, sh, [](int, int) {},
+          [&](float(&a)[5][2][4], int pg, int nb) {
+            fwd_epilogue<NP>(a, pg, nb, c0, bias, nxt, lt, sh);
+          });
     }
-    bf16* tmp = cur;  // the next layer's first panel synchronises before reading
+    bf16* tmp = cur;  // the next layer's first K-slot synchronises before reading
     cur = nxt;
     nxt = tmp;
   }
@@ -967,17 +1147,16 @@ __device__ __forceinline__ void rev_epilogue(float (&acc)[5][2][4], float2 (&tp)
 
 // The product layers in reverse, from gz (the last tanh layer's
 // pre-activation cotangent parts) down to the first layer's terms. other:
-// the second carry buffer; dbs: column sums; STREAM and sa as for
+// the second carry buffer; dbs: column sums; STREAM, sa and rg as for
 // tc_forward. Both carry buffers are overwritten. The caller synchronises
 // before the call.
 template <int NP, bool STREAM>
 __device__ void tc_reverse(const float* __restrict__ x, const float* __restrict__ flat,
                            const bf16* __restrict__ wsplit, long n0, int n, bf16* gz,
                            bf16* other, bf16* sa, bf16* wb, float* dbs, const float* tape,
-                           float* dp, const TcShapes& sh) {
+                           float* dp, const TcShapes& sh, TcRing& rg) {
   const int T = sh.tile, h = sh.h, hp = sh.hp, L = sh.n_hidden, nc = sh.panel;
-  const int warp = threadIdx.x >> 5;
-  const int pgs = T / 16, units = pgs * (nc / 16);
+  const int pgs = T / 16;
   for (int l = L - 1; l >= 1; --l) {
     const bf16* wl = wsplit + (long)(l - 1) * NP * hp * hp;
     rebuild_carry<NP>(tape, flat, l - 1, other, sh);
@@ -998,15 +1177,13 @@ __device__ void tc_reverse(const float* __restrict__ x, const float* __restrict_
         }
         continue;
       }
-      __syncthreads();  // the dW product / the previous panel are done with other, wb
-      stage_panel<NP>(wb, wl, hp, c0, nc, 0, hp);
-      __syncthreads();
-      for (int u = warp; u < units; u += kTcWarps) {
-        const int pg = u / (nc / 16), nb = u - pg * (nc / 16);
-        load_tape(tp, lt, l, pg, nb, c0, sh);  // in flight during the products
-        row_product<NP, false>(gz, wb, T, hp, nc, pg, nb, acc);
-        rev_epilogue<NP>(acc, tp, l, pg, nb, c0, x, flat, n0, n, other, dbs, sh);
-      }
+      // the first acquire synchronises: the dW product is done with other
+      ring_product<NP, true>(
+          rg, gz, l, c0, sh,
+          [&](int pg, int nb) { load_tape(tp, lt, l, pg, nb, c0, sh); },  // in flight meanwhile
+          [&](float(&a)[5][2][4], int pg, int nb) {
+            rev_epilogue<NP>(a, tp, l, pg, nb, c0, x, flat, n0, n, other, dbs, sh);
+          });
     }
     __syncthreads();
     flush_sums(dbs, pgs, l - 1, dp, h, hp);

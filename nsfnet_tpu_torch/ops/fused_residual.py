@@ -98,9 +98,17 @@ launch_rows = dict.fromkeys(launch_counts, 0)
 # parameters. It says how much a run sent through the reductions, not that
 # the kernel body made them (the library's SASS and compare_sources do).
 partial_reduce = {"fused_residual_bwd": 0}
+# K-slots of hidden weights the launches staged into shared memory since the
+# last reset (`weight_stream`), and those among them that the weight ring
+# (tc_mlp.cuh) loaded while the product on an earlier slot ran: counted by
+# the launcher from the plan and the rows, as partial_reduce is.
+weight_slots = dict.fromkeys(launch_counts, 0)
+weight_prefetch = dict.fromkeys(launch_counts, 0)
 profiling.register("launches", launch_counts)
 profiling.register("launch_rows", launch_rows)
 profiling.register("partial_reduce", partial_reduce)
+profiling.register("weight_slots", weight_slots)
+profiling.register("weight_prefetch", weight_prefetch)
 # the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
 _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.loss_fwd"), profiling.span("kernel.loss_bwd")
 
@@ -111,6 +119,8 @@ def reset_launch_counts() -> None:
         launch_rows[name] = 0
     for name in partial_reduce:
         partial_reduce[name] = 0
+    for name in weight_slots:
+        weight_slots[name] = weight_prefetch[name] = 0
 
 
 def passes(precision: str) -> int:
@@ -127,23 +137,60 @@ def _round16(b: int) -> int:
     return -(-b // 16) * 16
 
 
+def _common_bytes(tile: int, parts: int, k: int) -> int:
+    # the head streams, the head cotangent parts, the loss terms
+    return (_round16(5 * tile * k * 4) + _round16(parts * 5 * tile * k * 4)
+            + _round16(4 * tile * 4))
+
+
+def _resident_rest(tile: int, h: int, parts: int, k: int) -> int:
+    """Bytes of a resident block's regions beside its weight ring: the two
+    carries, the head weight parts, the common regions, the column sums."""
+    hp = _pad16(h)
+    return (2 * _round16(parts * 5 * tile * (hp + 8) * 2) + _round16(parts * hp * k * 2)
+            + _common_bytes(tile, parts, k) + _round16((tile // 8) * 3 * hp * 4))
+
+
+def _slot_bytes(panel: int, kx: int, parts: int) -> int:
+    """One K-slot of the weight ring: kx rows of a forward panel or kx
+    columns of a backward panel, row padding 8."""
+    return _round16(parts * max(kx * (panel + 8), panel * (kx + 8)) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def ring_plan(tile: int, panel: int, h: int, parts: int, k: int = 3) -> Tuple[int, int]:
+    """(depth, K-extent) of the weight ring of the resident plan (tile,
+    panel) of kernels 1-4 (tc_mlp.cuh tc_ring; the library's
+    nsf_fused_loss_ring must agree): two slots of the widest K-extent, a
+    multiple of 16 dividing the padded width, that fit beside the block's
+    other regions, cut below the whole panel only where each warp has at
+    most one 16 x 16 unit of it; else one slot of the whole panel, the
+    synchronous staging. 2 x 80 at 6x80 (tile 32, panel 80) and at 6x160
+    (tile 16, panel 160)."""
+    hp = _pad16(h)
+    rest = _resident_rest(tile, h, parts, k)
+    cut = (tile // 16) * (panel // 16) <= TC_WARPS
+    for kx in range(hp, 0, -16):
+        if hp % kx == 0 and (kx == hp or cut) and rest + 2 * _slot_bytes(panel, kx, parts) \
+                <= _MAX_SMEM:
+            return 2, kx
+    return 1, hp
+
+
 def loss_smem_bytes(tile: int, panel: int, h: int, parts: int, k: int = 3,
                     kpanel: int = 0) -> int:
     """Shared memory of one block of kernels 1-4 on the plan (tile, panel,
     kpanel), for choosing the plan without the library; the source's
     tc_smem (nsf_fused_loss_smem_bytes) owns the layout and must agree
-    (tests/test_torch_gpu.py checks)."""
-    hp = _pad16(h)
-    common = (_round16(5 * tile * k * 4) + _round16(parts * 5 * tile * k * 4)
-              + _round16(4 * tile * 4))
+    (tests/test_torch_gpu.py checks). The resident plan's weight ring
+    (`ring_plan`) takes two slots only where they fit, else the one slot
+    of a whole panel: a plan `pick_loss_tile` takes always fits."""
     if kpanel:
         a = 5 * tile * (kpanel + 8)
         w = max(kpanel * (panel + 8), panel * (kpanel + 8), a)
-        return _round16(parts * a * 2) + _round16(parts * w * 2) + common
-    carry = _round16(parts * 5 * tile * (hp + 8) * 2)
-    wbuf = _round16(parts * max(hp * (panel + 8), panel * (hp + 8)) * 2)
-    return (2 * carry + wbuf + _round16(parts * hp * k * 2) + common
-            + _round16((tile // 8) * 3 * hp * 4))
+        return _round16(parts * a * 2) + _round16(parts * w * 2) + _common_bytes(tile, parts, k)
+    depth, kx = ring_plan(tile, panel, h, parts, k)
+    return _resident_rest(tile, h, parts, k) + depth * _slot_bytes(panel, kx, parts)
 
 
 def carry_floats(tile: int, h: int, k: int, parts: int) -> int:
@@ -158,15 +205,17 @@ def carry_floats(tile: int, h: int, k: int, parts: int) -> int:
 def pick_loss_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
     """(tile, panel) of the resident plan of kernels 1-4: the largest tile of
     LOSS_TILES, then the widest weight panel (a multiple of 16 dividing the
-    padded width), whose block fits in shared memory with both carries. At
-    the flagship width 80 the whole weight and 32 points fit at every name;
-    none fits from H = 561 on at "default", 289 at "high", 193 at "highest"
+    padded width), whose block fits in shared memory with both carries and
+    one whole panel; the weight ring (`ring_plan`) then takes the room it
+    finds, and the plans stay those of whole-panel staging. At the flagship
+    width 80 the whole weight and 32 points fit at every name; none fits
+    from H = 561 on at "default", 289 at "high", 193 at "highest"
     (`loss_plan` then streams the carries)."""
-    hp = _pad16(h)
+    hp, parts = _pad16(h), PARTS[precision]
     panels = [p for p in range(hp, 0, -16) if hp % p == 0]
     for tile in LOSS_TILES:
         for panel in panels:
-            if loss_smem_bytes(tile, panel, h, PARTS[precision], k) <= _MAX_SMEM:
+            if _resident_rest(tile, h, parts, k) + _slot_bytes(panel, hp, parts) <= _MAX_SMEM:
                 return tile, panel
     raise ValueError(f"hidden width {h} at precision {precision!r}: no resident plan fits the "
                      f"kernel's shared memory")
@@ -199,6 +248,35 @@ def loss_plan(h: int, precision: str = "high", k: int = 3) -> Plan:
                      f"streamed plan's shared memory")
 
 
+def weight_stream(sizes: Sequence[int], rows: int, plan: Plan, precision: str = "high",
+                  reverse: bool = False) -> Tuple[int, int]:
+    """(slots, prefetched) of one launch of kernels 1-4 on `rows` points:
+    the K-slots of hidden weights its blocks stage into shared memory (each
+    tile's forward products and, with `reverse` (the backwards), the
+    reverse sweep's: N-panels x K-slots each), and those among them the
+    weight ring loads while the product on an earlier slot runs: all but
+    each block's first at depth 2, none at depth 1 or on the streamed plan,
+    which stages its K-panels synchronously."""
+    n_hidden, h, k = len(sizes) - 2, sizes[1], sizes[-1]
+    hp, tiles = _pad16(h), -(-rows // plan.tile)
+    products = max(n_hidden - 1, 0) * (2 if reverse else 1) * -(-hp // plan.panel)
+    if plan.streamed:
+        return tiles * products * -(-hp // plan.kpanel), 0
+    depth, kx = ring_plan(plan.tile, plan.panel, h, PARTS[precision], k)
+    slots = tiles * products * (hp // kx)
+    return slots, (slots - min(tiles, LOSS_BLOCKS) if depth == 2 and slots else 0)
+
+
+def count_weight_stream(slots: Dict[str, int], prefetch: Dict[str, int], name: str,
+                        sizes: Sequence[int], rows: int, plan: Plan, precision: str,
+                        reverse: bool) -> None:
+    """Adds one launch's `weight_stream` to the counters `slots[name]`,
+    `prefetch[name]`."""
+    n_slots, n_pre = weight_stream(sizes, rows, plan, precision, reverse)
+    slots[name] += n_slots
+    prefetch[name] += n_pre
+
+
 def flop_counts(sizes: Sequence[int], n: int) -> Tuple[int, int]:
     """Matrix-product FLOPs of kernel 1 and kernel 2 on n points, one pass
     (multiply by `passes` for the bf16 products the kernels run; the
@@ -228,7 +306,8 @@ def bwd_traffic(sizes: Sequence[int], n: int, precision: str = "high") -> Dict[s
     (`partial_rmw`: read and written by the L2's reductions, never loaded by
     the SM); the split hidden weights, staged into shared memory once per
     product layer per tile by the recompute and once by the reverse sweep
-    (`weights_staged`, mostly L2 hits: one copy serves every block); beside
+    (`weights_staged`, mostly L2 hits: one copy serves every block; the
+    weight ring loads them while the products run, the same bytes); beside
     them, the same counts for the earlier CUDA-core design (16-point tiles
     storing every carry and tangent)."""
     n_hidden, h = len(sizes) - 2, sizes[1]
@@ -446,6 +525,8 @@ def fused_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
         _raise_on(code, "fused residual loss forward")
         launch_counts["fused_residual_fwd"] += 1
         launch_rows["fused_residual_fwd"] += n
+        count_weight_stream(weight_slots, weight_prefetch, "fused_residual_fwd", sizes, n, plan,
+                            precision, False)
         return out
 
 
@@ -482,6 +563,8 @@ def fused_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
         launch_counts["fused_residual_bwd"] += 1
         launch_rows["fused_residual_bwd"] += n
         partial_reduce["fused_residual_bwd"] += -(-n // plan.tile) * p
+        count_weight_stream(weight_slots, weight_prefetch, "fused_residual_bwd", sizes, n, plan,
+                            precision, True)
         return dflat, g_e
 
 

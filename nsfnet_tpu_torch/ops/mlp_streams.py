@@ -57,10 +57,15 @@ from nsfnet_tpu_torch.utils import profiling
 # Launches of each kernel since the last reset; the wrappers add one per launch.
 launch_counts = {"mlp_streams_fwd": 0, "mlp_streams_bwd": 0}
 # Floats the backward's plan reduces into its gradient partials, as
-# fused_residual.partial_reduce counts them.
+# fused_residual.partial_reduce counts them; the K-slots of hidden weights
+# staged and prefetched, as fused_residual.weight_slots / weight_prefetch.
 partial_reduce = {"mlp_streams_bwd": 0}
+weight_slots = dict.fromkeys(launch_counts, 0)
+weight_prefetch = dict.fromkeys(launch_counts, 0)
 profiling.register("launches", launch_counts)
 profiling.register("partial_reduce", partial_reduce)
+profiling.register("weight_slots", weight_slots)
+profiling.register("weight_prefetch", weight_prefetch)
 # the launchers' spans (utils/profiling.py): checks, scratch, the ctypes call
 _SPAN_FWD, _SPAN_BWD = profiling.span("kernel.streams_fwd"), profiling.span("kernel.streams_bwd")
 
@@ -70,6 +75,8 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
     for name in partial_reduce:
         partial_reduce[name] = 0
+    for name in weight_slots:
+        weight_slots[name] = weight_prefetch[name] = 0
 
 
 def pick_bwd_tile(h: int, precision: str = "high", k: int = 3) -> Tuple[int, int]:
@@ -215,6 +222,8 @@ def streams_fwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
                                            _ptr(carries))
         _raise_on(code, "mlp streams forward")
         launch_counts["mlp_streams_fwd"] += 1
+        fr.count_weight_stream(weight_slots, weight_prefetch, "mlp_streams_fwd", sizes, n, plan,
+                               precision, False)
         return out
 
 
@@ -248,6 +257,8 @@ def streams_bwd(flat: torch.Tensor, sizes: Sequence[int], x: torch.Tensor,
         _raise_on(code, "mlp streams backward")
         launch_counts["mlp_streams_bwd"] += 1
         partial_reduce["mlp_streams_bwd"] += -(-n // plan.tile) * p
+        fr.count_weight_stream(weight_slots, weight_prefetch, "mlp_streams_bwd", sizes, n, plan,
+                               precision, True)
         return dflat
 
 

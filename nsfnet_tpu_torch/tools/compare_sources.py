@@ -1,7 +1,7 @@
 """Do the kernels give the outputs of another copy of the CUDA sources?
 
     python -m nsfnet_tpu_torch.tools.compare_sources <directory with *.cu / *.cuh>
-        [--kernels 1,2,3,4,5,6] [--time]
+        [--kernels 1,2,3,4,5,6] [--time] [--precision high]
 
 Builds the libraries from this checkout's csrc/ and from the given directory
 (for example the csrc/ of an earlier commit, unpacked with `git archive`),
@@ -9,7 +9,8 @@ runs the chosen kernels from both builds on the same seeded inputs on the
 card and compares their outputs, at 6x80 / N = 120,000 and 4x120 /
 N = 40,000 (K = 3 for kernels 1-4, K = 2 for kernels 5+6; kernels 1+2 with
 EVM at the benchmark's two shapes instead: 6x80 at Re 2000 and 6x160 at
-Re 4000, N = 120,000), every kernel at the precision name "high":
+Re 4000, N = 120,000), every kernel at one precision name (--precision,
+"high" by default; a copy from before the tensor cores runs exact fp32):
 
   * a kernel whose design is the same in both copies must be bitwise equal
     (torch.equal); a copy from before the streamed plan (its C interface
@@ -217,11 +218,11 @@ def _ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def run_kernels(csrc: Path, kernels, timed: bool = False) -> dict:
-    """Outputs of the chosen kernels built from `csrc`, by case and kernel:
-    (name, tensors, bitwise, ms) with bitwise False for a design from before
-    the tensor cores; ms (timed, and bitwise only) the kernel's mean time,
-    else None."""
+def run_kernels(csrc: Path, kernels, timed: bool = False, precision: str = "high") -> dict:
+    """Outputs of the chosen kernels built from `csrc` at the precision
+    name, by case and kernel: (name, tensors, bitwise, ms) with bitwise
+    False for a design from before the tensor cores; ms (timed, and bitwise
+    only) the kernel's mean time, else None."""
     _build.CSRC = Path(csrc).resolve()
     _build._loaded.clear()
     for mod in (fr, ms, psi):
@@ -230,14 +231,14 @@ def run_kernels(csrc: Path, kernels, timed: bool = False) -> dict:
     if not header.exists() or "kpanel" not in header.read_text():
         _build.load = lambda name: _Unplanned(_load(name))
     try:
-        return _run(kernels, timed)
+        return _run(kernels, timed, precision)
     finally:
         _build.load = _load
         for mod in (fr, ms, psi):
             mod._lib.cache_clear()
 
 
-def _run(kernels, timed) -> dict:
+def _run(kernels, timed, precision) -> dict:
     dev, out = torch.device("cuda", 0), {}
 
     def entry(name, call, modern):
@@ -257,10 +258,10 @@ def _run(kernels, timed) -> dict:
         if modern:
             args = (flat, sizes, x, e, vis_t, eq_w, re)
             out[case] = {
-                1: entry("fused_residual_fwd", lambda: [fr.fused_fwd(*args, 1.0, True, "high")],
-                         True),
+                1: entry("fused_residual_fwd",
+                         lambda: [fr.fused_fwd(*args, 1.0, True, precision)], True),
                 2: entry("fused_residual_bwd",
-                         lambda: list(fr.fused_bwd(*args, ct, 1.0, True, "high")), True)}
+                         lambda: list(fr.fused_bwd(*args, ct, 1.0, True, precision)), True)}
         else:
             fwd, bwd = _legacy_pair(_load("fused_residual"), flat, sizes, x, e, vis_t,
                                     eq_w, re, ct)
@@ -281,10 +282,10 @@ def _run(kernels, timed) -> dict:
             fwd_modern = "forward_tile(" not in (_build.CSRC / f"{name}.cu").read_text()
             bwd_modern = _modern(_build.CSRC, f"{name}.cu", header)
             lib, prefix = _load(name), f"nsf_{name}"
-            got[kf] = entry(f"{name}_fwd", lambda: list(fwd(flat, sizes, x, "high"))
+            got[kf] = entry(f"{name}_fwd", lambda: list(fwd(flat, sizes, x, precision))
                             if fwd_modern else _legacy_fwd(lib, prefix, flat, sizes, x, n_streams),
                             fwd_modern)
-            got[kb] = entry(f"{name}_bwd", lambda: [bwd(flat, sizes, x, cts, "high")]
+            got[kb] = entry(f"{name}_bwd", lambda: [bwd(flat, sizes, x, cts, precision)]
                             if bwd_modern else _legacy_bwd(lib, prefix, flat, sizes, x, cts),
                             bwd_modern)
     torch.cuda.synchronize()
@@ -298,6 +299,8 @@ def main(argv=None) -> int:
                     help="comma-separated kernel numbers, 1-6 (default: all)")
     ap.add_argument("--time", action="store_true",
                     help="also time both builds' kernels, in turns in this process")
+    ap.add_argument("--precision", default="high", choices=fr.PRECISIONS,
+                    help="the precision name every kernel runs at (default: high)")
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
     kernels = {int(k) for k in a.kernels.split(",")}
     if not kernels <= set(range(1, 7)):
@@ -307,9 +310,11 @@ def main(argv=None) -> int:
         return 1
     here = _build.CSRC
     try:
-        mine, theirs = run_kernels(here, kernels, a.time), run_kernels(a.csrc, kernels, a.time)
+        mine = run_kernels(here, kernels, a.time, a.precision)
+        theirs = run_kernels(a.csrc, kernels, a.time, a.precision)
         if a.time:  # the second turn, in the other order
-            again = (run_kernels(a.csrc, kernels, True), run_kernels(here, kernels, True))
+            again = (run_kernels(a.csrc, kernels, True, a.precision),
+                     run_kernels(here, kernels, True, a.precision))
     finally:
         _build.CSRC = here
         _build._loaded.clear()
@@ -320,8 +325,8 @@ def main(argv=None) -> int:
         for k, (name, tensors, _, ms_) in sorted(got.items()):
             _, ref, bitwise, their_ms = theirs[case][k]
             if a.time and ms_ is not None and their_ms is not None:
-                print(f"{name} {case}: {ms_:.4f} / {again[1][case][k][3]:.4f} ms here, "
-                      f"{their_ms:.4f} / {again[0][case][k][3]:.4f} ms from {a.csrc} "
+                print(f"{name} {case} {a.precision!r}: {ms_:.4f} / {again[1][case][k][3]:.4f} ms "
+                      f"here, {their_ms:.4f} / {again[0][case][k][3]:.4f} ms from {a.csrc} "
                       f"(turns: here, there, there, here; {torch.cuda.get_device_name(0)})")
             if not bitwise:
                 rel = max(((t - r).abs().max() / r.abs().max()).item()
@@ -331,7 +336,7 @@ def main(argv=None) -> int:
                 continue
             eq = all(torch.equal(t, r) for t, r in zip(tensors, ref))
             same = same and eq
-            print(f"{name} {case}: bitwise equal to the build from {a.csrc}: {eq}")
+            print(f"{name} {case} {a.precision!r}: bitwise equal to the build from {a.csrc}: {eq}")
     return 0 if same else 1
 
 

@@ -5,6 +5,8 @@ Marked `gpu`; every test skips (from its fixture) where no CUDA card is
 present. On the card: `python -m pytest tests/test_torch_gpu.py -m gpu`.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -114,16 +116,21 @@ def test_wide_nets_launch_at_high(cuda, h):
     _check_pair(cuda, (2, h, h, 3), 528, 1.0, 2000.0, True, "high")
 
 
-@pytest.mark.parametrize("h", [16, 40, 80, 120, 128])
+@pytest.mark.parametrize("h", [16, 40, 80, 120, 128, 160])
 def test_tile_choice_agrees_with_the_library(cuda, h):
-    # the tile rules size the blocks without the libraries; the sources own the layouts
+    # the tile rules size the blocks without the libraries; the sources own
+    # the layouts, the weight ring's depth and K-extent among them
     hp = -(-h // 16) * 16
+    kx, ring = ctypes.c_int(), fr._lib().nsf_fused_loss_ring
+    ring.argtypes, ring.restype = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     for parts in (1, 2, 3):
         for tile in fr.LOSS_TILES:
             for panel in range(16, hp + 1, 16):
                 if hp % panel == 0:
                     assert (fr._lib().nsf_fused_loss_smem_bytes(tile, panel, h, 3, parts, 0)
                             == fr.loss_smem_bytes(tile, panel, h, parts))
+                    depth = ring(tile, panel, h, 3, parts, ctypes.byref(kx))
+                    assert (depth, kx.value) == fr.ring_plan(tile, panel, h, parts)
     for name in fr.PRECISIONS:
         assert fr.loss_smem_bytes(*fr.pick_loss_tile(h, name), h, fr.PARTS[name]) <= fr._MAX_SMEM
     # kernels 3 and 4 take the pair's rule (the five-stream library's count:

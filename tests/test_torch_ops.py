@@ -217,7 +217,7 @@ def test_tile_choice_and_bounds_accounting():
     # kernels 1+2: 32-point tiles where they fit, a ragged last tile masked
     assert fr.LOSS_TILES == (32, 16) and fr.LOSS_BLOCKS == 132
     assert fr.pick_loss_tile(80, "high") == (32, 80)  # the whole weight, one block per SM
-    assert fr.loss_smem_bytes(32, 80, 80, 2) == 151_872
+    assert fr.loss_smem_bytes(32, 80, 80, 2) == 180_032  # two 28,160 B weight slots
     assert fr.pick_loss_tile(80, "highest") == (32, 80)
     assert fr.pick_loss_tile(80, "default") == (32, 80)
     # every width the configs and tests use launches at "high" (the configs' name)
@@ -252,6 +252,88 @@ def test_tile_choice_and_bounds_accounting():
     t = fr.bwd_traffic(layer_sizes(2, 3, 6, 160), 120_000, "high")
     assert t["partial_rmw"] == 7500 * 129_763 * 8  # 7.79 GB: the 6x160 campaign step
     assert t["weights_staged"] == 7500 * 10 * 2 * 160 * 160 * 2  # 7.68 GB
+
+
+# The resident plans of kernels 1-4 as whole-panel staging chose them, and
+# the weight ring each takes: (tile, panel), (depth, K-extent), by width and
+# name ("highest" at 224 and 288 takes the streamed plan).
+RING_PLANS = {
+    (80, "highest"): ((32, 80), (2, 16)), (80, "high"): ((32, 80), (2, 80)),
+    (80, "default"): ((32, 80), (2, 80)),
+    (120, "highest"): ((16, 64), (2, 64)), (120, "high"): ((32, 64), (2, 64)),
+    (120, "default"): ((32, 128), (2, 128)),
+    (160, "highest"): ((16, 32), (2, 80)), (160, "high"): ((16, 160), (2, 80)),
+    (160, "default"): ((32, 160), (2, 160)),
+    (224, "high"): ((16, 32), (2, 224)), (224, "default"): ((32, 112), (1, 224)),
+    (288, "high"): ((16, 16), (2, 144)), (288, "default"): ((32, 32), (2, 144))}
+
+
+@pytest.mark.parametrize("h", [80, 120, 160, 224, 288])
+def test_weight_ring_slots_leave_the_plans_as_they_were(h):
+    """The ring's slot rule (tc_mlp.cuh tc_ring, its twin `ring_plan`):
+    the plan is the one whole-panel staging chose, and the ring takes two
+    slots of the widest K-extent that fits beside it (a multiple of 16
+    dividing the padded width; below the whole panel only where each warp
+    has at most one unit), else one slot of the whole panel, whose block is
+    that of whole-panel staging."""
+    hp = -(-h // 16) * 16
+    for name in fr.PRECISIONS:
+        parts = fr.PARTS[name]
+        if (h, name) not in RING_PLANS:
+            assert fr.loss_plan(h, name).streamed
+            continue
+        plan, ring = RING_PLANS[(h, name)]
+        assert fr.pick_loss_tile(h, name) == ms.pick_bwd_tile(h, name) == plan
+        assert fr.ring_plan(*plan, h, parts) == ring
+        (tile, panel), (depth, kx) = plan, ring
+        cut = (tile // 16) * (panel // 16) <= fr.TC_WARPS  # at most one unit a warp
+        extents = [k for k in range(16, hp + 1, 16) if hp % k == 0 and (k == hp or cut)]
+        assert kx in extents
+        rest = fr._resident_rest(tile, h, parts, 3)
+        smem = fr.loss_smem_bytes(tile, panel, h, parts)
+        assert smem <= fr._MAX_SMEM
+        assert smem == rest + depth * fr._slot_bytes(panel, kx, parts)
+        fits = [k for k in extents if rest + 2 * fr._slot_bytes(panel, k, parts) <= fr._MAX_SMEM]
+        assert (depth, kx) == ((2, max(fits)) if fits else (1, hp))
+    # the benchmark's two widths at "high": 2 x 80 rows / columns a slot
+    assert fr.ring_plan(32, 80, 80, 2) == (2, 80) and fr.ring_plan(16, 160, 160, 2) == (2, 80)
+    assert fr.loss_smem_bytes(16, 160, 160, 2) == 229_056
+
+
+def test_weight_ring_counters_of_one_launch_at_6x160():
+    """`weight_stream` of one launch of kernels 1 and 2 at 6x160 / N =
+    120,000, "high": 7,500 tiles of 16 points, 5 product layers (10 in the
+    backward), 2 K-slots of 80 a product; all but each of the 132 blocks'
+    first loaded while a product ran. The counters are registered and idle
+    on the CPU, where the plain version runs."""
+    sizes, n = layer_sizes(2, 3, 6, 160), 120_000
+    plan = fr.loss_plan(160, "high")
+    assert plan == fr.Plan(16, 160)
+    assert fr.weight_stream(sizes, n, plan, "high") == (75_000, 74_868)
+    assert fr.weight_stream(sizes, n, plan, "high", reverse=True) == (150_000, 149_868)
+    # depth 1 (224 at "default") and the streamed plan prefetch nothing
+    s224 = layer_sizes(2, 3, 6, 224)
+    assert fr.weight_stream(s224, n, fr.loss_plan(224, "default"), "default", True) == (
+        3750 * 10 * 2, 0)
+    s352 = layer_sizes(2, 3, 6, 352)
+    p352 = fr.loss_plan(352, "high")
+    assert p352.streamed and fr.weight_stream(s352, n, p352, "high") == (
+        7500 * 5 * 3 * 3, 0)  # N-panels of 128, 128, 96; K-panels of 128
+    for mod in (fr, ms):
+        mod.reset_launch_counts()
+    slots, pre = {"k": 0}, {"k": 0}
+    fr.count_weight_stream(slots, pre, "k", sizes, n, plan, "high", True)
+    fr.count_weight_stream(slots, pre, "k", sizes, n, plan, "high", True)
+    assert (slots, pre) == ({"k": 300_000}, {"k": 299_736})
+    flat = flatten_params(params_from_numpy(jax_init_mlp(jax.random.PRNGKey(0), (2, 8, 8, 3))))
+    flat.requires_grad_(True)
+    x, e, vis_t, w = (_t(a) for a in _inputs(64, tail=3))
+    fr.fused_residual_loss(flat, (2, 8, 8, 3), x, e, vis_t, w, 100.0).sum().backward()
+    counts = profiling.counts()
+    for what in ("weight_slots", "weight_prefetch"):
+        assert {k: counts[f"{what}.{k}"] for k in (*fr.launch_counts, *ms.launch_counts)} == {
+            "fused_residual_fwd": 0, "fused_residual_bwd": 0, "mlp_streams_fwd": 0,
+            "mlp_streams_bwd": 0}
 
 
 # ------------------------------------------------------------ loss fn
